@@ -4,14 +4,21 @@ A second package beside ``finmath_tpu`` (the JAX reference, which it never
 imports). Module paths and names mirror the JAX package so every part has
 an obvious counterpart; ``TPU`` in a class name becomes ``Torch``.
 
-Ported so far (slice A, the LMM ATM swaption calibration):
+Ported so far (slice A, the LMM ATM swaption calibration, and slice B,
+the reference's stoch-vol benchmark calibration):
 
 * ``models.time_discretization``, ``models.curves``, ``models.calibration``
   — host-side NumPy, copied from the reference package;
-* ``models.lmm`` — covariance, the LMM valuation engine, the analytic
-  approximation, the ATM kernel calibration backend and the ATM workload;
-* ``ops.lmm_kernel`` — the ATM-surface path-sweep kernel (CUDA C++ in
-  ``csrc/lmm_atm_products.cu``) and its plain PyTorch version;
+* ``native.host_rng`` and ``models.brownian_motion`` (the finmath
+  Mersenne realization only) — the reference benchmark's own random
+  stream, bit for bit;
+* ``models.lmm`` — covariance (incl. the 5-parameter, blended and
+  stochastic-volatility models), the LMM valuation engine, the analytic
+  approximation, both kernel calibration backends, and the ATM and
+  benchmark workloads;
+* ``ops.lmm_kernel`` and ``ops.lmm_stochvol_kernel`` — the ATM-surface
+  and stoch-vol path-sweep kernels (CUDA C++ in ``csrc/``) and their plain
+  PyTorch versions;
 * ``convert`` — parameter vectors and Brownian realizations carried over
   from the JAX package as NumPy arrays.
 

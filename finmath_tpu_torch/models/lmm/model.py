@@ -4,26 +4,34 @@ differentiable function of the covariance parameters.
 Counterpart of ``finmath_tpu.models.lmm.model`` (finmath-lib's
 ``LIBORMarketModelFromCovarianceModel`` + ``EulerSchemeFromProcessModel`` +
 ``SwaptionSimple`` as the reference's ATM calibration test drives them,
-LIBORMarketModelCalibrationATMTest.java:270-466). This slice carries the
-configuration that calibration uses: spot measure, NORMAL state space
-(optionally with the displaced local-volatility wrapper), the Euler scheme,
+LIBORMarketModelCalibrationATMTest.java:270-466) and of its stoch-vol
+benchmark calibration (LIBORMarketModelCalibrationTest.java:246-306). The
+port carries the configurations those calibrations use: spot measure,
+NORMAL state space (optionally with a displaced or blended local
+volatility, optionally with stochastic volatility), the Euler scheme,
 simulation grid equal to the tenor grid, one device, plain Monte Carlo.
 Other options raise ``NotImplementedError`` naming the part of the port
 that brings them.
 
 One call simulates every path once and values all products from the same
-ensemble: path state is float32 ``[libors, paths]``, the spot numeraire and
-every collection (bond curve, annuity, payoff) are float64. The time loop
-is a Python loop; ``jacobian`` is ``torch.func.jacfwd`` of the residual
-function, exact (not finite differences), so the loop stays free of
-in-place updates on tensors that carry tangents.
+ensemble: path state is float32 ``[libors, paths]``, the spot numeraire,
+the stochastic-volatility process and every collection (bond curve,
+annuity, payoff) are float64. The time loop is a Python loop; ``jacobian``
+is ``torch.func.jacfwd`` of the residual function, exact (not finite
+differences), so the loop stays free of in-place updates on tensors that
+carry tangents.
 
 Spot-measure drift, NORMAL state space (forwards evolved directly):
   dL_i = lambda_i . (sum_{j=m+1..i} delta_j lambda_j / (1+delta_j L_j)) dt
          + lambda_i . dW
-with lambda_{i,f}(t, L) = localFactor(L_i) * sigma_i(t) * R_{i,f}.
-Numeraire: N(T_m) = prod_{j<m} (1 + delta_j L_j(T_j)), with the
-deterministic adjustment E[1/N(T)] -> df(T) applied to the values.
+with lambda_{i,f}(t, L) = localFactor(L_i) * sigma_i(t) * V(t)^e * R_{i,f}
+(V = 1 without stochastic volatility). Stochastic volatility draws one
+more Brownian factor, dW_V = rho dW_0 + sqrt(1-rho^2) dW_F, and steps
+V *= exp(nu dW_V - nu^2 dt / 2) (the drift only with the martingale
+correction), capped at 1e6; the new V scales the loadings from the next
+step on. Numeraire: N(T_m) = prod_{j<m} (1 + delta_j L_j(T_j)), with the
+deterministic adjustment E[1/N(T)] -> df(T) applied to the values when the
+model asks for it.
 """
 
 from __future__ import annotations
@@ -66,6 +74,98 @@ def bachelier_implied_vol(value, forward, strike, maturity, annuity,
         step = (val - p) / torch.clamp_min(vega, 1e-14)
         sigma = torch.clamp(sigma - step, 1e-12, 10.0)
     return sigma
+
+
+class _BlackImpliedVol(torch.autograd.Function):
+    """``black_implied_vol`` with its implicit-function derivative. The
+    root solves OTM(sigma; F, K, T) = p - max(F - K, 0), p = value /
+    annuity, so with vega = F sqrt(T) phi(d1):
+        d sigma = (dp - N(d1) dF + N(d2) dK - vega sigma / (2 T) dT) / vega,
+    and 0 where the inversion returned 0 or sits on a bound. The JAX
+    package differentiates through its 60 Newton steps, which converge to
+    the same derivative; here forward mode costs a few operations instead
+    of 60 steps of tangents."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(value, forward, strike, maturity, annuity, num_iter):
+        sqrt_t = torch.sqrt(maturity)
+        p = value / annuity
+        intrinsic = torch.clamp_min(forward - strike, 0.0)
+        raw_time_value = p - intrinsic
+        time_value = torch.clamp_min(raw_time_value, 1e-16)
+        # OTM twin: if F >= K invert the put (value = time value), else
+        # the call
+        is_itm = forward >= strike
+        erfc = torch.special.erfc
+        inv_sqrt2 = 1.0 / math.sqrt(2.0)
+        log_fk = torch.log(forward / strike)
+        sigma = torch.clamp_min(
+            torch.sqrt(2.0 * torch.abs(log_fk) / maturity), 1e-2)
+        for _ in range(num_iter):
+            v = torch.clamp_min(sigma, 1e-8) * sqrt_t
+            d1 = log_fk / v + 0.5 * v
+            d2 = d1 - v
+            call = 0.5 * (forward * erfc(-d1 * inv_sqrt2)
+                          - strike * erfc(-d2 * inv_sqrt2))
+            put = 0.5 * (strike * erfc(d2 * inv_sqrt2)
+                         - forward * erfc(d1 * inv_sqrt2))
+            vega = forward * sqrt_t * _npdf(d1)
+            val = torch.where(is_itm, put, call)
+            step = (val - time_value) / torch.clamp_min(vega, 1e-16)
+            # damped Newton: cap the multiplicative move
+            step = torch.minimum(torch.maximum(step, -0.5 * sigma), 0.5 * sigma)
+            sigma = torch.clamp(sigma - step, 1e-8, 10.0)
+        return torch.where(raw_time_value <= 1e-12 * forward, 0.0, sigma)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        value, forward, strike, maturity, annuity, _ = inputs
+        ctx.save_for_forward(value, forward, strike, maturity, annuity,
+                             output)
+
+    @staticmethod
+    def jvp(ctx, value_dot, forward_dot, strike_dot, maturity_dot,
+            annuity_dot, _):
+        value, forward, strike, maturity, annuity, sigma = ctx.saved_tensors
+        p = value / annuity
+        sqrt_t = torch.sqrt(maturity)
+        v = sigma * sqrt_t
+        d1 = torch.log(forward / strike) / v + 0.5 * v
+        vega = forward * sqrt_t * _npdf(d1)
+        numerator = torch.zeros_like(sigma)
+        if value_dot is not None:
+            numerator = numerator + value_dot / annuity
+        if annuity_dot is not None:
+            numerator = numerator - p * annuity_dot / annuity
+        if forward_dot is not None:
+            numerator = numerator - _ncdf(d1) * forward_dot
+        if strike_dot is not None:
+            numerator = numerator + _ncdf(d1 - v) * strike_dot
+        if maturity_dot is not None:
+            numerator = numerator - vega * sigma / (2.0 * maturity) * maturity_dot
+        time_value = p - torch.clamp_min(forward - strike, 0.0)
+        live = ((sigma > 1e-8) & (sigma < 10.0) & (time_value > 1e-16)
+                & (vega > 1e-16))
+        return torch.where(live, numerator / torch.where(live, vega, 1.0),
+                           0.0)
+
+
+def black_implied_vol(value, forward, strike, maturity, annuity,
+                      num_iter: int = 60):
+    """Differentiable Black (lognormal) implied volatility, elementwise
+    (float64 tensors that broadcast together).
+
+    Deep in-the-money options have almost no vega, so the TIME VALUE of
+    the out-of-the-money twin is inverted instead (call-put parity: equal
+    time value, same vega), by damped Newton from the Manaster-Koehler
+    seed sqrt(2|ln(F/K)|/T). The OTM value comes from erfc tail
+    probabilities, which keep their relative precision in the tails.
+    Quotes at or below intrinsic value return vol 0. Forward-mode
+    derivatives are implicit (see ``_BlackImpliedVol``)."""
+    return _BlackImpliedVol.apply(value, forward, strike, maturity, annuity,
+                                  num_iter)
 
 
 @dataclass(frozen=True)
@@ -139,11 +239,12 @@ class LMMValuationEngine:
     parameter vector, on one device.
 
     The Brownian realization is drawn once, at construction, on the
-    engine's device and kept there (``increments``, ``[S, F, paths]``
-    float32 already scaled by sqrt(dt), ``S`` the last exercise step): from
+    engine's device and kept there (``increments``, ``[S, F', paths]``
+    float32 already scaled by sqrt(dt), ``S`` the last exercise step,
+    ``F'`` the factors plus one with stochastic volatility): from
     ``torch.Generator(device).manual_seed(seed)``, or the caller's
-    ``increments=`` in the JAX engine's injected format (NumPy or tensor).
-    Every evaluation prices the same paths."""
+    ``increments=`` in the JAX engine's injected format (NumPy or tensor;
+    ``injected`` says which). Every evaluation prices the same paths."""
 
     def __init__(self, model: LIBORMarketModelTorch,
                  products: Sequence[SwaptionProduct],
@@ -173,9 +274,6 @@ class LMMValuationEngine:
         if model.state_space != "normal":
             raise NotImplementedError(
                 "lognormal state space comes with the rest of the LMM stack")
-        if model.covariance.has_stoch_vol:
-            raise NotImplementedError(
-                "stochastic volatility comes with the stoch-vol calibration")
         n = model.num_libors
         if len(model.sim_times) != n + 1 or not np.allclose(
                 model.sim_times, model.tenor_times, atol=1e-9):
@@ -206,11 +304,8 @@ class LMMValuationEngine:
         if len(units) > 1:
             raise ValueError(f"mixed value units not supported: {units}")
         self.value_unit = units.pop()
-        if self.value_unit == "VOLATILITYLOGNORMAL":
-            raise NotImplementedError(
-                "lognormal quotes (Black implied vol) come with the "
-                "stoch-vol calibration")
-        if self.value_unit not in ("VOLATILITYNORMAL", "VALUE"):
+        if self.value_unit not in ("VOLATILITYNORMAL", "VOLATILITYLOGNORMAL",
+                                   "VALUE"):
             raise ValueError(f"unknown value unit {self.value_unit}")
 
         # ---- static packing (host float64, as in the JAX engine) ----------
@@ -269,7 +364,13 @@ class LMMValuationEngine:
                 strike=torch.as_tensor([p.strike for p in group],
                                        dtype=f64, device=dev)))
 
-        shape = (self.steps_needed, self.num_factors, self.num_paths)
+        # stochastic volatility consumes one extra Brownian factor, the
+        # driver of V (ref. wires it via a BrownianMotionView on factors
+        # {0, extra}, benchmark test :267-269)
+        self.stoch_vol = bool(model.covariance.has_stoch_vol)
+        rng_factors = self.num_factors + int(self.stoch_vol)
+        shape = (self.steps_needed, rng_factors, self.num_paths)
+        self.injected = increments is not None
         if increments is not None:
             inc = torch.as_tensor(increments).to(device=dev, dtype=f32)
             if (inc.dim() != 3 or inc.shape[1:] != shape[1:]
@@ -277,7 +378,7 @@ class LMMValuationEngine:
                 raise ValueError(
                     f"injected increments have shape {tuple(inc.shape)}, "
                     f"engine needs [steps in {shape[0]}..{self.num_steps}, "
-                    f"factors={self.num_factors}, paths={self.num_paths}]")
+                    f"factors={rng_factors}, paths={self.num_paths}]")
             self.increments = inc[:shape[0]].contiguous()
         else:
             gen = torch.Generator(device=dev).manual_seed(self.seed)
@@ -320,14 +421,25 @@ class LMMValuationEngine:
         and nothing needs the fixed rows again."""
         t = self._t
         cov = self.model.covariance
-        n, paths = self.model.num_libors, self.num_paths
+        n, paths, F = self.model.num_libors, self.num_paths, self.num_factors
+        f32, f64 = torch.float32, torch.float64
         prep = cov.prepare(params)
-        vol = cov.vol_table(prep).to(torch.float32)                # [S, n]
-        R = cov.factor_matrix(prep).to(torch.float32)              # [n, F]
+        vol = cov.vol_table(prep).to(f32)                          # [S, n]
+        R = cov.factor_matrix(prep).to(f32)                        # [n, F]
         L0 = t["L0"][:, None].expand(n, paths)
         d32 = t["deltas32"][:, None]
         L = L0                                                     # rows s..n-1
-        N = torch.ones(paths, dtype=torch.float64, device=self.device)
+        N = torch.ones(paths, dtype=f64, device=self.device)
+        if self.stoch_vol:
+            # nu and rho enter in the path dtype, V and its step in float64
+            # (the JAX engine's choice: one downcast of V per step instead
+            # of a float32 product of exponentials)
+            nu, rho = (torch.as_tensor(p, dtype=f64, device=self.device)
+                       .to(f32).to(f64) for p in cov.stoch_vol_params(prep))
+            somega = torch.sqrt(torch.clamp_min(1.0 - rho * rho, 1e-12))
+            exponent = getattr(cov, "scaling_exponent", 0.5)
+            martingale = getattr(cov, "martingale_correction", True)
+            V = torch.ones(paths, dtype=f64, device=self.device)
         raws, invs = [], []
         events = iter(self._events)
         ev = next(events)
@@ -340,18 +452,31 @@ class LMMValuationEngine:
                 if ev is None:
                     break
             # spot account accrues period s at its fixing L_s
-            N = N * (1.0 + t["deltas32"][s] * L[0]).to(torch.float64)
+            N = N * (1.0 + t["deltas32"][s] * L[0]).to(f64)
             La = L[1:]                                             # rows s+1..
-            lam = (vol[s, s + 1:, None] * R[s + 1:])[:, :, None]   # [n', F, 1]
+            lam = vol[s, s + 1:, None]                             # [n', 1]
             if cov.has_local_vol:
-                lam = lam * cov.local_factor(prep, La, L0[s + 1:])[:, None, :]
+                lam = lam * cov.local_factor(prep, La, L0[s + 1:])
+            if self.stoch_vol:
+                Vc = V.to(f32)
+                lam = lam * (Vc if exponent == 1.0 else torch.sqrt(Vc)
+                             if exponent == 0.5 else Vc ** exponent)
+            lam = lam[:, None, :] * R[s + 1:, :, None]             # [n', F, .]
             d = d32[s + 1:]
             mt = d / (1.0 + d * La)
             acc = torch.cumsum(mt[:, None, :] * lam, dim=0)        # incl. own
             mu = torch.sum(lam * acc, dim=1)
-            diffusion = torch.sum(lam * self.increments[s][None], dim=1)
+            dw = self.increments[s]                                # [F', paths]
+            diffusion = torch.sum(lam * dw[None, :F], dim=1)
             # float32 guard: rates beyond +-1000 carry no price information
             L = torch.clamp(La + mu * t["dts"][s] + diffusion, -1e3, 1e3)
+            if self.stoch_vol:
+                dw_v = rho * dw[0].to(f64) + somega * dw[F].to(f64)
+                arg = nu * dw_v
+                if martingale:
+                    arg = arg - 0.5 * nu * nu * t["dts"][s].to(f64)
+                # the same overflow guard for the scaling process
+                V = torch.clamp_max(V * torch.exp(arg), 1e6)
         raw = torch.cat(raws) / paths                              # [P]
         if not self.model.use_numeraire_adjustment:
             return raw
@@ -362,8 +487,9 @@ class LMMValuationEngine:
         if self.value_unit == "VALUE":
             return values
         t = self._t
-        return bachelier_implied_vol(values, t["fwd0"], t["strike"],
-                                     t["texp"], t["ann0"])
+        invert = (black_implied_vol if self.value_unit == "VOLATILITYLOGNORMAL"
+                  else bachelier_implied_vol)
+        return invert(values, t["fwd0"], t["strike"], t["texp"], t["ann0"])
 
     def _residuals(self, params: torch.Tensor) -> torch.Tensor:
         t = self._t

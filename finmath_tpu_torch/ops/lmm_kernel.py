@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from . import _cuda_build
+from ._products import Product, check_products, check_tensor, product_tables
 
 SOURCE = "lmm_atm_products.cu"
 TILE = 128                    # paths per block, one thread per path
@@ -46,8 +47,6 @@ MAX_FACTORS = 8               # kMaxFactors in the CUDA source
 #: kernel launches since the last reset (plain integer; a run resets it
 #: and reads it to show that its main path went through the kernel)
 LAUNCHES = 0
-
-Product = Tuple[int, int, float]
 
 
 @functools.cache
@@ -74,52 +73,20 @@ def load_kernel() -> None:
 def _check_layout(products: Sequence[Product], events: Sequence[int],
                   num_libors: int) -> int:
     """Validate the product/event packing; returns the step count S."""
-    if not products:
-        raise ValueError("at least one product is required")
-    es = [int(e) for e, _, _ in products]
-    if any(b < a for a, b in zip(es, es[1:])):
-        raise ValueError("products must be grouped by ascending exercise "
-                         "index (engine order)")
-    for e, m, _ in products:
-        if e < 1 or m < 1 or e + m > num_libors:
-            raise ValueError(f"product (e={e}, m={m}) does not fit on "
-                             f"{num_libors} libors")
-    if list(events) != sorted(set(es)):
+    S = check_products(products, num_libors)
+    if list(events) != sorted({e for e, _, _ in products}):
         raise ValueError("events must be the products' ascending exercise "
                          "indices")
-    return es[-1]
+    return S
 
 
 @functools.lru_cache(maxsize=8)
-def _step_tables(products: Tuple[Product, ...], events: Tuple[int, ...],
-                 device: torch.device):
-    """Per-step event ordinals [S+1], per-step product offsets [S+2],
-    periods [P] (int32) and strikes [P] (float32), on ``device``."""
-    S = products[-1][0]
-    step_event = np.full(S + 1, -1, np.int32)
+def _step_events(events: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """[S+1] int32: the event ordinal of each step, -1 where none."""
+    step_event = np.full(events[-1] + 1, -1, np.int32)
     for j, e in enumerate(events):
         step_event[e] = j
-    counts = np.bincount([e for e, _, _ in products], minlength=S + 2)
-    step_first = np.concatenate([[0], np.cumsum(counts)[:S + 1]]).astype(
-        np.int32)
-    periods = np.asarray([m for _, m, _ in products], np.int32)
-    strikes = np.asarray([k for _, _, k in products], np.float32)
-    ints = torch.from_numpy(np.concatenate([step_event, step_first, periods]))
-    return ints.to(device), torch.from_numpy(strikes).to(device)
-
-
-def _check_tensor(name, t, shape, dtype, device):
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name} must be a torch.Tensor")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, z on {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+    return torch.from_numpy(step_event).to(device)
 
 
 def lmm_atm_swaptions_batch(z, volT_b, scal_b, initial_forwards, deltas, *,
@@ -135,12 +102,12 @@ def lmm_atm_swaptions_batch(z, volT_b, scal_b, initial_forwards, deltas, *,
     S = _check_layout(products, events, n)
     device = z.device
     B = int(volT_b.shape[0])
-    _check_tensor("z", z, (S * F, num_paths), torch.float32, device)
-    _check_tensor("volT_b", volT_b, (B, F * n, S), torch.float32, device)
-    _check_tensor("scal_b", scal_b, (B, 8), torch.float32, device)
-    _check_tensor("initial_forwards", initial_forwards, (n,), torch.float32,
-                  device)
-    _check_tensor("deltas", deltas, (n,), torch.float32, device)
+    check_tensor("z", z, (S * F, num_paths), torch.float32, device)
+    check_tensor("volT_b", volT_b, (B, F * n, S), torch.float32, device)
+    check_tensor("scal_b", scal_b, (B, 8), torch.float32, device)
+    check_tensor("initial_forwards", initial_forwards, (n,), torch.float32,
+                 device)
+    check_tensor("deltas", deltas, (n,), torch.float32, device)
     if B < 1:
         raise ValueError("at least one parameter set is required")
     if device.type == "cpu":
@@ -157,10 +124,8 @@ def lmm_atm_swaptions_batch(z, volT_b, scal_b, initial_forwards, deltas, *,
     P, E = len(products), len(events)
     # a curve or row count that needs more shared memory per block than the
     # card allows fails in the launcher's cudaFuncSetAttribute, raised below
-    ints, strikes = _step_tables(products, events, device)
-    step_event = ints[:S + 1]
-    step_first = ints[S + 1:2 * S + 3]
-    periods = ints[2 * S + 3:]
+    step_event = _step_events(events, device)
+    tables = product_tables(products, device)
     tiles = -(-num_paths // TILE)
     partials = torch.empty((B, tiles, P + E), dtype=torch.float64,
                            device=device)
@@ -170,8 +135,9 @@ def lmm_atm_swaptions_batch(z, volT_b, scal_b, initial_forwards, deltas, *,
         err = lib.lmm_atm_products_launch(
             z.data_ptr(), num_paths, volT_b.data_ptr(), scal_b.data_ptr(),
             initial_forwards.data_ptr(), deltas.data_ptr(),
-            step_event.data_ptr(), step_first.data_ptr(), periods.data_ptr(),
-            strikes.data_ptr(), partials.data_ptr(), n, F, S, P, E,
+            step_event.data_ptr(), tables.step_first.data_ptr(),
+            tables.periods.data_ptr(), tables.strikes.data_ptr(),
+            partials.data_ptr(), n, F, S, P, E,
             num_paths, B, int(bool(displaced)), stream)
     if err != 0:
         msg = lib.lmm_atm_products_error_string(err).decode()

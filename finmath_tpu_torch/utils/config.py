@@ -28,13 +28,17 @@ def select_device(index: int | None = None) -> torch.device:
 
     ``index`` (or ``FINMATH_TPU_DEVICE_INDEX`` when ``index`` is None) picks
     a CUDA device, negative values wrapping from the end. With neither set,
-    the current CUDA device when one is visible, else the CPU."""
+    the current CUDA device. There is no quiet fallback: without a CUDA
+    device this raises, and a caller that wants the CPU passes
+    ``device="cpu"`` to the entry point."""
     if index is None:
         raw = os.environ.get("FINMATH_TPU_DEVICE_INDEX")
         if raw is None:
-            if torch.cuda.is_available():
-                return torch.device("cuda", torch.cuda.current_device())
-            return torch.device("cpu")
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "no CUDA device is visible; pass device=\"cpu\" "
+                    "explicitly to compute on the CPU")
+            return torch.device("cuda", torch.cuda.current_device())
         index = int(raw)
     count = torch.cuda.device_count() if torch.cuda.is_available() else 0
     return torch.device("cuda", resolve_device_index(index, count))

@@ -155,7 +155,10 @@ def test_covariance_tables_agree_f64(displaced):
 class TestPackage:
     def test_import_pulls_in_no_jax(self):
         code = ("import sys, finmath_tpu_torch, finmath_tpu_torch.models.lmm,"
-                " finmath_tpu_torch.convert; "
+                " finmath_tpu_torch.convert, finmath_tpu_torch.native,"
+                " finmath_tpu_torch.models.brownian_motion,"
+                " finmath_tpu_torch.models.lmm.benchmark_calibration,"
+                " finmath_tpu_torch.ops.lmm_stochvol_kernel; "
                 "bad = [m for m in sys.modules if m == 'jax' or "
                 "m.startswith(('jax.', 'finmath_tpu.')) or m == 'finmath_tpu'];"
                 " print(bad); sys.exit(1 if bad else 0)")
@@ -176,8 +179,18 @@ class TestPackage:
             with pytest.raises(ValueError):
                 resolve_device_index(bad, 4)
         monkeypatch.delenv("FINMATH_TPU_DEVICE_INDEX", raising=False)
-        expect = "cuda" if torch.cuda.is_available() else "cpu"
-        assert select_device().type == expect
+        if torch.cuda.is_available():
+            assert select_device().type == "cuda"
+        else:
+            # no quiet CPU fallback: the caller has to ask for the CPU
+            with pytest.raises(RuntimeError, match='device="cpu"'):
+                select_device()
+            from finmath_tpu_torch.models.lmm import (
+                build_atm_calibration, build_benchmark_calibration)
+
+            for build in (build_atm_calibration, build_benchmark_calibration):
+                with pytest.raises(RuntimeError, match="no CUDA device"):
+                    build(num_paths=8)
         count = torch.cuda.device_count() if torch.cuda.is_available() else 0
         monkeypatch.setenv("FINMATH_TPU_DEVICE_INDEX", str(count))
         with pytest.raises(ValueError):
