@@ -8,10 +8,11 @@ Phases, one line of output each (more for the kernel builds), in order:
 
 1. the card: ``torch.cuda.get_device_name()`` and ``nvidia-smi``'s name
    and power limit (fails without a CUDA device);
-2. build both kernels from the sources, one ``nvcc`` each, started
-   together: the ATM-surface kernel (``csrc/lmm_atm_products.cu``) and
-   the stoch-vol kernel (``csrc/lmm_stochvol_products.cu``); print each
-   build's seconds and ptxas' register/spill report;
+2. build the three kernel sources, one ``nvcc`` each, started together:
+   the ATM-surface kernel (``csrc/lmm_atm_products.cu``), the stoch-vol
+   kernel (``csrc/lmm_stochvol_products.cu``) and the Monte-Carlo path
+   kernels (``csrc/mc_paths.cu``); print each build's seconds and ptxas'
+   register/spill report;
 3. the ATM kernel against its plain PyTorch version on the card at the ATM
    shapes: 100,000 paths B=1 NORMAL, 100,003 paths (ragged tail), and the
    FD-Jacobian batch B=87 at 8,192 paths DISPLACED; every row's path sum
@@ -43,18 +44,39 @@ Phases, one line of output each (more for the kernel builds), in order:
    (kernel, reduced-path engine, oracle, analytic) are counted and timed;
 9. stoch-vol kernel against plain version time at B=1 and B=17, 81,920
    paths (median of 5, CUDA events);
+10. the path kernels' device generator: ``philox_normals`` bit for bit
+    against the plain Philox on the card (1M normals), and the moments of
+    20M normals within 5 standard errors of N(0, 1)'s;
+11. the European and Asian path kernels against their plain versions on
+    the card at 1,000,000 x 100, 1,000,003 x 99 (ragged tail, odd step)
+    and 8,192 x 1: per path within rtol 1e-6, atol 1e-7, the float64 price
+    within 1e-9 relative, a second launch bitwise equal;
+12. slice C's main path, the reference's MonteCarloBlackScholesModelTest
+    at its full size (1M paths, 100 steps, S0 1, r 0.05, sigma 0.3, T 1,
+    K 1.05): (a) the object API on the port's torch stream, (b) the same
+    on the reference's Mersenne stream, (c) ``mc_european_call_price_kernel``
+    — each within 0.005 of the analytic price, (c) also within 4 standard
+    errors — and (d) ``mc_asian_call_price_kernel`` against the plain
+    ``mc_asian_call_price`` within 4 combined standard errors, with
+    0 < Asian < European; one launch per kernel call; then each route's
+    wall (min of 3 after a warm-up);
+13. a vector-engine sweep on the card: eleven ``RandomVariableTorch``
+    operations at 1M paths against ``RandomVariableFloat`` at the JAX
+    parity sweep's tolerances, and the float64 reductions against NumPy;
+14. the European and Asian kernels against their plain versions, timed at
+    1M x 100 (median of 5, CUDA events);
 6. with ``--profile`` only, last: device operations and busy time under
    ``torch.profiler`` for one ATM calibration, one engine Jacobian, one
    ATM kernel residual call, one stoch-vol kernel
    ``residuals_and_jacobian`` call and one reduced-path stoch-vol engine
    Jacobian, against the same call's unprofiled wall.
 
-Then the whole script's seconds, one JSON line with both kernels' numbers
-(``bound_ms`` is the least time of the same work on an H100: the larger
-of the operations counted from the shapes over 67 TFLOP/s float32 and the
-bytes over 3.35 TB/s) and, last, the device line ``{"ok": true,
-"device": {...}}``. Any failure raises and exits non-zero before those
-lines; there is no CPU path.
+Then the whole script's seconds, one JSON line with the four kernels'
+numbers (``bound_ms`` is the least time of the same work on an
+H100: the larger of the operations counted from the shapes over 67 TFLOP/s
+float32, integer operations included, and the bytes over 3.35 TB/s)
+and, last, the device line ``{"ok": true, "device": {...}}``. Any failure
+raises and exits non-zero before those lines; there is no CPU path.
 """
 
 from __future__ import annotations
@@ -73,6 +95,9 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 PATHS, JAC_PATHS, SEED = 100_000, 5_000, 31415
 SV_PATHS, SV_SEED, SV_TARGET_RMS19 = 81_920, 314151, 0.00198
+# MonteCarloBlackScholesModelTest: S0, r, sigma, T, K; 1M paths x 100 steps
+BS_PARAMS, BS_PATHS, BS_STEPS, BS_SEED = (1.0, 0.05, 0.3, 1.0, 1.05), \
+    1_000_000, 100, 3141
 RTOL, ATOL_PER_PATH = 1e-5, 1e-7
 # the published H100 SXM peaks the bound is taken against
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
@@ -113,6 +138,22 @@ def _bound(args, out, operations):
     by_bytes = nbytes / PEAK_BYTES_PER_S
     return (max(by_ops, by_bytes) * 1e3,
             "operations" if by_ops >= by_bytes else "bytes")
+
+
+def _mc_path_operations(paths, steps, asian):
+    """Operations of one Monte-Carlo path kernel launch, counted from the
+    shapes as ``csrc/mc_paths.cu`` does the work: per draw of four normals
+    (ceil(steps / 4) a path) Philox4x32-10's 10 rounds of two 32-bit
+    multiply-highs, two multiply-lows, four XORs and two key additions
+    (100), and two Box-Muller pairs at about 37 float operations a normal
+    with the accurate logf, sqrtf, sinf and cosf (148); per step the path
+    update (2 for the European kernel's paired steps, 3 plus an expf of
+    about 20 and the running sum's add for the Asian one); per path the
+    payoff (expf, subtract, max: 22; the Asian divide and max: 3)."""
+    draws = -(-steps // 4)
+    per_path = draws * (100 + 148)
+    per_path += steps * (24 if asian else 2) + (3 if asian else 22)
+    return per_path * paths
 
 
 def _time_ms(torch, fn, reps=5):
@@ -203,6 +244,237 @@ def _profile(torch, setup, kb, sv, sv_kb) -> None:
     print("phase 6 profile: " + json.dumps(out), flush=True)
 
 
+def _slice_c(torch, smi):
+    """Phases 10-14: the device generator, the Monte-Carlo path kernels
+    against their plain versions, slice C's main path at the reference's
+    full size, a vector-engine sweep on the card, and the kernels' times.
+    Returns the two kernels' rows of the final JSON line."""
+    from finmath_tpu_torch.models.analytic import black_scholes_option_value
+    from finmath_tpu_torch.models.black_scholes import (
+        BlackScholesModel, EuropeanOption, MonteCarloBlackScholesModel,
+        mc_asian_call_price)
+    from finmath_tpu_torch.models.brownian_motion import (
+        BrownianMotionFinmathMersenne)
+    from finmath_tpu_torch.models.time_discretization import (
+        TimeDiscretization)
+    from finmath_tpu_torch.ops import kernels, lmm_kernel, lmm_stochvol_kernel
+    from finmath_tpu_torch.ops.random_variable import RandomVariableTorch
+    from finmath_tpu_torch.ops.random_variable_float import (
+        RandomVariableFloat)
+
+    S0, R, SIGMA, T, K = BS_PARAMS
+    analytic = black_scholes_option_value(S0, R, SIGMA, T, K)
+    df = float(np.exp(-R * T))
+
+    # -- 10: the device generator against the plain one -------------------
+    z = kernels.philox_normals(BS_SEED, 250_000, 1, "cuda")
+    bitwise = bool(torch.equal(z, kernels.normal_pairs(BS_SEED, 250_000, 1,
+                                                       "cuda")))
+    n_bitwise = z.numel()
+    big = kernels.philox_normals(BS_SEED + 1, 5_000_000, 1,
+                                 "cuda").reshape(-1).double()
+    n = big.numel()
+    m1 = float(big.mean())
+    var = float((big * big).mean()) - m1 * m1
+    m4 = float((big ** 4).mean())
+    moments = {"|mean|": (abs(m1), 5 / np.sqrt(n)),
+               "|var - 1|": (abs(var - 1), 5 * np.sqrt(2 / n)),
+               "|E z^4 - 3|": (abs(m4 - 3), 5 * np.sqrt(96 / n))}
+    print(f"phase 10 generator: {n_bitwise:,} normals bitwise equal to the "
+          f"plain Philox: {bitwise}; {n:,} normals: mean={m1:.3e} "
+          f"var={var:.6f} E[z^4]={m4:.5f}; "
+          + ", ".join(f"{k} {v:.3e} < {b:.3e}" for k, (v, b) in
+                      moments.items()), flush=True)
+    del z, big
+    if not (bitwise and all(v < b for v, b in moments.values())):
+        raise SystemExit("chip_smoke: phase 10: the device generator "
+                         "disagrees with the plain one or its moments")
+
+    # -- 11: each path kernel against its plain version on the card --------
+    runs = {"bs_paths": (kernels.bs_payoffs, kernels.bs_paths_reference),
+            "asian_paths": (kernels.asian_payoffs,
+                            kernels.asian_paths_reference)}
+    max_abs = {name: 0.0 for name in runs}
+    for paths, steps in ((BS_PATHS, BS_STEPS), (1_000_003, 99), (8_192, 1)):
+        params = kernels.path_params(steps, S0, R, SIGMA, T, K)
+        for name, (run, plain) in runs.items():
+            got = run(BS_SEED, paths, steps, params, "cuda")
+            again = run(BS_SEED, paths, steps, params, "cuda")
+            torch.cuda.synchronize()
+            ref = plain(BS_SEED, paths, steps, params, "cuda")
+            err = (got - ref).abs()
+            within = bool((err <= 1e-6 * ref.abs() + 1e-7).all())
+            max_rel = float((err / ref.abs().clamp_min(1e-30)).max())
+            p_got = float(got.sum(dtype=torch.float64)) / paths
+            p_ref = float(ref.sum(dtype=torch.float64)) / paths
+            price_rel = abs(p_got - p_ref) / abs(p_ref)
+            repeatable = bool(torch.equal(got, again))
+            ok = (bool(torch.isfinite(got).all()) and within
+                  and price_rel < 1e-9 and repeatable)
+            max_abs[name] = max(max_abs[name], float(err.max()))
+            print(f"phase 11 {name} vs plain: paths={paths} steps={steps} "
+                  f"max_abs_err={float(err.max()):.3e} max_rel={max_rel:.3e} "
+                  f"price_rel={price_rel:.3e} bitwise repeatable="
+                  f"{repeatable} within rtol 1e-6, atol 1e-7: {ok}",
+                  flush=True)
+            if not ok:
+                raise SystemExit(f"chip_smoke: phase 11: {name} disagrees "
+                                 "with its plain version")
+            del got, again, ref, err
+
+    # -- 12: slice C's main path at the reference's full size --------------
+    td = TimeDiscretization(initial=0.0, num_steps=BS_STEPS, step=T / BS_STEPS)
+    model = BlackScholesModel(S0, R, SIGMA)
+
+    def object_api():
+        sim = MonteCarloBlackScholesModel(td, BS_PATHS, model, seed=BS_SEED,
+                                          device="cuda")
+        return EuropeanOption(T, K).get_value(sim)
+
+    def mersenne():
+        sim = MonteCarloBlackScholesModel(
+            td, BS_PATHS, model, brownian=BrownianMotionFinmathMersenne(
+                td, 1, BS_PATHS, BS_SEED, device="cuda"))
+        return EuropeanOption(T, K).get_value(sim)
+
+    routes = {
+        "a object API": object_api,
+        "b object API on the Mersenne stream": mersenne,
+        "c European kernel": lambda: kernels.mc_european_call_price_kernel(
+            BS_SEED, BS_PATHS, BS_STEPS, S0, R, SIGMA, T, K, device="cuda"),
+        "d Asian kernel": lambda: kernels.mc_asian_call_price_kernel(
+            BS_SEED, BS_PATHS, BS_STEPS, S0, R, SIGMA, T, K, device="cuda"),
+        "d Asian plain loop": lambda: mc_asian_call_price(
+            BS_SEED, BS_PATHS, BS_STEPS, S0, R, SIGMA, T, K, device="cuda"),
+    }
+    lmm_kernel.LAUNCHES = lmm_stochvol_kernel.LAUNCHES = 0
+    kernels.LAUNCHES.update(dict.fromkeys(kernels.LAUNCHES, 0))
+    values = {name: fn() for name, fn in routes.items()}
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    # the kernels' standard errors, from their payoffs (deterministic: the
+    # payoffs the main path averaged)
+    params = kernels.path_params(BS_STEPS, S0, R, SIGMA, T, K)
+    se = {}
+    for name in runs:
+        pay = runs[name][0](BS_SEED, BS_PATHS, BS_STEPS, params,
+                            "cuda").double()
+        se[name] = float(pay.std()) * df / np.sqrt(BS_PATHS)
+    euro = values["c European kernel"]
+    asian_k, asian_p = values["d Asian kernel"], values["d Asian plain loop"]
+    # both Asian estimators have the payoff's distribution: the combined
+    # standard error is sqrt(2) times the kernel's
+    asian_gap = abs(asian_k - asian_p)
+    checks = {
+        "a within 0.005 of analytic": abs(values["a object API"] - analytic)
+        < 0.005,
+        "b within 0.005 of analytic": abs(
+            values["b object API on the Mersenne stream"] - analytic) < 0.005,
+        "c within 0.005 of analytic": abs(euro - analytic) < 0.005,
+        "c within 4 standard errors": abs(euro - analytic)
+        < 4 * se["bs_paths"],
+        "d kernel vs plain within 4 combined standard errors":
+            asian_gap < 4 * np.sqrt(2) * se["asian_paths"],
+        "0 < Asian < European": 0 < asian_k < euro,
+        "one launch per kernel call": launches == {
+            "bs_paths": 1, "asian_paths": 1, "philox_normals": 0},
+    }
+    print(f"phase 12 main path ({BS_PATHS:,} paths x {BS_STEPS} steps, "
+          f"S0 {S0}, r {R}, sigma {SIGMA}, T {T}, K {K}; analytic "
+          f"{analytic:.7f}): "
+          + json.dumps({"values": values, "standard_errors": se,
+                        "asian_kernel_minus_plain": asian_k - asian_p,
+                        "launches": launches}), flush=True)
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: phase 12 failed: {failed}")
+    walls = {}
+    for name, fn in routes.items():
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        walls[name] = min(times)
+    print(f"phase 12 walls (s, min of 3 after a warm-up; {smi}): "
+          + json.dumps(walls), flush=True)
+
+    # -- 13: a vector-engine sweep on the card ------------------------------
+    rng = np.random.default_rng(BS_SEED)
+    a = (-1.0 + 2.0 * rng.random(BS_PATHS)).astype(np.float32)
+    b = (0.1 + 2.0 * rng.random(BS_PATHS)).astype(np.float32)
+    ops = [("add", lambda x, y: x.add(y), 1e-7),
+           ("mult", lambda x, y: x.mult(y), 1e-7),
+           ("div", lambda x, y: x.div(y), 2.5e-7),
+           ("exp", lambda x, y: x.exp(), 2.5e-7),
+           ("log", lambda x, y: y.log(), 5e-7),
+           ("sqrt", lambda x, y: y.sqrt(), 5e-7),
+           ("cap", lambda x, y: x.cap(y), 1e-7),
+           ("floor", lambda x, y: x.floor(0.2), 1e-7),
+           ("discount", lambda x, y: x.discount(y, 0.25), 2.5e-7),
+           ("add_product", lambda x, y: x.add_product(y, y), 1e-7),
+           ("choose", lambda x, y: x.choose(y, y.mult(-1.0)), 1e-7)]
+    dev = (RandomVariableTorch(0.0, a, device="cuda"),
+           RandomVariableTorch(0.0, b, device="cuda"))
+    host = (RandomVariableFloat(0.0, a), RandomVariableFloat(0.0, b))
+    worst = {}
+    for name, op, rtol in ops:
+        got = op(*dev)
+        ref = np.asarray(op(*host).get_realizations(), np.float64)
+        diff = np.abs(got.get_realizations().astype(np.float64) - ref)
+        worst[name] = float((diff / np.maximum(1.0, np.abs(ref))).max())
+        if not (got.values.is_cuda and worst[name] <= rtol):
+            raise SystemExit(f"chip_smoke: phase 13: {name} exceeds "
+                             f"{rtol} (max scaled error {worst[name]:.3e})")
+    b64 = b.astype(np.float64)
+    reductions = {"average": (dev[1].get_average(), b64.mean()),
+                  "variance": (dev[1].get_variance(), b64.var())}
+    red_rel = {k: abs(g - r) / abs(r) for k, (g, r) in reductions.items()}
+    print("phase 13 vector engine on the card vs RandomVariableFloat "
+          f"({BS_PATHS:,} paths), max |diff| / max(1, |x|): "
+          + json.dumps(worst) + "; float64 reductions vs NumPy, relative: "
+          + json.dumps(red_rel), flush=True)
+    if not all(v < 1e-12 for v in red_rel.values()):
+        raise SystemExit("chip_smoke: phase 13: float64 reductions disagree "
+                         "with NumPy")
+    del dev
+
+    # -- 14: the path kernels against their plain versions, timed ----------
+    rows = []
+    for name, source_line in (("bs_paths", 94), ("asian_paths", 185)):
+        run, plain = runs[name]
+        ms = _time_ms(torch, lambda: run(BS_SEED, BS_PATHS, BS_STEPS, params,
+                                         "cuda"))
+        plain_ms = _time_ms(torch, lambda: plain(BS_SEED, BS_PATHS, BS_STEPS,
+                                                 params, "cuda"))
+        by_ops = _mc_path_operations(BS_PATHS, BS_STEPS,
+                                     name == "asian_paths") / PEAK_F32_FLOPS
+        by_bytes = 4 * BS_PATHS / PEAK_BYTES_PER_S
+        bound_ms = max(by_ops, by_bytes) * 1e3
+        bound_by = "operations" if by_ops >= by_bytes else "bytes"
+        print(f"phase 14 timing (median of 5, CUDA events; {smi}): {name} "
+              f"paths={BS_PATHS} steps={BS_STEPS} kernel_ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+              f"({bound_by})", flush=True)
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": "finmath_tpu_torch/csrc/mc_paths.cu",
+            "replaces": f"finmath_tpu/ops/kernels.py:{source_line}",
+            "launches": launches[name],
+            "max_abs_err": max_abs[name],
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None,
+        })
+    return rows
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -233,16 +505,16 @@ def main(argv=None) -> int:
     from finmath_tpu_torch.models.lmm.benchmark_calibration import (
         CURATED_BASINS)
     from finmath_tpu_torch.native import host_rng
-    from finmath_tpu_torch.ops import (_cuda_build, lmm_kernel,
+    from finmath_tpu_torch.ops import (_cuda_build, kernels, lmm_kernel,
                                        lmm_stochvol_kernel)
 
-    # -- 2: build both kernels, one nvcc each, started together ----------
+    # -- 2: build the three sources, one nvcc each, started together ------
     def build(module):
         t0 = time.perf_counter()
         module.load_kernel()
         return time.perf_counter() - t0
 
-    kernel_modules = (lmm_kernel, lmm_stochvol_kernel)
+    kernel_modules = (lmm_kernel, lmm_stochvol_kernel, kernels)
     with ThreadPoolExecutor(len(kernel_modules)) as pool:
         build_s = list(pool.map(build, kernel_modules))
     for module, seconds in zip(kernel_modules, build_s):
@@ -589,6 +861,9 @@ def main(argv=None) -> int:
           f"kernel_ms={sv_fd_ms:.4f} plain_ms={sv_fd_plain_ms:.4f} "
           f"bound_ms={sv_fd_bound_ms:.4f} ({sv_fd_bound_by})", flush=True)
 
+    # -- 10-14: slice C, the vector engine and Monte-Carlo Black-Scholes ----
+    mc_rows = _slice_c(torch, smi)
+
     if opts.profile:
         _profile(torch, setup, kb, sv, sv_kb)
 
@@ -606,7 +881,7 @@ def main(argv=None) -> int:
         "bound_ms": sv_bound_ms,
         "bound_by": sv_bound_by,
         "library_ms": None,
-    }]}))
+    }] + mc_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

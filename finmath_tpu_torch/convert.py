@@ -6,7 +6,9 @@ parameter vector and the Brownian realization. A parameter vector that
 ``params_from_numpy``; a realization in the JAX engine's injected format
 (``[steps, factors, paths]``, already scaled by sqrt(dt)) drives the
 port's engine through ``increments_from_numpy``, so both packages price
-the same paths.
+the same paths. A vector-engine random variable crosses as its filtration
+time and realizations: ``random_variable_from_numpy`` and
+``random_variable_to_numpy``.
 """
 
 from __future__ import annotations
@@ -36,3 +38,25 @@ def increments_from_numpy(inc, device) -> torch.Tensor:
         raise ValueError(f"increments must be [steps, factors, paths], got "
                          f"shape {inc.shape}")
     return torch.as_tensor(inc.astype(np.float32, copy=False)).to(device)
+
+
+def random_variable_from_numpy(time, values, device):
+    """A ``RandomVariableTorch`` on ``device`` from a filtration time and
+    realizations (a NumPy vector, e.g. a JAX ``RandomVariableTPU``'s
+    ``get_realizations()``) or a scalar (the deterministic fast path)."""
+    from .ops.random_variable import RandomVariableTorch
+
+    values = np.asarray(values)
+    if values.ndim > 1:
+        raise ValueError(f"realizations must be a vector, got shape "
+                         f"{values.shape}")
+    return RandomVariableTorch(float(time), values, device=device)
+
+
+def random_variable_to_numpy(rv):
+    """``(time, values)`` of a random variable: its filtration time and its
+    float32 realizations as NumPy, or its float value if deterministic."""
+    if rv.is_deterministic():
+        return rv.get_filtration_time(), rv.double_value()
+    return rv.get_filtration_time(), np.asarray(rv.get_realizations(),
+                                                dtype=np.float32)

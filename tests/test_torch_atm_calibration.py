@@ -3,7 +3,7 @@ finmath_tpu's at full width — 80 libors, 144 products, 43 parameters — on
 one injected realization of 512 paths (seeded NumPy, sqrt(dt)-scaled),
 fed to the JAX ``LMMValuationEngine(..., increments=inc,
 scan_mode="segmented")`` and to the port's engine alike. The Jacobian
-engines of both calibrations price the realization's first 128 paths (the
+engines of both calibrations price the realization's first 64 paths (the
 inexact-Jacobian LM of the main path, at test size).
 
 Tolerances: values rtol 1e-5 and implied vols atol 1e-6 (float32
@@ -28,7 +28,7 @@ from finmath_tpu_torch.models.lmm.kernel_backend import (  # noqa: E402
 from finmath_tpu_torch.models.lmm.model import (  # noqa: E402
     LMMValuationEngine as TorchEngine)
 
-PATHS, JAC_PATHS, STEPS = 512, 128, 60
+PATHS, JAC_PATHS, STEPS = 512, 64, 60
 
 
 def _setups(inc):

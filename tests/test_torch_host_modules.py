@@ -158,7 +158,12 @@ class TestPackage:
                 " finmath_tpu_torch.convert, finmath_tpu_torch.native,"
                 " finmath_tpu_torch.models.brownian_motion,"
                 " finmath_tpu_torch.models.lmm.benchmark_calibration,"
-                " finmath_tpu_torch.ops.lmm_stochvol_kernel; "
+                " finmath_tpu_torch.ops.lmm_stochvol_kernel,"
+                " finmath_tpu_torch.ops, finmath_tpu_torch.ops.kernels,"
+                " finmath_tpu_torch.ops.random_variable_float,"
+                " finmath_tpu_torch.models, finmath_tpu_torch.models.process,"
+                " finmath_tpu_torch.models.black_scholes,"
+                " finmath_tpu_torch.models.analytic; "
                 "bad = [m for m in sys.modules if m == 'jax' or "
                 "m.startswith(('jax.', 'finmath_tpu.')) or m == 'finmath_tpu'];"
                 " print(bad); sys.exit(1 if bad else 0)")

@@ -208,9 +208,9 @@ def test_short_multistart_finishes_finite():
     grid = [(1, 4, 0.0), (2, 4, 0.0), (3, 4, 0.0), (4, 4, 0.0), (4, 6, 0.0),
             (2, 4, -0.005), (2, 4, 0.005)]
     model, products = _reduced_setup(tcurves, ttd, tcov, tmodel, grid)
-    te = tmodel.LMMValuationEngine(model, products, 128, FACTORS,
+    te = tmodel.LMMValuationEngine(model, products, 64, FACTORS,
                                    device="cpu",
-                                   increments=reduced_increments(paths=128))
+                                   increments=reduced_increments(paths=64))
     setup = tbench.BenchmarkCalibrationSetup(
         engine=te, model=model, covariance=model.covariance,
         products=products)
