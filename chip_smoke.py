@@ -8,10 +8,11 @@ Phases, one line of output each (more for the kernel builds), in order:
 
 1. the card: ``torch.cuda.get_device_name()`` and ``nvidia-smi``'s name
    and power limit (fails without a CUDA device);
-2. build the three kernel sources, one ``nvcc`` each, started together:
+2. build the four kernel sources, one ``nvcc`` each, started together:
    the ATM-surface kernel (``csrc/lmm_atm_products.cu``), the stoch-vol
-   kernel (``csrc/lmm_stochvol_products.cu``) and the Monte-Carlo path
-   kernels (``csrc/mc_paths.cu``); print each build's seconds and ptxas'
+   kernel (``csrc/lmm_stochvol_products.cu``), the Monte-Carlo path
+   kernels (``csrc/mc_paths.cu``) and the single-swaption LMM path kernels
+   (``csrc/lmm_swaption_paths.cu``); print each build's seconds and ptxas'
    register/spill report;
 3. the ATM kernel against its plain PyTorch version on the card at the ATM
    shapes: 100,000 paths B=1 NORMAL, 100,003 paths (ragged tail), and the
@@ -65,16 +66,38 @@ Phases, one line of output each (more for the kernel builds), in order:
     parity sweep's tolerances, and the float64 reductions against NumPy;
 14. the European and Asian kernels against their plain versions, timed at
     1M x 100 (median of 5, CUDA events);
+15. the four single-swaption launchers (the 1-factor and the stoch-vol
+    kernel, each drawing its own normals or reading injected ones) against
+    their plain versions on the card, on the two configurations of phase
+    16: 409,600 paths at 10 steps, 409,603 paths (ragged tail) and 8,192
+    paths at one step; per path within rtol 1e-5, atol 1e-7, the float64
+    price within 1e-6 relative, a second launch bitwise equal, and each
+    PRNG launch bitwise equal to the injected launch fed its own stream;
+16. slice D1's main path, ``bench.py:1007 bench_lmm_pricer_kernels`` at
+    409,600 paths through the port's entry points: the 5Y x 10Y ATM
+    swaption of the ATM setup (80 libors, 1 factor) and the 5Y x 10Y ATM
+    swaption of the benchmark setup (40 libors, 5 factors, stoch vol), at
+    their initial parameters; each kernel price within 2% of the port's
+    engine on another stream (printed in combined standard errors too),
+    and within 1e-5 of it on one shared normal block; one launch per
+    pricer call; then the walls (min of 5 after a warm-up) of the engine's
+    ``values`` and of the kernel entry point;
+17. the four launchers against their plain versions, timed at 409,600
+    paths (median of 5, CUDA events): the launch alone on prepacked inputs
+    (the host's submission kept outside the events), the payoffs wrapper
+    and the plain version;
 6. with ``--profile`` only, last: device operations and busy time under
    ``torch.profiler`` for one ATM calibration, one engine Jacobian, one
    ATM kernel residual call, one stoch-vol kernel
    ``residuals_and_jacobian`` call and one reduced-path stoch-vol engine
    Jacobian, against the same call's unprofiled wall.
 
-Then the whole script's seconds, one JSON line with the four kernels'
+Then the whole script's seconds, one JSON line with the eight kernels'
 numbers (``bound_ms`` is the least time of the same work on an
-H100: the larger of the operations counted from the shapes over 67 TFLOP/s
-float32, integer operations included, and the bytes over 3.35 TB/s)
+H100: the larger of the operations counted from the shapes over the
+published 67 TFLOP/s float32, integer operations included, and the bytes
+over 3.35 TB/s; that peak counts an FMA as two operations, so a kernel that
+issues none, as the slice D1 pricers do, can reach at most half of it)
 and, last, the device line ``{"ok": true, "device": {...}}``. Any failure
 raises and exits non-zero before those lines; there is no CPU path.
 """
@@ -98,9 +121,12 @@ SV_PATHS, SV_SEED, SV_TARGET_RMS19 = 81_920, 314151, 0.00198
 # MonteCarloBlackScholesModelTest: S0, r, sigma, T, K; 1M paths x 100 steps
 BS_PARAMS, BS_PATHS, BS_STEPS, BS_SEED = (1.0, 0.05, 0.3, 1.0, 1.05), \
     1_000_000, 100, 3141
+# bench.py:1007 bench_lmm_pricer_kernels: one swaption at 409,600 paths
+PRICER_PATHS, PRICER_SEED = 409_600, 2718
 RTOL, ATOL_PER_PATH = 1e-5, 1e-7
 # the published H100 SXM peaks the bound is taken against
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
+SPIN_CYCLES = 2_000_000       # about 1 ms of the card's clock
 
 
 def _sweep_operations(num_libors, num_factors, products, paths, B, *,
@@ -126,6 +152,29 @@ def _sweep_operations(num_libors, num_factors, products, paths, B, *,
     for ms in by_step.values():
         ops += 6 * max(ms) + 7 * len(ms) + (0 if stoch_vol else 2)
     return ops * paths * B
+
+
+def _pricer_operations(num_libors, num_factors, steps, periods, paths, *,
+                       stoch_vol):
+    """Float32 operations of one single-swaption pricer launch as
+    ``csrc/lmm_swaption_paths.cu`` does them, each add, multiply, divide
+    and compare counted once (the kernels issue no FMA), from the shapes:
+    per step and alive libor the 1-factor update (9: the drift term's four,
+    the running sum, its scaling, the shock, the loading, the new L) or the
+    stoch-vol one (12 + 7 a factor: m_j 3, the local factor 4, per factor
+    the loading, the running sum and the drift and shock sums 7, the new L
+    and its clamp 5); per step the scaled normals (F) and the numeraire
+    (3), and for stoch vol sqrt(V) (about 8), the V step (8) and its expf
+    (about 20); per path the payoff (6 a period and 5) and the stoch-vol
+    constants (4). The PRNG variants' draws are the caller's to add."""
+    n, F, S = num_libors, num_factors, steps
+    alive = sum(n - 1 - s for s in range(S))
+    if stoch_vol:
+        per_libor, per_step, per_path = 12 + 7 * F, F + 3 + 8 + 8 + 20, 4
+    else:
+        per_libor, per_step, per_path = 9, F + 3, 0
+    return (alive * per_libor + S * per_step + per_path + 6 * periods + 5) \
+        * paths
 
 
 def _bound(args, out, operations):
@@ -164,6 +213,26 @@ def _time_ms(torch, fn, reps=5):
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def _launch_ms(torch, fn, reps=5):
+    """Median device time of ``fn``, which only enqueues launches, over
+    ``reps`` runs after one warm-up. A spin kernel holds the stream while
+    the host enqueues the start event, ``fn``'s launches and the stop
+    event, so the host's submission time falls outside the events."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         stop.record()
@@ -475,6 +544,272 @@ def _slice_c(torch, smi):
     return rows
 
 
+def _slice_d1(torch, smi):
+    """Phases 15-17: the single-swaption LMM path kernels against their
+    plain versions, slice D1's main path (``bench.py:1007
+    bench_lmm_pricer_kernels`` at 409,600 paths through the port's entry
+    points) and the four launchers' times. Returns their rows of the final
+    JSON line."""
+    from finmath_tpu_torch import convert
+    from finmath_tpu_torch.models.lmm import (build_atm_calibration,
+                                              build_benchmark_calibration)
+    from finmath_tpu_torch.models.lmm.model import (LIBORMarketModelTorch,
+                                                    LMMValuationEngine,
+                                                    SwaptionProduct)
+    from finmath_tpu_torch.ops import _swaption_paths as sp
+    from finmath_tpu_torch.ops import kernels
+    from finmath_tpu_torch.ops import lmm_kernel as k1
+    from finmath_tpu_torch.ops import lmm_stochvol_kernel as ksv
+
+    P, E, M, DT = PRICER_PATHS, 10, 20, 0.5
+    # -- the two configurations, at their initial parameters ----------------
+    a = build_atm_calibration(num_paths=256, num_factors=1, device="cuda")
+    cov = a.covariance
+    a_p0 = np.asarray(cov.initial_parameters)
+    prep = cov.prepare(torch.as_tensor(a_p0))
+    a_vol = (cov.vol_table(prep)
+             * cov.factor_matrix(prep)[:, 0][None, :]).numpy()  # bench :1042
+    a_strike = next(p.strike for p in a.products
+                    if p.exercise_index == E and p.num_periods == M)
+    b = build_benchmark_calibration(num_paths=256, device="cuda")
+    cov = b.covariance
+    b_p0 = np.asarray(cov.initial_parameters)
+    prep = cov.prepare(torch.as_tensor(b_p0))
+    b_vol, b_R = cov.vol_table(prep).numpy(), cov.factor_matrix(prep).numpy()
+    nu, rho = (float(x) for x in cov.stoch_vol_params(prep))
+    blend = float(b_p0[5])
+    fwd0 = b.engine._t["fwd0"].cpu().numpy()
+    b_strike = next(p.strike for i, p in enumerate(b.engine.products)
+                    if p.exercise_index == E and abs(p.strike - fwd0[i]) < 1e-10)
+    F = b_R.shape[1]
+    am, bm = a.model, b.model
+    kinds = {
+        "one_factor": dict(
+            rows=1, n=am.num_libors, F=1, strike=a_strike, scalars=3,
+            pack=lambda S: k1.lmm_swaption_inputs(
+                a_vol, am.initial_forwards, am.deltas, S, DT, a_strike,
+                "cuda"),
+            launchers=("lmm_swaption_paths", "lmm_swaption_paths_normals"),
+            run=(k1.lmm_swaption_payoffs, k1.lmm_swaption_payoffs_injected),
+            plain=(k1.lmm_swaption_paths_reference,
+                   k1.lmm_swaption_payoffs_with_normals),
+            replaces=("finmath_tpu/ops/lmm_kernel.py:141",
+                      "finmath_tpu/ops/lmm_kernel.py:351")),
+        "stochvol": dict(
+            rows=F + 1, n=bm.num_libors, F=F, strike=b_strike, scalars=7,
+            pack=lambda S: ksv.lmm_stochvol_swaption_inputs(
+                b_vol, b_R, bm.initial_forwards, bm.deltas, S, DT, b_strike,
+                blend, nu, rho, "cuda"),
+            launchers=("lmm_stochvol_swaption_paths",
+                       "lmm_stochvol_swaption_paths_normals"),
+            run=(ksv.lmm_stochvol_swaption_payoffs,
+                 ksv.lmm_stochvol_swaption_payoffs_injected),
+            plain=(ksv.lmm_stochvol_swaption_paths_reference,
+                   ksv.lmm_stochvol_swaption_payoffs_with_normals),
+            replaces=("finmath_tpu/ops/lmm_stochvol_kernel.py:157",
+                      "finmath_tpu/ops/lmm_stochvol_kernel.py:362")),
+    }
+
+    # -- 15: each launcher against its plain version on the card -----------
+    max_abs = dict.fromkeys(sp.LAUNCHES, 0.0)
+    for kind, c in kinds.items():
+        for label, paths, e in (("a", P, E), ("b", P + 3, E), ("c", 8_192, 1)):
+            args = c["pack"](e)
+            swap = dict(exercise=e, periods=M)
+            rows = e * c["rows"]
+            z = kernels.philox_normals(PRICER_SEED, paths, -(-rows // 4),
+                                       "cuda")[:rows].contiguous()
+            heads = ((PRICER_SEED, paths), (z,))
+            outs = []
+            for name, run, plain, head in zip(c["launchers"], c["run"],
+                                              c["plain"], heads):
+                got = run(*head, *args, **swap)
+                again = run(*head, *args, **swap)
+                torch.cuda.synchronize()
+                ref = plain(*head, *args, **swap)
+                err = (got - ref).abs()
+                p_got = float(got.sum(dtype=torch.float64)) / paths
+                p_ref = float(ref.sum(dtype=torch.float64)) / paths
+                price_rel = abs(p_got - p_ref) / abs(p_ref)
+                ok = (bool(torch.isfinite(got).all())
+                      and bool((err <= RTOL * ref.abs() + ATOL_PER_PATH).all())
+                      and price_rel < 1e-6 and bool(torch.equal(got, again)))
+                max_abs[name] = max(max_abs[name], float(err.max()))
+                print(f"phase 15{label} {name} vs plain: paths={paths} "
+                      f"steps={e} libors={c['n']} factors={c['F']} "
+                      f"max_abs_err={float(err.max()):.3e} "
+                      f"price={p_got:.9f} price_rel={price_rel:.3e} "
+                      f"within rtol {RTOL}, atol {ATOL_PER_PATH}, price 1e-6, "
+                      f"bitwise repeatable: {ok}", flush=True)
+                if not ok:
+                    raise SystemExit(f"chip_smoke: phase 15{label}: {name} "
+                                     "disagrees with its plain version")
+                outs.append(got)
+            same = bool(torch.equal(*outs))
+            print(f"phase 15{label} {kind}: PRNG launch bitwise equal to the "
+                  f"injected launch on its own stream: {same}", flush=True)
+            if not same:
+                raise SystemExit(f"chip_smoke: phase 15{label}: the {kind} "
+                                 "PRNG and injected launches disagree")
+            del z, outs, got, again, ref, err
+
+    # -- 16: slice D1's main path, bench_lmm_pricer_kernels at 409,600 ------
+    def product(strike):
+        return [SwaptionProduct(E, M, strike, 0.0, value_unit="VALUE")]
+
+    no_adjustment = LIBORMarketModelTorch(
+        am.libor_td, am.forward_curve, am.discount_curve, am.covariance,
+        use_numeraire_adjustment=False)   # the kernel applies none
+    rng = np.random.default_rng(123)
+    z1 = torch.from_numpy(rng.standard_normal((E, P)).astype(np.float32))
+    z5 = torch.from_numpy(rng.standard_normal(
+        (E * (F + 1), P)).astype(np.float32))
+    z1, z5 = z1.cuda(), z5.cuda()
+    engines = {
+        "one_factor": (
+            LMMValuationEngine(am, product(a_strike), P, 1, 99,
+                               device="cuda"),
+            LMMValuationEngine(no_adjustment, product(a_strike), P, 1, 99,
+                               device="cuda", increments=convert
+                               .increments_from_normals(z1, 1, DT)),
+            a_p0),
+        "stochvol": (
+            LMMValuationEngine(bm, product(b_strike), P, F, 99,
+                               device="cuda"),
+            LMMValuationEngine(bm, product(b_strike), P, F, 99, device="cuda",
+                               increments=convert.increments_from_normals(
+                                   z5, F + 1, DT)),
+            b_p0),
+    }
+    entry = {
+        "one_factor": (
+            lambda: k1.lmm_swaption_kernel(
+                7, P, am.num_libors, E, M, E, a_vol, am.initial_forwards,
+                am.deltas, DT, a_strike, device="cuda"),
+            lambda: k1.lmm_swaption_kernel_with_normals(
+                z1, am.num_libors, E, M, a_vol, am.initial_forwards,
+                am.deltas, DT, a_strike)),
+        "stochvol": (
+            lambda: ksv.lmm_stochvol_swaption_kernel(
+                7, P, bm.num_libors, F, E, M, E, b_vol, b_R,
+                bm.initial_forwards, bm.deltas, DT, b_strike, blend, nu, rho,
+                device="cuda"),
+            lambda: ksv.lmm_stochvol_swaption_kernel_with_normals(
+                z5, bm.num_libors, F, E, M, b_vol, b_R, bm.initial_forwards,
+                bm.deltas, DT, b_strike, blend, nu, rho)),
+    }
+    sp.LAUNCHES.update(dict.fromkeys(sp.LAUNCHES, 0))
+    values = {kind: (float(entry[kind][0]()), float(entry[kind][1]()))
+              for kind in kinds}
+    torch.cuda.synchronize()
+    launches = dict(sp.LAUNCHES)
+    checks = {"one launch per pricer call": launches == dict.fromkeys(
+        sp.LAUNCHES, 1)}
+    report = {}
+    for kind, c in kinds.items():
+        eng, eng_sn, p0 = engines[kind]
+        v_k, v_k_sn = values[kind]
+        v_e, v_e_sn = float(eng.values(p0)[0]), float(eng_sn.values(p0)[0])
+        # the kernel's standard error from its payoffs (deterministic: the
+        # payoffs the main path averaged); both estimators have about the
+        # payoff's variance, so the combined error is sqrt(2) times it
+        pay = c["run"][0](7, P, *c["pack"](E), exercise=E, periods=M)
+        se = float(pay.double().std()) / np.sqrt(P)
+        rel, rel_sn = abs(v_k - v_e) / abs(v_e), abs(v_k_sn - v_e_sn) / abs(v_e_sn)
+        report[kind] = {
+            "kernel": v_k, "engine": v_e, "rel": rel,
+            "combined_standard_errors": abs(v_k - v_e) / (np.sqrt(2) * se),
+            "same_normals_kernel": v_k_sn, "same_normals_engine": v_e_sn,
+            "same_normals_rel": rel_sn}
+        checks[f"{kind}: finite positive prices"] = all(
+            np.isfinite(v) and v > 0 for v in (v_k, v_e, v_k_sn, v_e_sn))
+        checks[f"{kind}: kernel within 2% of the engine"] = rel < 0.02
+        checks[f"{kind}: same normals within 1e-5"] = rel_sn < 1e-5
+    print(f"phase 16 main path ({P:,} paths, e={E}, periods={M}): "
+          + json.dumps({"values": report, "launches": launches}), flush=True)
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: phase 16 failed: {failed}")
+
+    def min_wall(fn, reps=5):
+        fn()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return min(times)
+
+    walls = {}
+    for kind in kinds:
+        eng, _, p0 = engines[kind]
+        w_e = min_wall(lambda: eng.values(p0))
+        w_k = min_wall(lambda: float(entry[kind][0]()))
+        walls[kind] = {"engine_values_ms": w_e * 1e3,
+                       "kernel_entry_point_ms": w_k * 1e3,
+                       "speedup": w_e / w_k}
+    print(f"phase 16 walls (min of 5 after a warm-up; {smi}): "
+          + json.dumps(walls), flush=True)
+    del engines, entry, z1, z5
+
+    # -- 17: the four launchers against their plain versions, timed --------
+    # ms: the launch alone (prepacked inputs, a preallocated output, no
+    # host submission inside the events); wrapper_ms: the payoffs entry
+    # (checks, scalars, the output's allocation, the launch)
+    rows_out = []
+    for kind, c in kinds.items():
+        args = c["pack"](E)
+        volT, l0, dl, scal = args
+        swap = dict(exercise=E, periods=M)
+        rows = E * c["rows"]
+        z = torch.from_numpy(np.random.default_rng(17).standard_normal(
+            (rows, P)).astype(np.float32)).cuda()
+        floats = [float(v) for v in scal[:c["scalars"]].tolist()]
+        ints = (c["n"], E, E, M) if kind == "one_factor" else \
+            (c["n"], c["F"], E, E, M)
+        out = torch.empty(P, dtype=torch.float32, device="cuda")
+        base = c["launchers"][0]
+        launch = (
+            lambda: sp.launch_prng(base, out, PRICER_SEED, volT, l0, dl,
+                                   floats, ints),
+            lambda: sp.launch_injected(base, out, z, volT, l0, dl, floats,
+                                       ints))
+        ops = _pricer_operations(c["n"], c["F"], E, M, P,
+                                 stoch_vol=kind == "stochvol")
+        for j, (name, run, plain) in enumerate(zip(
+                c["launchers"], c["run"], c["plain"])):
+            head = (PRICER_SEED, P) if j == 0 else (z,)
+            ms = _launch_ms(torch, launch[j])
+            wrapper_ms = _time_ms(torch, lambda: run(*head, *args, **swap))
+            plain_ms = _time_ms(torch, lambda: plain(*head, *args, **swap))
+            # the PRNG launchers also draw their normals: Philox and two
+            # Box-Muller pairs per four (_mc_path_operations)
+            work = ops + (-(-rows // 4) * 248 * P if j == 0 else 0)
+            bound_ms, bound_by = _bound(
+                list(args[:3]) + ([z] if j else []), out, work)
+            print(f"phase 17 timing (median of 5, CUDA events; {smi}): "
+                  f"{name} paths={P} steps={E} kernel_ms={ms:.4f} "
+                  f"wrapper_ms={wrapper_ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"bound_ms={bound_ms:.4f} ({bound_by}) "
+                  f"operations={work}", flush=True)
+            rows_out.append({
+                "name": name,
+                "route": "cuda",
+                "source": "finmath_tpu_torch/csrc/lmm_swaption_paths.cu",
+                "replaces": c["replaces"][j],
+                "launches": launches[name],
+                "max_abs_err": max_abs[name],
+                "ms": ms,
+                "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_by": bound_by,
+                "library_ms": None,
+            })
+        del z, out
+    return rows_out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -505,16 +840,17 @@ def main(argv=None) -> int:
     from finmath_tpu_torch.models.lmm.benchmark_calibration import (
         CURATED_BASINS)
     from finmath_tpu_torch.native import host_rng
-    from finmath_tpu_torch.ops import (_cuda_build, kernels, lmm_kernel,
-                                       lmm_stochvol_kernel)
+    from finmath_tpu_torch.ops import (_cuda_build, _swaption_paths, kernels,
+                                       lmm_kernel, lmm_stochvol_kernel)
 
-    # -- 2: build the three sources, one nvcc each, started together ------
+    # -- 2: build the four sources, one nvcc each, started together -------
     def build(module):
         t0 = time.perf_counter()
         module.load_kernel()
         return time.perf_counter() - t0
 
-    kernel_modules = (lmm_kernel, lmm_stochvol_kernel, kernels)
+    kernel_modules = (lmm_kernel, lmm_stochvol_kernel, kernels,
+                      _swaption_paths)
     with ThreadPoolExecutor(len(kernel_modules)) as pool:
         build_s = list(pool.map(build, kernel_modules))
     for module, seconds in zip(kernel_modules, build_s):
@@ -864,6 +1200,9 @@ def main(argv=None) -> int:
     # -- 10-14: slice C, the vector engine and Monte-Carlo Black-Scholes ----
     mc_rows = _slice_c(torch, smi)
 
+    # -- 15-17: slice D1, the single-swaption LMM pricers -------------------
+    pricer_rows = _slice_d1(torch, smi)
+
     if opts.profile:
         _profile(torch, setup, kb, sv, sv_kb)
 
@@ -881,7 +1220,7 @@ def main(argv=None) -> int:
         "bound_ms": sv_bound_ms,
         "bound_by": sv_bound_by,
         "library_ms": None,
-    }] + mc_rows}))
+    }] + mc_rows + pricer_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

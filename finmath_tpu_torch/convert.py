@@ -6,7 +6,8 @@ parameter vector and the Brownian realization. A parameter vector that
 ``params_from_numpy``; a realization in the JAX engine's injected format
 (``[steps, factors, paths]``, already scaled by sqrt(dt)) drives the
 port's engine through ``increments_from_numpy``, so both packages price
-the same paths. A vector-engine random variable crosses as its filtration
+the same paths; a path kernel's block of normals becomes such increments
+through ``increments_from_normals``. A vector-engine random variable crosses as its filtration
 time and realizations: ``random_variable_from_numpy`` and
 ``random_variable_to_numpy``.
 """
@@ -38,6 +39,23 @@ def increments_from_numpy(inc, device) -> torch.Tensor:
         raise ValueError(f"increments must be [steps, factors, paths], got "
                          f"shape {inc.shape}")
     return torch.as_tensor(inc.astype(np.float32, copy=False)).to(device)
+
+
+def increments_from_normals(z, rows_per_step: int, dt: float):
+    """A path kernel's block of standard normals ``[S * k, paths]`` (rows
+    step-major, ``k = rows_per_step``) as the engine's injected increments
+    ``[S, k, paths]``, each normal times sqrt(dt) in float32 (sqrt(dt) taken
+    in float64, then rounded), as ``bench.py:1104`` builds them: the same
+    realization then drives a kernel and either package's engine. A tensor
+    stays a tensor on its device; anything else becomes a NumPy array."""
+    scale = np.float32(np.sqrt(dt))
+    rows, paths = z.shape
+    k = int(rows_per_step)
+    if k < 1 or rows % k:
+        raise ValueError(f"{rows} rows are not whole steps of {k}")
+    if isinstance(z, torch.Tensor):
+        return z.to(torch.float32).reshape(rows // k, k, paths) * float(scale)
+    return np.asarray(z, np.float32).reshape(rows // k, k, paths) * scale
 
 
 def random_variable_from_numpy(time, values, device):

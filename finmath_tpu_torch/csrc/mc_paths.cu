@@ -4,24 +4,20 @@
 // Replaces finmath_tpu/ops/kernels.py::_bs_kernel (the Pallas kernel behind
 // bs_paths_kernel / mc_european_call_price_pallas) and ::_asian_kernel
 // (asian_paths_kernel / mc_asian_call_price_pallas); the device function
-// normals4 replaces the helper _draw_normal_pair. A third launcher,
+// philox::normals4 (philox.cuh) replaces the helper _draw_normal_pair. A
+// third launcher,
 // philox_normals, writes the normals the path kernels draw, so that they
 // can be checked against the plain generator (ops/kernels.py::normal_pairs)
 // bit for bit. No pricing path calls it.
 //
-// Random numbers: Philox4x32-10 (Random123), key = the 64-bit seed as two
-// words (low, high), counter = (path, draw, 0, 0). One draw gives four
-// 32-bit words, two Box-Muller pairs, four normals; step i of a path uses
-// normal i, so a pair of steps takes the cosine and sine of one pair (both
-// Box-Muller outputs used, as in the Pallas kernel) and an odd last step
-// the cosine of the next. Uniforms as in the Pallas kernel, exact in f32:
-// u1 = (w >> 8) 2^-24 + 2^-25 in (0, 1), u2 = (w >> 8) 2^-24 in [0, 1).
-// logf, sinf, cosf and expf are the accurate library functions (no
-// __logf / __sinf, no --use_fast_math): an inaccurate log biased the
-// normals' variance on the TPU (kernels.py:62-65). Every float operation
-// of the path arithmetic is written with the explicit-rounding intrinsics
-// (__fadd_rn, __fmul_rn), so that nvcc contracts nothing into an FMA and a
-// launch reproduces the plain PyTorch version on the card bit for bit.
+// Random numbers: the Philox4x32-10 and Box-Muller stream of philox.cuh;
+// step i of a path uses normal i, so a pair of steps takes the cosine and
+// sine of one Box-Muller pair (both outputs used, as in the Pallas kernel)
+// and an odd last step the cosine of the next. expf is the accurate library
+// function (no fast math). Every float operation of the path arithmetic is
+// written with the explicit-rounding intrinsics (__fadd_rn, __fmul_rn), so
+// that nvcc contracts nothing into an FMA and a launch reproduces the plain
+// PyTorch version on the card bit for bit.
 //
 // Per path, in float32: log S starts at log S0; a pair of steps adds
 // (drift + drift) + vol_sqrt_dt * (z1 + z2) (kernels.py:109-111), an odd
@@ -49,51 +45,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "philox.cuh"
+
 namespace {
 
+using philox::normals4;
+
 constexpr int kBlock = 256;
-constexpr uint32_t kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;
-constexpr uint32_t kW0 = 0x9E3779B9u, kW1 = 0xBB67AE85u;
-constexpr float kTwoPi = 6.28318530717958647692f;  // (float)(2 pi)
-constexpr float kTwoPowM24 = 5.9604644775390625e-08f;   // 2^-24, exact
-constexpr float kTwoPowM25 = 2.98023223876953125e-08f;  // 2^-25, exact
-
-// Philox4x32-10 of counter (c0, c1, c2, c3) under key (k0, k1).
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
-                                               uint32_t k1) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r > 0) {
-      k0 += kW0;
-      k1 += kW1;
-    }
-    const uint32_t hi0 = __umulhi(kM0, c.x), lo0 = kM0 * c.x;
-    const uint32_t hi1 = __umulhi(kM1, c.z), lo1 = kM1 * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
-  }
-  return c;
-}
-
-// Box-Muller on two words: (r cos theta, r sin theta).
-__device__ __forceinline__ float2 box_muller(uint32_t w1, uint32_t w2) {
-  const float u1 = __fadd_rn(
-      __fmul_rn(static_cast<float>(w1 >> 8), kTwoPowM24), kTwoPowM25);
-  const float u2 = __fmul_rn(static_cast<float>(w2 >> 8), kTwoPowM24);
-  const float r = sqrtf(__fmul_rn(-2.0f, logf(u1)));
-  const float theta = __fmul_rn(kTwoPi, u2);
-  return make_float2(__fmul_rn(r, cosf(theta)), __fmul_rn(r, sinf(theta)));
-}
-
-// Normals 4 * draw .. 4 * draw + 3 of the path's stream.
-__device__ __forceinline__ float4 normals4(unsigned long long seed,
-                                           uint32_t path, uint32_t draw) {
-  const uint4 w = philox4x32_10(make_uint4(path, draw, 0u, 0u),
-                                static_cast<uint32_t>(seed),
-                                static_cast<uint32_t>(seed >> 32));
-  const float2 a = box_muller(w.x, w.y);
-  const float2 b = box_muller(w.z, w.w);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
 
 // log S after a pair of steps on normals z1, z2 (kernels.py:109-111)
 __device__ __forceinline__ float double_step(float log_s, float drift2,

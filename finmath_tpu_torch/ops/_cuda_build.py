@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` file has a plain C interface (``extern "C"`` launchers
 returning ``cudaError_t``), so it compiles with ``nvcc`` alone, in seconds,
 without PyTorch's headers. The shared library lands in ``_build/`` next to
-the package (listed in ``.gitignore``), named by a hash of the source and
-the flags: an edited source builds anew, an unchanged one is reused.
+the package (listed in ``.gitignore``), named by a hash of the source, the
+shared headers (``csrc/*.cuh``) and the flags: an edited source or header
+builds anew, an unchanged one is reused.
 ``nvcc``'s ``-Xptxas -v`` report (registers, shared memory, spills) is kept
 beside the library as ``<name>.log``.
 """
@@ -44,11 +45,15 @@ def nvcc_path() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where the library built from ``csrc/<source>`` lives."""
+    """Where the library built from ``csrc/<source>`` lives: named by a hash
+    of the source, of every header in ``csrc/`` (any of which it may
+    include) and of the flags."""
     src = CSRC_DIR / source
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{src.stem}-{digest}.so"
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
 
 
 def build(source: str) -> Path:

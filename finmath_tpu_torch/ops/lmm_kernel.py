@@ -26,19 +26,33 @@ Inputs keep the engine's layout:
 * ``products``: ``(exercise index, periods, strike)`` per product, grouped
   by exercise index in ascending order; ``events``: the ascending exercise
   indices, exactly those of the products.
+
+The single-swaption pricer of the same model at one factor, counterpart of
+``lmm_swaption_kernel`` and ``lmm_swaption_kernel_with_normals`` (the
+Pallas kernel ``_lmm_kernel``, with the on-core PRNG and on injected
+normals), is here too: its kernels are ``csrc/lmm_swaption_paths.cu``,
+built and counted by ``ops/_swaption_paths.py`` (``LAUNCHES`` there, per
+launcher). Each returns the float64 mean of payoff / N(T_e) as a 0-d
+tensor; ``lmm_swaption_payoffs`` and ``lmm_swaption_payoffs_injected``
+give the float32 value of each path (the kernel on a CUDA device, the
+plain version on the CPU).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..utils.config import select_device
 from . import _cuda_build
+from . import _swaption_paths as sp
 from ._products import Product, check_products, check_tensor, product_tables
+from .kernels import _check_seed, normal_pairs
 
 SOURCE = "lmm_atm_products.cu"
 TILE = 128                    # paths per block, one thread per path
@@ -204,3 +218,148 @@ def lmm_atm_swaptions_batch_reference(z, volT_b, scal_b, initial_forwards,
             dim=1)
     sums = torch.stack(rows, dim=1).to(torch.float64)           # [B, R, paths]
     return sums.sum(dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# the single-swaption pricer: one factor, payoff / N(T_e) per path
+# ---------------------------------------------------------------------------
+
+def lmm_swaption_inputs(vol_table, initial_forwards, deltas, num_steps: int,
+                        dt, strike, device):
+    """The pricer's packed inputs on ``device``, as the JAX wrapper packs
+    them (``lmm_kernel.py:133-137``): ``volT`` ``[n, S]`` (``vol_table``
+    ``[>= S, n]`` cut to ``S = num_steps`` rows and transposed), ``l0`` and
+    ``deltas`` ``[n]`` float32, and ``scal`` ``[dt, sqrt(dt), strike, 0]``
+    float32 on the CPU, the square root taken in float64."""
+    vt = sp.as_f32(vol_table, device)
+    if vt.dim() != 2 or not 1 <= num_steps <= vt.shape[0]:
+        raise ValueError(f"vol_table of shape {tuple(vt.shape)} has no "
+                         f"{num_steps} steps")
+    volT = vt[:num_steps].T.contiguous()
+    scal = torch.tensor([dt, math.sqrt(dt), strike, 0.0],
+                        dtype=torch.float64).to(torch.float32)
+    return (volT, sp.as_f32(initial_forwards, device),
+            sp.as_f32(deltas, device), scal)
+
+
+def lmm_swaption_payoffs_with_normals(z, volT, l0, deltas, scal, *,
+                                      exercise: int,
+                                      periods: int) -> torch.Tensor:
+    """Plain version of the kernel on the normals ``z`` ``[S, paths]``
+    (step ``s`` uses row ``s``): payoff / N ``[paths]`` float32, a loop over
+    steps in the Pallas kernel's order of operations, ``L + lam * (prefix *
+    dt + sqrt_dt * z)``, the prefix sum taken sequentially over the alive
+    libors as the CUDA kernel takes it."""
+    n, S = volT.shape
+    dt, sqrt_dt, strike = (float(v) for v in scal[:3].tolist())
+    L = l0[:, None].expand(n, z.shape[1])
+    N = torch.ones(z.shape[1], dtype=torch.float32, device=z.device)
+    for s in range(S):
+        w = sqrt_dt * z[s]
+        N = N * (1.0 + deltas[s] * L[s])
+        La, d, lam = L[s + 1:], deltas[s + 1:, None], volT[s + 1:, s, None]
+        prefix = sp.running_sum((d * lam) / (1.0 + d * La))
+        L = torch.cat([L[:s + 1], La + lam * (prefix * dt + w)])
+    return sp.discounted_payoff(L, N, deltas, strike, exercise, periods)
+
+
+def lmm_swaption_paths_reference(seed: int, num_paths: int, volT, l0, deltas,
+                                 scal, *, exercise: int,
+                                 periods: int) -> torch.Tensor:
+    """Plain version of the PRNG kernel: its normals (``normal_pairs``,
+    step ``s`` = normal ``s`` of a path's stream), then its arithmetic."""
+    S = volT.shape[1]
+    z = normal_pairs(seed, num_paths, -(-S // 4), volT.device)[:S]
+    return lmm_swaption_payoffs_with_normals(z, volT, l0, deltas, scal,
+                                             exercise=exercise,
+                                             periods=periods)
+
+
+def _pricer(volT, l0, deltas, scal, exercise, periods):
+    n, S, device = sp.check_inputs(volT, l0, deltas, scal, num_factors=1,
+                                   exercise=exercise, periods=periods,
+                                   scal_size=4)
+    return device, [float(v) for v in scal[:3].tolist()], (n, S, exercise,
+                                                           periods)
+
+
+def lmm_swaption_payoffs(seed: int, num_paths: int, volT, l0, deltas, scal,
+                         *, exercise: int, periods: int) -> torch.Tensor:
+    """payoff / N of each path, ``[num_paths]`` float32 on ``volT``'s device,
+    each path drawing its own normals: the kernel on a CUDA device (one
+    launch), ``lmm_swaption_paths_reference`` on the CPU."""
+    seed, num_paths = _check_seed(seed), sp.check_paths(num_paths)
+    device, floats, ints = _pricer(volT, l0, deltas, scal, exercise, periods)
+    if device.type == "cpu":
+        return lmm_swaption_paths_reference(seed, num_paths, volT, l0, deltas,
+                                            scal, exercise=exercise,
+                                            periods=periods)
+    out = torch.empty(num_paths, dtype=torch.float32, device=device)
+    return sp.launch_prng("lmm_swaption_paths", out, seed, volT, l0, deltas,
+                          floats, ints)
+
+
+def lmm_swaption_payoffs_injected(z, volT, l0, deltas, scal, *,
+                                  exercise: int,
+                                  periods: int) -> torch.Tensor:
+    """payoff / N of each path on the normals ``z`` ``[S, num_paths]``
+    float32: the kernel on a CUDA device, ``lmm_swaption_payoffs_with_normals``
+    on the CPU."""
+    device, floats, ints = _pricer(volT, l0, deltas, scal, exercise, periods)
+    S = ints[1]
+    num_paths = sp.check_paths(z.shape[1] if z.dim() == 2 else 0)
+    check_tensor("normals", z, (S, num_paths), torch.float32, device)
+    if device.type == "cpu":
+        return lmm_swaption_payoffs_with_normals(z, volT, l0, deltas, scal,
+                                                 exercise=exercise,
+                                                 periods=periods)
+    out = torch.empty(num_paths, dtype=torch.float32, device=device)
+    return sp.launch_injected("lmm_swaption_paths", out, z, volT, l0, deltas,
+                              floats, ints)
+
+
+def _check_libors(num_libors: int, l0: torch.Tensor) -> None:
+    if int(num_libors) != l0.shape[0]:
+        raise ValueError(f"num_libors={num_libors} but {l0.shape[0]} "
+                         "initial forwards")
+
+
+def lmm_swaption_kernel(seed: int, num_paths: int, num_libors: int,
+                        exercise: int, periods: int, num_steps: int,
+                        vol_table, initial_forwards, deltas, dt, strike,
+                        device=None) -> torch.Tensor:
+    """Monte-Carlo E[payoff / N(T_e)] of a payer swaption under the
+    spot-measure NORMAL one-factor LMM, every path in one kernel launch:
+    the float64 mean as a 0-d tensor on ``device`` (default
+    ``select_device()``). ``vol_table`` ``[>= num_steps, n]`` holds
+    ``sigma_i(t_s) * R[i, 0]``; ``num_steps`` should be the exercise step
+    (simulating past it is wasted work)."""
+    device = torch.device(device) if device is not None else select_device()
+    volT, l0, dl, scal = lmm_swaption_inputs(vol_table, initial_forwards,
+                                             deltas, num_steps, dt, strike,
+                                             device)
+    _check_libors(num_libors, l0)
+    return sp.mean(lmm_swaption_payoffs(seed, num_paths, volT, l0, dl, scal,
+                                        exercise=exercise, periods=periods))
+
+
+def lmm_swaption_kernel_with_normals(normals, num_libors: int, exercise: int,
+                                     periods: int, vol_table,
+                                     initial_forwards, deltas, dt, strike,
+                                     device=None) -> torch.Tensor:
+    """The same price on given standard normals ``[num_steps, num_paths]``
+    (step ``s`` uses row ``s``), on the device of ``normals`` if it is a
+    tensor, else on ``device`` (default ``select_device()``)."""
+    if device is None:
+        device = normals.device if isinstance(normals, torch.Tensor) \
+            else select_device()
+    device = torch.device(device)
+    z = sp.as_f32(normals, device)
+    if z.dim() != 2:
+        raise ValueError("normals must be [num_steps, num_paths]")
+    volT, l0, dl, scal = lmm_swaption_inputs(vol_table, initial_forwards,
+                                             deltas, z.shape[0], dt, strike,
+                                             device)
+    _check_libors(num_libors, l0)
+    return sp.mean(lmm_swaption_payoffs_injected(
+        z, volT, l0, dl, scal, exercise=exercise, periods=periods))

@@ -27,6 +27,17 @@ Inputs keep the engine's layout:
 * ``initial_forwards``, ``deltas`` ``[n]`` float32;
 * ``products``: ``(exercise index, periods, strike)`` per product, grouped
   by ascending exercise index.
+
+The single-swaption pricer of the same model family, counterpart of
+``lmm_stochvol_swaption_kernel`` and ``..._with_normals`` (the Pallas
+kernel ``_sv_kernel``, with the on-core PRNG and on injected normals), is
+here too: its kernels are ``csrc/lmm_swaption_paths.cu``, built and counted
+by ``ops/_swaption_paths.py``. Unlike the products kernel it carries V
+multiplicatively in float32, as ``_sv_kernel`` does (held against its own
+reference, not the products kernel's). Each entry point returns the float64
+mean of payoff / N(T_e) as a 0-d tensor; ``lmm_stochvol_swaption_payoffs``
+and ``..._payoffs_injected`` give the float32 value of each path (the kernel
+on a CUDA device, the plain version on the CPU).
 """
 
 from __future__ import annotations
@@ -38,8 +49,11 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..utils.config import select_device
 from . import _cuda_build
+from . import _swaption_paths as sp
 from ._products import Product, check_products, check_tensor, product_tables
+from .kernels import _check_seed, normal_pairs
 
 SOURCE = "lmm_stochvol_products.cu"
 TILE = 128                    # paths per block, one thread per path
@@ -181,3 +195,203 @@ def lmm_stochvol_swaptions_batch_reference(z, volT_b, scal_b,
     paid = torch.stack(rows, dim=1)                             # [B, P, paths]
     paid = torch.where(torch.isfinite(paid), paid, 0.0).to(torch.float64)
     return paid.sum(dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# the single-swaption pricer: F factors, blended local vol, V multiplicative
+# ---------------------------------------------------------------------------
+
+V_CAP = 1.0e6                 # the Pallas pricer's cap of V
+
+
+def lmm_stochvol_swaption_inputs(vol_table, factor_matrix, initial_forwards,
+                                 deltas, num_steps: int, dt, strike, blend,
+                                 nu, rho, device):
+    """The pricer's packed inputs on ``device``, as the JAX package's
+    ``_pack_inputs`` packs them (``lmm_stochvol_kernel.py:120-137``):
+    ``volT`` ``[F * n, S]`` float32 (``vol_table[s, i] * R[i, f]`` at row
+    ``f * n + i``, the product taken in float32), ``l0`` and ``deltas``
+    ``[n]`` float32, and ``scal`` ``[dt, sqrt(dt), strike, blend, nu, rho,
+    sqrt(1 - rho^2), 0]`` float32 on the CPU, both roots taken in float32."""
+    vt, R = sp.as_f32(vol_table, device), sp.as_f32(factor_matrix, device)
+    if vt.dim() != 2 or not 1 <= num_steps <= vt.shape[0] or R.dim() != 2:
+        raise ValueError(f"vol_table {tuple(vt.shape)} / factor_matrix "
+                         f"{tuple(R.shape)} do not give {num_steps} steps")
+    vt = vt[:num_steps]
+    volT = (vt.T[None, :, :] * R.T[:, :, None]).reshape(-1, num_steps)
+    f32 = np.float32
+    rho32 = f32(rho)
+    somega = np.sqrt(np.maximum(f32(1.0) - rho32 * rho32, f32(1e-12)))
+    scal = torch.from_numpy(np.asarray(
+        [f32(dt), np.sqrt(f32(dt)), f32(strike), f32(blend), f32(nu), rho32,
+         somega, 0.0], dtype=np.float32))
+    return (volT.contiguous(), sp.as_f32(initial_forwards, device),
+            sp.as_f32(deltas, device), scal)
+
+
+def _scalars(scal):
+    """The pricer's scalars as Python floats (exact float32 values), with
+    1 - blend and nu^2 dt / 2 rounded as the kernel rounds them."""
+    f32 = np.float32
+    dt, sqrt_dt, strike, blend, nu, rho, somega = (
+        f32(v) for v in scal[:7].tolist())
+    one_minus_blend = f32(1.0) - blend
+    v_drift = ((f32(0.5) * nu) * nu) * dt
+    return tuple(float(v) for v in (dt, sqrt_dt, strike, blend, nu, rho,
+                                    somega, one_minus_blend, v_drift))
+
+
+def lmm_stochvol_swaption_payoffs_with_normals(z, volT, l0, deltas, scal, *,
+                                               exercise: int,
+                                               periods: int) -> torch.Tensor:
+    """Plain version of the kernel on the normals ``z`` ``[S * (F + 1),
+    paths]`` (rows step-major: the factors, then the normal of V): payoff /
+    N ``[paths]`` float32, a loop over steps in the Pallas kernel's order of
+    operations (``lmm_stochvol_kernel.py:80-117``), V multiplied by one
+    ``exp`` a step and capped at 1e6, L clamped to +-1e3, the drift's prefix
+    sums taken sequentially over the alive libors as the CUDA kernel takes
+    them."""
+    n = l0.shape[0]
+    F, S = volT.shape[0] // n, volT.shape[1]
+    vol = volT.reshape(F, n, S)
+    (dt, sqrt_dt, strike, blend, nu, rho, somega, one_minus_blend,
+     v_drift) = _scalars(scal)
+    paths = z.shape[1]
+    L = l0[:, None].expand(n, paths)
+    N = torch.ones(paths, dtype=torch.float32, device=z.device)
+    V = torch.ones(paths, dtype=torch.float32, device=z.device)
+    for s in range(S):
+        zs = z[s * (F + 1):(s + 1) * (F + 1)]
+        w = sqrt_dt * zs[:F]                                       # [F, paths]
+        N = N * (1.0 + deltas[s] * L[s])
+        La, d = L[s + 1:], deltas[s + 1:, None]
+        mt = d / (1.0 + d * La)
+        lf = (one_minus_blend * La + blend * l0[s + 1:, None]) * torch.sqrt(V)
+        lam = vol[:, s + 1:, s, None] * lf                   # [F, n', paths]
+        run = sp.running_sum((mt * lam).transpose(0, 1)).transpose(0, 1)
+        mu = torch.zeros_like(La)
+        diffusion = torch.zeros_like(La)
+        for f in range(F):
+            mu = mu + lam[f] * run[f]
+            diffusion = diffusion + lam[f] * w[f]
+        L = torch.cat([L[:s + 1], torch.clamp((La + mu * dt) + diffusion,
+                                              -1e3, 1e3)])
+        dw_v = sqrt_dt * (rho * zs[0] + somega * zs[F])
+        V = torch.clamp_max(V * torch.exp(nu * dw_v - v_drift), V_CAP)
+    return sp.discounted_payoff(L, N, deltas, strike, exercise, periods)
+
+
+def lmm_stochvol_swaption_paths_reference(seed: int, num_paths: int, volT,
+                                          l0, deltas, scal, *, exercise: int,
+                                          periods: int) -> torch.Tensor:
+    """Plain version of the PRNG kernel: its normals (``normal_pairs``, row
+    ``s * (F + 1) + f`` = normal of that index of a path's stream), then its
+    arithmetic."""
+    F = volT.shape[0] // l0.shape[0]
+    rows = volT.shape[1] * (F + 1)
+    z = normal_pairs(seed, num_paths, -(-rows // 4), volT.device)[:rows]
+    return lmm_stochvol_swaption_payoffs_with_normals(
+        z, volT, l0, deltas, scal, exercise=exercise, periods=periods)
+
+
+def _pricer(volT, l0, deltas, scal, exercise, periods):
+    n = l0.shape[0] if isinstance(l0, torch.Tensor) else 0
+    F = volT.shape[0] // n if n and isinstance(volT, torch.Tensor) else 0
+    if not 1 <= F <= sp.MAX_FACTORS:
+        raise ValueError(f"num_factors={F} outside the kernel's 1.."
+                         f"{sp.MAX_FACTORS}")
+    n, S, device = sp.check_inputs(volT, l0, deltas, scal, num_factors=F,
+                                   exercise=exercise, periods=periods,
+                                   scal_size=8)
+    return device, F, [float(v) for v in scal[:7].tolist()], \
+        (n, F, S, exercise, periods)
+
+
+def lmm_stochvol_swaption_payoffs(seed: int, num_paths: int, volT, l0,
+                                  deltas, scal, *, exercise: int,
+                                  periods: int) -> torch.Tensor:
+    """payoff / N of each path, ``[num_paths]`` float32 on ``volT``'s device,
+    each path drawing its own normals: the kernel on a CUDA device (one
+    launch), ``lmm_stochvol_swaption_paths_reference`` on the CPU."""
+    seed, num_paths = _check_seed(seed), sp.check_paths(num_paths)
+    device, _, floats, ints = _pricer(volT, l0, deltas, scal, exercise,
+                                      periods)
+    if device.type == "cpu":
+        return lmm_stochvol_swaption_paths_reference(
+            seed, num_paths, volT, l0, deltas, scal, exercise=exercise,
+            periods=periods)
+    out = torch.empty(num_paths, dtype=torch.float32, device=device)
+    return sp.launch_prng("lmm_stochvol_swaption_paths", out, seed, volT, l0,
+                          deltas, floats, ints)
+
+
+def lmm_stochvol_swaption_payoffs_injected(z, volT, l0, deltas, scal, *,
+                                           exercise: int,
+                                           periods: int) -> torch.Tensor:
+    """payoff / N of each path on the normals ``z`` ``[S * (F + 1),
+    num_paths]`` float32: the kernel on a CUDA device,
+    ``lmm_stochvol_swaption_payoffs_with_normals`` on the CPU."""
+    device, F, floats, ints = _pricer(volT, l0, deltas, scal, exercise,
+                                      periods)
+    rows = ints[2] * (F + 1)
+    num_paths = sp.check_paths(z.shape[1] if z.dim() == 2 else 0)
+    check_tensor("normals", z, (rows, num_paths), torch.float32, device)
+    if device.type == "cpu":
+        return lmm_stochvol_swaption_payoffs_with_normals(
+            z, volT, l0, deltas, scal, exercise=exercise, periods=periods)
+    out = torch.empty(num_paths, dtype=torch.float32, device=device)
+    return sp.launch_injected("lmm_stochvol_swaption_paths", out, z, volT,
+                              l0, deltas, floats, ints)
+
+
+def _check_shape(num_libors: int, num_factors: int, volT, l0) -> None:
+    if int(num_libors) != l0.shape[0] or \
+            int(num_factors) * l0.shape[0] != volT.shape[0]:
+        raise ValueError(f"num_libors={num_libors}, num_factors="
+                         f"{num_factors} disagree with {l0.shape[0]} initial "
+                         f"forwards and a [{volT.shape[0]}, S] loading table")
+
+
+def lmm_stochvol_swaption_kernel(seed: int, num_paths: int, num_libors: int,
+                                 num_factors: int, exercise: int,
+                                 periods: int, num_steps: int, vol_table,
+                                 factor_matrix, initial_forwards, deltas, dt,
+                                 strike, blend, nu, rho,
+                                 device=None) -> torch.Tensor:
+    """Monte-Carlo E[payoff / N(T_e)] of a payer swaption under the
+    stoch-vol benchmark LMM, every path in one kernel launch: the float64
+    mean as a 0-d tensor on ``device`` (default ``select_device()``).
+    ``vol_table`` ``[>= num_steps, n]``, ``factor_matrix`` ``[n, F]``."""
+    device = torch.device(device) if device is not None else select_device()
+    volT, l0, dl, scal = lmm_stochvol_swaption_inputs(
+        vol_table, factor_matrix, initial_forwards, deltas, num_steps, dt,
+        strike, blend, nu, rho, device)
+    _check_shape(num_libors, num_factors, volT, l0)
+    return sp.mean(lmm_stochvol_swaption_payoffs(
+        seed, num_paths, volT, l0, dl, scal, exercise=exercise,
+        periods=periods))
+
+
+def lmm_stochvol_swaption_kernel_with_normals(
+        normals, num_libors: int, num_factors: int, exercise: int,
+        periods: int, vol_table, factor_matrix, initial_forwards, deltas, dt,
+        strike, blend, nu, rho, device=None) -> torch.Tensor:
+    """The same price on given standard normals ``[num_steps * (num_factors
+    + 1), num_paths]`` (rows step-major: factors 0..F-1, then the normal of
+    V), on the device of ``normals`` if it is a tensor, else on ``device``
+    (default ``select_device()``)."""
+    rows, _ = normals.shape
+    num_steps = rows // (num_factors + 1)
+    if num_steps * (num_factors + 1) != rows:
+        raise ValueError("normals rows must be num_steps * (num_factors+1)")
+    if device is None:
+        device = normals.device if isinstance(normals, torch.Tensor) \
+            else select_device()
+    device = torch.device(device)
+    z = sp.as_f32(normals, device)
+    volT, l0, dl, scal = lmm_stochvol_swaption_inputs(
+        vol_table, factor_matrix, initial_forwards, deltas, num_steps, dt,
+        strike, blend, nu, rho, device)
+    _check_shape(num_libors, num_factors, volT, l0)
+    return sp.mean(lmm_stochvol_swaption_payoffs_injected(
+        z, volT, l0, dl, scal, exercise=exercise, periods=periods))
