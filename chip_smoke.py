@@ -8,31 +8,38 @@ Phases, one line of output each (more for the kernel builds), in order:
 
 1. the card: ``torch.cuda.get_device_name()`` and ``nvidia-smi``'s name
    and power limit (fails without a CUDA device);
-2. build the four kernel sources, one ``nvcc`` each, started together:
-   the ATM-surface kernel (``csrc/lmm_atm_products.cu``), the stoch-vol
-   kernel (``csrc/lmm_stochvol_products.cu``), the Monte-Carlo path
-   kernels (``csrc/mc_paths.cu``) and the single-swaption LMM path kernels
-   (``csrc/lmm_swaption_paths.cu``); print each build's seconds and ptxas'
-   register/spill report;
+2. build the kernel sources, one ``nvcc`` each, all started together: the
+   Monte-Carlo path kernels (``csrc/mc_paths.cu``), the single-swaption LMM
+   path kernels (``csrc/lmm_swaption_paths.cu``), and every instantiation
+   (lane group G, libors a lane K, factors F, row chunk R) of the
+   ATM-surface kernel (``csrc/lmm_atm_products.cu``) and the stoch-vol
+   kernel (``csrc/lmm_stochvol_products.cu``) that phases 3-9 launch; print
+   each build's seconds and ptxas' register/spill report;
 3. the ATM kernel against its plain PyTorch version on the card at the ATM
    shapes: 100,000 paths B=1 NORMAL, 100,003 paths (ragged tail), and the
-   FD-Jacobian batch B=87 at 8,192 paths DISPLACED; every row's path sum
-   within rtol 1e-5, atol 1e-7 * paths, and a second launch bitwise equal;
+   FD-Jacobian batch B=87 at 8,192 paths DISPLACED, then at every lane
+   group the launcher can pick on 37 libors (a partial row, 8,197 paths,
+   B=3, DISPLACED); every row's path sum within rtol 1e-5, atol 1e-7 *
+   paths, and a second launch bitwise equal;
 4. slice A's main path — the reference's ATM swaption calibration at
    100,000 paths with the 5,000-path engine Jacobian and kernel residuals,
    warmed up once, then timed; it must reach |mean_dev| < 2e-4 and
    rms_dev < 2e-4 and go through the kernel (launch count > 0, one launch
    per residual call of the timed run); a second, instrumented run prints
    where the wall goes;
-5. ATM kernel against plain version time at the main path's shape
-   (median of 5 after a warm-up, CUDA events);
+5. ATM kernel time at the main path's shape and at the FD batch B=87:
+   the launch alone on prepacked parameter sets and preallocated partials
+   (a spin kernel keeping the host's submission outside the CUDA events),
+   the wrapper, and the plain version at B=1 (median of 5 after a
+   warm-up);
 7. the stoch-vol kernel against its plain version on the card, on the
    benchmark setup at its initial parameters and the reference's Mersenne
    realization: 81,920 paths at B=1 and the FD-Jacobian batch B=17 (the
    main path's two launch shapes), 81,923 paths (ragged tail), and B=17 at
-   8,192 paths; the same bounds and the same bitwise repeat as phase 3;
-   then the kernel-vs-engine residual gap at the first curated basin
-   (fails above 5e-3 vol);
+   8,192 paths, then at every lane group the launcher can pick on 37
+   libors (5 factors, 8,197 paths, B=3); the same bounds and the same
+   bitwise repeat as phase 3; then the kernel-vs-engine residual gap at
+   the first curated basin (fails above 5e-3 vol);
 8. slice B's main path — the reference's stoch-vol benchmark calibration
    (LIBORMarketModelCalibrationTest) at 81,920 paths on its Mersenne
    realization, every program warmed up, then
@@ -43,8 +50,9 @@ Phases, one line of output each (more for the kernel builds), in order:
    residuals within 5e-5 of the engine's at the initial point; its
    ``stages`` dict splits the wall by stage, and the calls of each kind
    (kernel, reduced-path engine, oracle, analytic) are counted and timed;
-9. stoch-vol kernel against plain version time at B=1 and B=17, 81,920
-   paths (median of 5, CUDA events);
+9. stoch-vol kernel time at B=1 and B=17, 81,920 paths, as in phase 5:
+   the launch alone, the wrapper and the plain version (median of 5, CUDA
+   events);
 10. the path kernels' device generator: ``philox_normals`` bit for bit
     against the plain Philox on the card (1M normals), and the moments of
     20M normals within 5 standard errors of N(0, 1)'s;
@@ -124,6 +132,13 @@ BS_PARAMS, BS_PATHS, BS_STEPS, BS_SEED = (1.0, 0.05, 0.3, 1.0, 1.05), \
 # bench.py:1007 bench_lmm_pricer_kernels: one swaption at 409,600 paths
 PRICER_PATHS, PRICER_SEED = 409_600, 2718
 RTOL, ATOL_PER_PATH = 1e-5, 1e-7
+# the products kernels' shapes: (libors, factors) of the ATM and benchmark
+# setups, and the synthetic sweep of phases 3d / 7e (a partial row at every
+# lane group: 37 libors)
+ATM_SHAPE, SV_SHAPE = (80, 1), (40, 5)
+SYN_LIBORS, SYN_PATHS, SYN_B = 37, 8_197, 3
+SYN_PRODUCTS = ((2, 10, 0.021), (2, 30, 0.02), (5, 4, 0.022),
+                (5, 32, 0.0205), (11, 26, 0.02))
 # the published H100 SXM peaks the bound is taken against
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 SPIN_CYCLES = 2_000_000       # about 1 ms of the card's clock
@@ -203,6 +218,85 @@ def _mc_path_operations(paths, steps, asian):
     per_path = draws * (100 + 148)
     per_path += steps * (24 if asian else 2) + (3 if asian else 22)
     return per_path * paths
+
+
+def _sweep_variants(products, lmm_kernel, lmm_stochvol_kernel):
+    """The instantiations (G, K, F, R) of the two products kernels that
+    phases 3-9 launch: the launcher's pick at each launch shape, and every
+    lane group on the synthetic sweep."""
+    pick = products.lane_group
+    atm = {products.sweep_variant(*ATM_SHAPE, pick(ATM_SHAPE[0], B, paths))
+           for B, paths in ((1, PATHS), (1, PATHS + 3), (87, 8_192),
+                            (87, PATHS))}
+    sv = {products.sweep_variant(*SV_SHAPE, pick(SV_SHAPE[0], B, paths))
+          for B, paths in ((1, SV_PATHS), (17, SV_PATHS), (1, SV_PATHS + 3),
+                           (17, 8_192))}
+    for G in products.LANE_GROUPS:
+        atm.add(products.sweep_variant(SYN_LIBORS, 2, G))
+        sv.add(products.sweep_variant(SYN_LIBORS, 5, G))
+    return {lmm_kernel: atm, lmm_stochvol_kernel: sv}
+
+
+def _synthetic_sweep(torch, kind):
+    """Seeded inputs of the synthetic sweep on the card: 37 libors, B = 3
+    parameter sets, 8,197 paths; ATM with 2 factors DISPLACED, stoch vol
+    with 5 factors from benign to a curated-basin-like set."""
+    rng = np.random.default_rng(97)
+    n, B, S = SYN_LIBORS, SYN_B, SYN_PRODUCTS[-1][0]
+    F = 2 if kind == "atm" else 5
+    rows = F if kind == "atm" else F + 1
+    z = rng.standard_normal((S * rows, SYN_PATHS)).astype(np.float32)
+    scal = np.zeros((B, 8), np.float32)
+    scal[:, 0], scal[:, 1] = 0.5, np.sqrt(0.5)
+    if kind == "atm":
+        volT = (0.003 + 0.003 * rng.random((B, F * n, S))) / 4.02
+        scal[:, 2] = 4.0
+    else:
+        volT = (0.1 + 0.2 * rng.random((B, F * n, S))) / np.sqrt(F)
+        for b, (blend, nu, rho) in enumerate(((0.2, 0.3, 0.2),
+                                              (0.6, 0.8, -0.4),
+                                              (1.4, -1.4, -0.76))):
+            scal[b, 2:6] = (blend, nu, rho, np.sqrt(1.0 - rho * rho))
+    l0 = 0.02 + 0.002 * np.sin(np.arange(n))
+    args = [torch.from_numpy(np.asarray(a, np.float32)).cuda()
+            for a in (z, volT, scal, l0, np.full(n, 0.5))]
+    kwargs = dict(num_libors=n, num_factors=F, products=SYN_PRODUCTS,
+                  num_paths=SYN_PATHS)
+    if kind == "atm":
+        kwargs.update(events=(2, 5, 11), displaced=True)
+    return args, kwargs
+
+
+def _check_lane_group(torch, module, kind, G):
+    """The products kernel ``module`` with a lane group of ``G`` lanes on
+    the synthetic sweep against its plain version in the same order:
+    within rtol 1e-5, atol 1e-7 * paths, a second launch bitwise equal.
+    Returns the largest absolute error; raises on a failure."""
+    args, kwargs = _synthetic_sweep(torch, kind)
+    got = module.run(*args, **kwargs, G=G)
+    again = module.run(*args, **kwargs, G=G)
+    torch.cuda.synchronize()
+    ref = module.sweep_payoffs(*args, **kwargs, G=G)
+    err = (got - ref).abs()
+    ok = (bool(torch.isfinite(got).all()) and bool(torch.equal(got, again))
+          and bool((err <= RTOL * ref.abs() + ATOL_PER_PATH * SYN_PATHS)
+                   .all()))
+    if not ok:
+        raise SystemExit(f"chip_smoke: {module.SOURCE} with G={G} disagrees "
+                         f"with its plain version on the synthetic sweep "
+                         f"(max_abs_err {float(err.max()):.3e})")
+    return float(err.max())
+
+
+def _products_ms(torch, products, module, wrapper, args, kwargs):
+    """(launch alone, wrapper) median ms of the products kernel ``module``
+    on the inputs of one ``wrapper`` call: the launch on parameter sets
+    packed and partials allocated beforehand, then the whole wrapper."""
+    B, paths = args[1].shape[0], kwargs["num_paths"]
+    go, _ = module.prepare(*args, **kwargs, G=products.lane_group(
+        kwargs["num_libors"], B, paths))
+    return (_launch_ms(torch, go),
+            _time_ms(torch, lambda: wrapper(*args, **kwargs)))
 
 
 def _time_ms(torch, fn, reps=5):
@@ -840,24 +934,31 @@ def main(argv=None) -> int:
     from finmath_tpu_torch.models.lmm.benchmark_calibration import (
         CURATED_BASINS)
     from finmath_tpu_torch.native import host_rng
-    from finmath_tpu_torch.ops import (_cuda_build, _swaption_paths, kernels,
-                                       lmm_kernel, lmm_stochvol_kernel)
+    from finmath_tpu_torch.ops import (_cuda_build, _products,
+                                       _swaption_paths, kernels, lmm_kernel,
+                                       lmm_stochvol_kernel)
 
-    # -- 2: build the four sources, one nvcc each, started together -------
-    def build(module):
+    # -- 2: build every source and instantiation, one nvcc each, together --
+    def build(job):
+        module, variant = job
         t0 = time.perf_counter()
-        module.load_kernel()
+        module.load_kernel(*variant)
         return time.perf_counter() - t0
 
-    kernel_modules = (lmm_kernel, lmm_stochvol_kernel, kernels,
-                      _swaption_paths)
-    with ThreadPoolExecutor(len(kernel_modules)) as pool:
-        build_s = list(pool.map(build, kernel_modules))
-    for module, seconds in zip(kernel_modules, build_s):
-        log = _cuda_build.library_path(module.SOURCE).with_suffix(".log")
+    jobs = [(kernels, ()), (_swaption_paths, ())] + [
+        (module, (v,)) for module, variants in _sweep_variants(
+            _products, lmm_kernel, lmm_stochvol_kernel).items()
+        for v in sorted(variants)]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        build_s = list(pool.map(build, jobs))
+    for (module, variant), seconds in zip(jobs, build_s):
+        defines = _products.sweep_defines(*variant[0]) if variant else ()
+        log = _cuda_build.library_path(module.SOURCE, defines).with_suffix(
+            ".log")
         ptxas = [ln.strip() for ln in log.read_text().splitlines()
                  if "registers" in ln or "spill" in ln]
-        print(f"phase 2 build: {seconds:.3f} s ({module.SOURCE}); "
+        tag = (" (G, K, F, R) = " + str(variant[0])) if variant else ""
+        print(f"phase 2 build: {seconds:.3f} s ({module.SOURCE}{tag}); "
               + " | ".join(ptxas), flush=True)
 
     # -- 3: kernel against plain version on the card ----------------------
@@ -893,6 +994,13 @@ def main(argv=None) -> int:
             raise SystemExit(f"chip_smoke: phase 3{label}: kernel disagrees "
                              "with its plain version")
         del setup, kb, args, got, ref
+    for G in _products.LANE_GROUPS:
+        err = _check_lane_group(torch, lmm_kernel, "atm", G)
+        max_abs_err = max(max_abs_err, err)
+        print(f"phase 3d G={G} kernel vs plain: paths={SYN_PATHS} B=3 "
+              f"libors={SYN_LIBORS} DISPLACED max_abs_err={err:.3e} "
+              f"bitwise repeatable, within rtol={RTOL}, "
+              f"atol={ATOL_PER_PATH}*paths: True", flush=True)
 
     # -- 4: the main path --------------------------------------------------
     t0 = time.perf_counter()
@@ -978,16 +1086,18 @@ def main(argv=None) -> int:
             name: {"calls": t.calls, "s": round(t.seconds, 4)}
             for name, t in timers.items()}}), flush=True)
 
-    # -- 5: kernel against plain version, main path's shape ---------------
+    # -- 5: kernel time at the main path's shape and the FD batch ---------
     args, kwargs = kb.kernel_arguments(kb.params(result.parameters)[None, :])
-    ms = _time_ms(torch, lambda: lmm_kernel.lmm_atm_swaptions_batch(
-        *args, **kwargs))
-    plain_ms = _time_ms(torch, lambda: lmm_kernel.lmm_atm_swaptions_batch_reference(
-        *args, **kwargs))
     X = kb.fd_parameter_sets(kb.params(result.parameters))[0]
     fd_args, fd_kwargs = kb.kernel_arguments(X)
-    fd_ms = _time_ms(torch, lambda: lmm_kernel.lmm_atm_swaptions_batch(
-        *fd_args, **fd_kwargs))
+    atm_run = lmm_kernel.lmm_atm_swaptions_batch
+    ms, wrapper_ms = _products_ms(torch, _products, lmm_kernel, atm_run,
+                                  args, kwargs)
+    fd_ms, fd_wrapper_ms = _products_ms(torch, _products, lmm_kernel, atm_run,
+                                        fd_args, fd_kwargs)
+    plain_ms = _time_ms(
+        torch, lambda: lmm_kernel.lmm_atm_swaptions_batch_reference(
+            *args, **kwargs))
     atm_ops = dict(num_libors=kwargs["num_libors"],
                    num_factors=kwargs["num_factors"],
                    products=kwargs["products"], paths=PATHS, stoch_vol=False,
@@ -998,11 +1108,16 @@ def main(argv=None) -> int:
     fd_bound_ms, _ = _bound(
         fd_args, lmm_kernel.lmm_atm_swaptions_batch(*fd_args, **fd_kwargs),
         _sweep_operations(B=X.shape[0], **atm_ops))
-    print(f"phase 5 timing (median of 5, CUDA events): B=1 paths={PATHS} "
-          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"speedup={plain_ms / ms:.2f}x bound_ms={bound_ms:.4f} "
-          f"({bound_by}); kernel B={X.shape[0]} paths={PATHS} "
-          f"ms={fd_ms:.4f} bound_ms={fd_bound_ms:.4f}", flush=True)
+    G1, G87 = (_products.lane_group(ATM_SHAPE[0], B, PATHS)
+               for B in (1, X.shape[0]))
+    print(f"phase 5 timing (median of 5, CUDA events; {smi}): B=1 "
+          f"paths={PATHS} G={G1} "
+          f"kernel_ms={ms:.4f} wrapper_ms={wrapper_ms:.4f} "
+          f"plain_ms={plain_ms:.4f} speedup={plain_ms / ms:.2f}x "
+          f"bound_ms={bound_ms:.4f} ({bound_by}); B={X.shape[0]} "
+          f"paths={PATHS} G={G87} "
+          f"kernel_ms={fd_ms:.4f} wrapper_ms={fd_wrapper_ms:.4f} "
+          f"bound_ms={fd_bound_ms:.4f}", flush=True)
     atm_row = {
         "name": "lmm_atm_products",
         "route": "cuda",
@@ -1066,6 +1181,13 @@ def main(argv=None) -> int:
                 raise SystemExit("chip_smoke: phase 7a: kernel and engine "
                                  "disagree at the curated basin")
         del sv, sv_kb
+    for G in _products.LANE_GROUPS:
+        err = _check_lane_group(torch, lmm_stochvol_kernel, "stochvol", G)
+        sv_max_abs_err = max(sv_max_abs_err, err)
+        print(f"phase 7e G={G} stoch-vol kernel vs plain: paths={SYN_PATHS} "
+              f"B={SYN_B} libors={SYN_LIBORS} factors=5 "
+              f"max_abs_err={err:.3e} bitwise repeatable, within "
+              f"rtol={RTOL}, atol={ATOL_PER_PATH}*paths: True", flush=True)
 
     # -- 8: slice B's main path, the stoch-vol benchmark calibration -------
     t0 = time.perf_counter()
@@ -1169,16 +1291,18 @@ def main(argv=None) -> int:
     if failed:
         raise SystemExit(f"chip_smoke: phase 8 failed: {failed}")
 
-    # -- 9: stoch-vol kernel against plain version, main path's shapes -----
+    # -- 9: stoch-vol kernel time at the main path's shapes ---------------
     x = sv_kb.params(sv_result.parameters)
     sv_args, sv_kwargs = sv_kb.kernel_arguments(x[None, :])
     sv_fd_args, sv_fd_kwargs = sv_kb.kernel_arguments(
         sv_kb.fd_parameter_sets(x)[0])
     run = lmm_stochvol_kernel.lmm_stochvol_swaptions_batch
     plain = lmm_stochvol_kernel.lmm_stochvol_swaptions_batch_reference
-    sv_ms = _time_ms(torch, lambda: run(*sv_args, **sv_kwargs))
+    sv_ms, sv_wrapper_ms = _products_ms(torch, _products, lmm_stochvol_kernel,
+                                        run, sv_args, sv_kwargs)
+    sv_fd_ms, sv_fd_wrapper_ms = _products_ms(
+        torch, _products, lmm_stochvol_kernel, run, sv_fd_args, sv_fd_kwargs)
     sv_plain_ms = _time_ms(torch, lambda: plain(*sv_args, **sv_kwargs))
-    sv_fd_ms = _time_ms(torch, lambda: run(*sv_fd_args, **sv_fd_kwargs))
     sv_fd_plain_ms = _time_ms(torch, lambda: plain(*sv_fd_args,
                                                    **sv_fd_kwargs))
     B_fd = sv_fd_args[1].shape[0]
@@ -1191,11 +1315,17 @@ def main(argv=None) -> int:
     sv_fd_bound_ms, sv_fd_bound_by = _bound(
         sv_fd_args, run(*sv_fd_args, **sv_fd_kwargs),
         _sweep_operations(B=B_fd, **sv_ops))
-    print(f"phase 9 timing (median of 5, CUDA events): paths={SV_PATHS} "
-          f"B=1 kernel_ms={sv_ms:.4f} plain_ms={sv_plain_ms:.4f} "
-          f"bound_ms={sv_bound_ms:.4f} ({sv_bound_by}); B={B_fd} "
-          f"kernel_ms={sv_fd_ms:.4f} plain_ms={sv_fd_plain_ms:.4f} "
-          f"bound_ms={sv_fd_bound_ms:.4f} ({sv_fd_bound_by})", flush=True)
+    G1, G_fd = (_products.lane_group(SV_SHAPE[0], B, SV_PATHS)
+                for B in (1, B_fd))
+    print(f"phase 9 timing (median of 5, CUDA events; {smi}): "
+          f"paths={SV_PATHS} B=1 G={G1} "
+          f"kernel_ms={sv_ms:.4f} wrapper_ms={sv_wrapper_ms:.4f} "
+          f"plain_ms={sv_plain_ms:.4f} bound_ms={sv_bound_ms:.4f} "
+          f"({sv_bound_by}); B={B_fd} "
+          f"G={G_fd} "
+          f"kernel_ms={sv_fd_ms:.4f} wrapper_ms={sv_fd_wrapper_ms:.4f} "
+          f"plain_ms={sv_fd_plain_ms:.4f} bound_ms={sv_fd_bound_ms:.4f} "
+          f"({sv_fd_bound_by})", flush=True)
 
     # -- 10-14: slice C, the vector engine and Monte-Carlo Black-Scholes ----
     mc_rows = _slice_c(torch, smi)

@@ -11,160 +11,217 @@
 // where N is the spot numeraire and P_end, A the swap's end bond and annuity
 // read off the live forward curve.
 //
-// Design for Hopper:
-//   * one thread is one path; a block is kTile = 128 paths; the grid is
-//     (path tiles, B) and blocks are independent, so nothing carries over
-//     between them;
-//   * each thread's forward curve L[0..n) lives in shared memory as
-//     [n][kTile] floats (n = 80: 40 KB), so thread t only ever touches
-//     column t (bank-conflict-free, no barriers in the sweep);
-//   * the spot drift's prefix sum over libors is one sequential pass per
-//     step (running sums for up to kMaxFactors factors kept in registers):
-//     c_i = delta_i lambda_i / (1 + delta_i L_i) from the pre-update L_i,
-//     added to the inclusive running sum, then L_i is updated in place;
-//   * products arrive grouped by exercise step (engine order); each group
-//     is valued in one pass of a running bond product over the swap periods;
-//   * the path reduction is deterministic: a float64 warp-shuffle sum, then
-//     a fixed-order sum of the four warp partials, written per tile to
-//     partials[B, tiles, P + E]; the caller sums tiles in float64. No
-//     atomics. Threads past num_paths simulate on zero normals, read no z,
-//     and contribute 0.
+// What bounds it on an H100: float32 issue. Per path and parameter set the
+// reference's ATM calibration (80 libors, 1 factor, 60 steps) is ~2,970
+// alive (step, libor) updates and 11 collections of up to 78 periods for
+// 144 products, all float32 with a sequential dependence through the
+// running sums; the normals are read once (24 MB at 100,000 paths). The
+// first design (one thread a path, the [n][128] curve in shared memory,
+// 45 KB a block) ran 782 blocks at 4-5 blocks an SM, two waves with the
+// second mostly empty, and cost every alive libor 235 SASS instructions (a
+// shared load and store, and all 8 factor slots of global loads with 64-bit
+// index arithmetic, whatever F): 3.5-5.5% of the operations bound. This
+// design issues 27 (G = 1) to 36 (G = 2) an alive libor at F = 1.
 //
-// What bounds it: per step each path does O(n) float32 work (one divide, a
-// few FMAs per libor and factor) with L re-read from shared memory, a strict
-// sequential dependence through the running sum, and a divide per libor in
-// the collection. At B = 1 and 100k paths the grid is only ~782 blocks of
-// 128 threads, about one wave on 132 SMs at the occupancy that 45 KB of
-// shared memory per block allows; the batched FD Jacobian (B = 87) fills
-// the card. Register-resident curves, several paths per thread and graphs
-// of launches are later work.
+// Design (lmm_sweep.cuh has the shared pieces; lmm_stochvol_products.cu
+// the same design with the stoch-vol local factor):
+//   * a lane group of G lanes carries one path; lane g holds the libors
+//     r * G + g in registers, K = ceil(n / G) of them, in rows unrolled at
+//     compile time. The wrapper picks G by shape
+//     (ops/_products.py::lane_group; each (G, K, F, R) is its own build).
+//     On the H100: G = 2 for the calibration's B = 1 launch (80 libors at
+//     one lane a path need about 120 registers: 2 blocks an SM, 1.5 waves;
+//     two lanes halve that), G = 1 for the FD batch B = 87, whose grid
+//     fills the card many times over and where the shuffles only add
+//     issue slots; 4 and 8 lanes lose at both shapes
+//     (tools/compare_products_kernels.py, PERF.md);
+//   * the drift's running sums: a butterfly scan over the G lanes of each
+//     row plus a carry across rows; N's fixing is shuffled from its owner;
+//   * rows are swept in chunks of R (8 at G = 1, 4 at G = 2): a chunk
+//     whose libors are all dead is skipped by a warp-uniform branch, and no
+//     branch splits a chunk, so the scheduler overlaps its rows' divides
+//     and loads;
+//   * a block (256 threads, 256 / G paths) stages its parameter set into
+//     shared memory with bulk asynchronous copies (TMA) on an mbarrier: the
+//     scalars, (L0, delta) per libor and the loadings step-major
+//     [S][C][NP][V] (19 KB at the ATM shape), packed by the wrapper;
+//   * the grid is (path tile, B) with B fastest, so the 87 parameter sets of
+//     the FD Jacobian read one tile's normals from L2;
+//   * collection: a scan of (bond product, annuity) pairs over the rows the
+//     step's swaps span, products visited in order of their end period;
+//   * the deterministic float64 path reduction of lmm_sweep.cuh into
+//     partials[B, tiles, P + E]; the wrapper sums tiles in float64. No
+//     atomics. Paths past num_paths read no z and contribute 0.
+// No tensor cores: the contractions have depth F <= 8 inside a per-path
+// recurrence, and TF32 would break the precision contract (float32 path
+// data, float64 reductions). No fast math: IEEE division throughout.
 
-#include <cuda_runtime.h>
+#include "lmm_sweep.cuh"
 
 namespace {
 
-constexpr int kTile = 128;
-constexpr int kWarps = kTile / 32;
-constexpr int kMaxFactors = 8;
+using namespace lmm_sweep;
 
-__device__ __forceinline__ double warp_sum(double v) {
-#pragma unroll
-  for (int offset = 16; offset > 0; offset >>= 1) {
-    v += __shfl_down_sync(0xffffffffu, v, offset);
+constexpr int G = LMM_G;
+constexpr int K = LMM_K;
+constexpr int F = LMM_F;
+constexpr int kRows = LMM_R;             // rows a chunk of the drift sweep
+
+// Values the products of step s from position q on (in order of their last
+// period) whose last period lies before row_end, off the running pairs
+// `pre` of the current row: payoff / N, summed over the warp's paths into
+// red_warp[k]. Returns the next position.
+__device__ __forceinline__ int value_products(
+    int q, int q1, int s, int row_end, Bond pre, float inv_n, bool valid,
+    const int* __restrict__ order, const int* __restrict__ prod_m,
+    const float* __restrict__ prod_k, double* red_warp) {
+  for (; q < q1; ++q) {
+    const int k = order[q];
+    const int end = s + prod_m[k] - 1;
+    if (end >= row_end) break;
+    const float cp = __shfl_sync(kFull, pre.c, end % G, G);
+    const float ann = __shfl_sync(kFull, pre.a, end % G, G);
+    float payoff = 1.0f - cp - prod_k[k] * ann;
+    payoff = (payoff < 0.0f) ? 0.0f : payoff;
+    const double v =
+        warp_path_sum(valid ? static_cast<double>(payoff * inv_n) : 0.0);
+    if ((threadIdx.x & 31) == 0) red_warp[k] = v;
   }
-  return v;
+  return q;
 }
 
-// clamp that keeps NaN (as torch.clamp and jnp.clip do)
-__device__ __forceinline__ float clamp_keep_nan(float x, float lo, float hi) {
-  x = (x < lo) ? lo : x;
-  return (x > hi) ? hi : x;
-}
-
-__global__ void __launch_bounds__(kTile)
+__global__ void __launch_bounds__(kThreads)
 lmm_atm_products_kernel(const float* __restrict__ z, long long ldz,
-                        const float* __restrict__ volT,
-                        const float* __restrict__ scal,
-                        const float* __restrict__ l0,
-                        const float* __restrict__ deltas,
+                        const float* __restrict__ packed, int width,
                         const int* __restrict__ step_event,
                         const int* __restrict__ step_first,
+                        const int* __restrict__ order,
                         const int* __restrict__ prod_m,
                         const float* __restrict__ prod_k,
-                        double* __restrict__ partials,
-                        int n, int F, int S, int P, int E, int num_paths,
-                        int displaced) {
-  extern __shared__ double smem[];
+                        double* __restrict__ partials, int n, int S, int P,
+                        int E, int num_paths, int B, int displaced) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int R = P + E;
-  double* red = smem;                                        // [kWarps][R]
-  float* L = reinterpret_cast<float*>(smem + kWarps * R);    // [n][kTile]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw);
+  double* red = reinterpret_cast<double*>(smem_raw + 16);       // [kWarps][R]
+  float* set = reinterpret_cast<float*>(red + kWarps * R);      // [width]
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int tile = blockIdx.x;
-  const int b = blockIdx.y;
-  const long long path = static_cast<long long>(tile) * kTile + tid;
+  const int g = tid & (G - 1);
+  const int b = blockIdx.x % B;
+  const int tile = blockIdx.x / B;
+  const long long path =
+      static_cast<long long>(tile) * (kThreads / G) + tid / G;
   const bool valid = path < num_paths;
+  const int np = ((K * G + 3) / 4) * 4;
 
-  const float dt = scal[b * 8 + 0];
-  const float sqrt_dt = scal[b * 8 + 1];
-  const float disp = scal[b * 8 + 2];
-  const float* vol = volT + static_cast<size_t>(b) * F * n * S;
+  for (int r = tid; r < kWarps * R; r += kThreads) red[r] = 0.0;
+  stage(set, packed + static_cast<size_t>(b) * width,
+        static_cast<unsigned>(width) * sizeof(float), bar);
 
-  for (int r = tid; r < kWarps * R; r += kTile) red[r] = 0.0;
-  for (int i = 0; i < n; ++i) L[i * kTile + tid] = l0[i];
+  const float dt = set[0];
+  const float sqrt_dt = set[1];
+  const float disp = set[2];
+  const float2* cst = reinterpret_cast<const float2*>(set + 8);  // [np]
+  const float* tab = set + 8 + 2 * np;               // [S][kC][np][kV]
+
+  float L[K];
+#pragma unroll
+  for (int r = 0; r < K; ++r) L[r] = cst[r * G + g].x;
   float N = 1.0f;
-  __syncthreads();
 
   for (int s = 0; s <= S; ++s) {
     const int ev = step_event[s];
     if (ev >= 0) {
       // collection at the START of the exercise step (engine ordering)
       const float inv_n = 1.0f / N;
-      double v = warp_sum(valid ? static_cast<double>(inv_n) : 0.0);
+      const double v = warp_path_sum(valid ? static_cast<double>(inv_n)
+                                           : 0.0);
       if (lane == 0) red[warp * R + P + ev] = v;
-      int pos = s;
-      float cp = 1.0f;
-      float ann = 0.0f;
-      for (int k = step_first[s]; k < step_first[s + 1]; ++k) {
-        const int end = s + prod_m[k];
-        if (end < pos) {
-          pos = s;
-          cp = 1.0f;
-          ann = 0.0f;
+      const int q1 = step_first[s + 1];
+      int q = step_first[s];
+      const int last = s + prod_m[order[q1 - 1]] - 1;
+      int end = s + prod_m[order[q]] - 1;
+      Bond carry = {1.0f, 0.0f};
+#pragma unroll
+      for (int r = 0; r < K; ++r) {
+        if (r * G + G - 1 < s || r * G > last) continue;   // warp-uniform
+        const int i = r * G + g;
+        Bond x = {1.0f, 0.0f};
+        if (i >= s && i <= last) {
+          const float d = cst[i].y;
+          x.c = 1.0f / (1.0f + d * L[r]);
+          x.a = x.c * d;
         }
-        for (; pos < end; ++pos) {
-          const float d = deltas[pos];
-          cp = cp * (1.0f / (1.0f + d * L[pos * kTile + tid]));
-          ann = ann + cp * d;
+        Bond pre, tot;
+        group_scan_bond(x, g, pre, tot);
+        pre = compose(carry, pre);
+        carry = compose(carry, tot);
+        if (q < q1 && end < r * G + G) {                   // warp-uniform
+          q = value_products(q, q1, s, r * G + G, pre, inv_n, valid, order,
+                             prod_m, prod_k, red + warp * R);
+          if (q < q1) end = s + prod_m[order[q]] - 1;
         }
-        float payoff = 1.0f - cp - prod_k[k] * ann;
-        payoff = (payoff < 0.0f) ? 0.0f : payoff;
-        v = warp_sum(valid ? static_cast<double>(payoff * inv_n) : 0.0);
-        if (lane == 0) red[warp * R + k] = v;
       }
     }
     if (s == S) break;
 
-    float w[kMaxFactors];
+    float w[F];
+    const float* zs = z + static_cast<long long>(s) * F * ldz + path;
 #pragma unroll
-    for (int f = 0; f < kMaxFactors; ++f) {
-      w[f] = (f < F && valid)
-                 ? sqrt_dt * z[static_cast<long long>(s * F + f) * ldz + path]
-                 : 0.0f;
-    }
-    // spot account accrues period s at its fixing L_s
-    N = N * (1.0f + deltas[s] * L[s * kTile + tid]);
+    for (int f = 0; f < F; ++f) w[f] = valid ? sqrt_dt * zs[f * ldz] : 0.0f;
 
-    float run[kMaxFactors];
+    // spot account accrues period s at its fixing L_s
+    N = N * (1.0f + cst[s].y * libor_of(L, s));
+
+    float carry[F];
 #pragma unroll
-    for (int f = 0; f < kMaxFactors; ++f) run[f] = 0.0f;
-    for (int i = s + 1; i < n; ++i) {
-      const float Li = L[i * kTile + tid];
-      const float d = deltas[i];
-      const float mt = d / (1.0f + d * Li);
-      const float lf = Li + disp;
-      float mu = 0.0f;
-      float diffusion = 0.0f;
+    for (int f = 0; f < F; ++f) carry[f] = 0.0f;
 #pragma unroll
-      for (int f = 0; f < kMaxFactors; ++f) {
-        if (f < F) {
-          const float base = vol[(static_cast<size_t>(f) * n + i) * S + s];
-          const float lam = displaced ? base * lf : base;
-          run[f] = run[f] + mt * lam;
-          mu = mu + lam * run[f];
+    for (int r0 = 0; r0 < K; r0 += kRows) {
+      // a chunk of kRows rows whose libors are all dead is skipped (a
+      // warp-uniform branch); within a chunk no branch splits the rows, so
+      // the scheduler can overlap their independent work
+      if ((r0 + kRows < K ? r0 + kRows : K) * G - 1 <= s) continue;
+#pragma unroll
+      for (int r = r0; r < r0 + kRows && r < K; ++r) {
+        const int i = r * G + g;
+        // only the last row reaches past the curve: n > (K - 1) * G
+        const bool alive = i > s && (r < K - 1 || i < n);
+        const float d = cst[i].y;
+        const float Li = L[r];
+        // the divide is taken on every lane, then masked: a select, not a
+        // branch that would split the chunk around the divide's slow path
+        const float m = d / (1.0f + d * Li);
+        const float mt = alive ? m : 0.0f;
+        const float lf = Li + disp;
+        float v[kFP];
+        load_loadings(tab, np, s, i, v);
+        float mu = 0.0f;
+        float diffusion = 0.0f;
+#pragma unroll
+        for (int f = 0; f < F; ++f) {
+          const float lam = displaced ? v[f] * lf : v[f];
+          float pre, tot;
+          group_scan(mt * lam, g, pre, tot);
+          const float run = carry[f] + pre;
+          carry[f] = carry[f] + tot;
+          mu = mu + lam * run;
           diffusion = diffusion + lam * w[f];
         }
+        if (alive) {
+          L[r] = clamp_keep_nan(Li + mu * dt + diffusion, -1.0e3f, 1.0e3f);
+        }
       }
-      L[i * kTile + tid] = clamp_keep_nan(Li + mu * dt + diffusion,
-                                          -1.0e3f, 1.0e3f);
     }
   }
 
   __syncthreads();
-  double* out = partials + (static_cast<size_t>(b) * gridDim.x + tile) * R;
-  for (int r = tid; r < R; r += kTile) {
+  double* out =
+      partials + (static_cast<size_t>(b) * (gridDim.x / B) + tile) * R;
+  for (int r = tid; r < R; r += kThreads) {
     double acc = red[r];
     for (int wi = 1; wi < kWarps; ++wi) acc += red[wi * R + r];
     out[r] = acc;
@@ -175,29 +232,35 @@ lmm_atm_products_kernel(const float* __restrict__ z, long long ldz,
 
 extern "C" {
 
-int lmm_atm_products_max_factors() { return kMaxFactors; }
+// The instantiation of this library: G, K, F, R for which = 0, 1, 2, 3.
+int lmm_atm_products_variant(int which) {
+  const int v[4] = {G, K, F, kRows};
+  return (which >= 0 && which < 4) ? v[which] : -1;
+}
 
 // Launches on `stream` without synchronising; returns the launch's error.
 cudaError_t lmm_atm_products_launch(
-    const float* z, long long ldz, const float* volT, const float* scal,
-    const float* l0, const float* deltas, const int* step_event,
-    const int* step_first, const int* prod_m, const float* prod_k,
-    double* partials, int n, int F, int S, int P, int E, int num_paths,
-    int B, int displaced, cudaStream_t stream) {
-  if (F < 1 || F > kMaxFactors || n < 1 || S < 1 || P < 1 || E < 1 ||
-      num_paths < 1 || B < 1) {
+    const float* z, long long ldz, const float* packed, int width,
+    const int* step_event, const int* step_first, const int* order,
+    const int* prod_m, const float* prod_k, double* partials, int n, int S,
+    int P, int E, int num_paths, int B, int displaced, cudaStream_t stream) {
+  const int np = ((K * G + 3) / 4) * 4;
+  if (n < 1 || n > K * G || n <= (K - 1) * G || S < 1 || S >= n || P < 1 ||
+      E < 1 || num_paths < 1 || B < 1 ||
+      width != 8 + 2 * np + S * kC * np * kV) {
     return cudaErrorInvalidValue;
   }
-  const int tiles = (num_paths + kTile - 1) / kTile;
-  const size_t smem = static_cast<size_t>(kWarps) * (P + E) * sizeof(double) +
-                      static_cast<size_t>(n) * kTile * sizeof(float);
+  const long long tiles = (num_paths + kThreads / G - 1) / (kThreads / G);
+  if (tiles * B > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const size_t smem = shared_bytes(P + E, width);
   cudaError_t err = cudaFuncSetAttribute(
       lmm_atm_products_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  lmm_atm_products_kernel<<<dim3(tiles, B), kTile, smem, stream>>>(
-      z, ldz, volT, scal, l0, deltas, step_event, step_first, prod_m, prod_k,
-      partials, n, F, S, P, E, num_paths, displaced);
+  lmm_atm_products_kernel<<<static_cast<unsigned>(tiles * B), kThreads, smem,
+                            stream>>>(
+      z, ldz, packed, width, step_event, step_first, order, prod_m, prod_k,
+      partials, n, S, P, E, num_paths, B, displaced);
   return cudaGetLastError();
 }
 

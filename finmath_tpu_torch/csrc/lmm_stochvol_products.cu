@@ -8,7 +8,7 @@
 // random numbers: residuals at B = 1, the central finite-difference Jacobian
 // at B = 2 * n_params + 1), F rate factors plus the driver of the scaling
 // process V, with the Euler scheme on the tenor grid:
-//   lambda_{i,f}  = volT[f, i, s] * ((1 - b) L_i + b L_i(0)) * sqrt(V),
+//   lambda_{i,f}  = vol[s, i, f] * ((1 - b) L_i + b L_i(0)) * sqrt(V),
 //   dL_i          = lambda_i . (sum_{j=s+1..i} m_j lambda_j) dt + lambda_i . dW,
 //   m_j           = delta_j / (1 + delta_j L_j),
 //   log V        += nu sqrt_dt (rho z_0 + sqrt(1 - rho^2) z_F) - nu^2 dt / 2,
@@ -20,186 +20,232 @@
 // in float64, as the JAX caller does with the Pallas kernel's per-path
 // output.
 //
-// Design for Hopper:
-//   * one thread is one path; a block is kTile = 128 paths; the grid is
-//     (path tiles, B) and blocks are independent;
-//   * each thread's forward curve L[0..n) lives in shared memory as
-//     [n][kTile] floats (n = 40: 20 KB), thread t touching column t only
-//     (bank-conflict-free, no barriers in the sweep); log V and N stay in
-//     registers. log V is carried additively and exponentiated once per
-//     step (expf, not the fast __expf; no --use_fast_math), so no float32
-//     product of exponentials compounds a bias that the chaotic calibrated
-//     basins would amplify;
-//   * the spot drift's prefix sum over libors is one sequential pass per
-//     step with the F running sums in registers: the pre-update L_i gives
-//     m_i and lambda_i, the inclusive sums take them, then L_i is updated
-//     in place (clamped to +-1e3, NaN kept as torch.clamp and jnp.clip keep
-//     it);
-//   * products arrive grouped by exercise step, periods ascending; each
-//     group is valued by one running bond product over the swap periods, so
-//     the benchmark's nine smile strikes at one expiry share one curve;
-//   * the path reduction is deterministic: a float64 warp-shuffle sum, then
-//     a fixed-order sum of the four warp partials, written per tile to
-//     partials[B, tiles, P]; the wrapper sums tiles in float64. No atomics.
-//     Threads past num_paths read no z and contribute 0. A per-path output
-//     would be 84 MB per Jacobian launch at 81,920 paths, and its only
-//     caller reduces it at once.
+// What bounds it on an H100: float32 issue and its latency. Per path and
+// parameter set the sweep is ~590 alive (step, libor) updates of 13 + 7 F
+// operations with a sequential dependence through the drift's running
+// sums; the normals are ~39 MB at 81,920 paths, read once. The first design
+// (one thread a path, the curve in shared memory, the loadings read from
+// global memory with 64-bit index arithmetic inside a rolled libor loop
+// that issued all 8 factor slots whatever F) reached 6-10% of the
+// operations bound: 181 SASS instructions an alive libor, and at B = 1
+// 640 blocks of 128 threads, under one wave. This design issues about 46
+// an alive libor at F = 5; at B = 1 its 320 blocks are still one partial
+// wave, so there one thread's sweep latency sets the time.
 //
-// What bounds it: per path and parameter set about 20 steps x 30 alive
-// libors x (13 + 7 F) float32 operations with a strict sequential
-// dependence through the running sums: compute (and latency), not bytes;
-// the normals are read once, ~39 MB at 81,920 paths. At B = 1 the grid is
-// 640 blocks of 128 threads, under one wave on 132 SMs; the FD batch
-// (B = 17) fills the card. Several paths per thread, a register-resident
-// curve and graphs of launches are later work.
+// Design (lmm_sweep.cuh has the shared pieces):
+//   * a lane group of G lanes carries one path; lane g holds the libors
+//     r * G + g of its path in registers, K = ceil(n / G) of them, in rows
+//     unrolled at compile time, so the curve never touches memory. The
+//     wrapper picks G by shape (ops/_products.py::lane_group) and each
+//     (G, K, F, R) is its own build (LMM_G, LMM_K, LMM_F, LMM_R);
+//   * the drift's running sums: per row, a butterfly scan of m_i lambda_i
+//     over the G lanes (log2 G shuffles a factor) plus a carry across
+//     rows; N's fixing L_s is shuffled from its owner. On the H100 one lane
+//     a path (G = 1: no shuffles, the scan is a running sum) is the fastest
+//     at both of this kernel's launch shapes: the register-resident,
+//     unrolled curve gives one thread the independent work (F loadings,
+//     the divide) that the lane groups of 4 or 8 would have spread over
+//     lanes, while each of their shuffle rounds costs a quarter-rate issue
+//     slot a factor (tools/compare_products_kernels.py, PERF.md);
+//   * rows are swept in chunks of R: a chunk whose libors are all dead
+//     (i <= s) is skipped by a warp-uniform branch, and no branch splits a
+//     chunk, so the scheduler overlaps its rows' divides and loads (R = 4
+//     at 5 factors);
+//   * a block (256 threads, 256 / G paths) first stages its parameter set
+//     into shared memory with bulk asynchronous copies (TMA) completed on
+//     an mbarrier: the 8 scalars, (L0, delta, b L0) per libor and the
+//     loadings step-major [S][C][NP][V] (F padded to 8 as two float4 a
+//     libor), packed by the wrapper; 26 KB at the benchmark's shape. The
+//     inner loop then reads one float4 of constants and C float4 of
+//     loadings from shared memory per alive libor, with no global loads
+//     and no index arithmetic beyond an immediate offset;
+//   * the grid is (path tile, B) with B fastest, so the B parameter sets
+//     of one tile run together and read its normals from L2;
+//   * collection: per exercise step, the running bond product and annuity
+//     as a scan of (product, sum) pairs over the rows that the step's swaps
+//     span; products visit in order of their end period (the wrapper's
+//     `order`), each reading its pair from the owner of its last period;
+//   * the path reduction is deterministic: a float64 shuffle sum over the
+//     paths of a warp, a fixed-order sum of the 8 warp partials, written per
+//     tile to partials[B, tiles, P]; the wrapper sums tiles in float64. No
+//     atomics. Paths past num_paths read no z and contribute 0.
+// No tensor cores: the contractions over factors have depth F <= 8 and sit
+// inside a per-path recurrence, and TF32 would break the precision contract
+// (float32 path data, float64 reductions). No fast math: expf, IEEE
+// division; log V is carried additively and exponentiated once a step.
 
-#include <cuda_runtime.h>
+#include "lmm_sweep.cuh"
 
 namespace {
 
-constexpr int kTile = 128;
-constexpr int kWarps = kTile / 32;
-constexpr int kMaxFactors = 8;
+using namespace lmm_sweep;
+
+constexpr int G = LMM_G;
+constexpr int K = LMM_K;
+constexpr int F = LMM_F;
+constexpr int kRows = LMM_R;             // rows a chunk of the drift sweep
 constexpr float kLogVCap = 13.815511f;   // log(1e6), the engine's cap of V
 
-__device__ __forceinline__ double warp_sum(double v) {
-#pragma unroll
-  for (int offset = 16; offset > 0; offset >>= 1) {
-    v += __shfl_down_sync(0xffffffffu, v, offset);
+// Values the products of step s from position q on (in order of their last
+// period) whose last period lies before row_end, off the running pairs
+// `pre` of the current row: payoff / N, non-finite values dropped, summed
+// over the warp's paths into red_warp[k]. Returns the next position.
+__device__ __forceinline__ int value_products(
+    int q, int q1, int s, int row_end, Bond pre, float N, bool valid,
+    const int* __restrict__ order, const int* __restrict__ prod_m,
+    const float* __restrict__ prod_k, double* red_warp) {
+  for (; q < q1; ++q) {
+    const int k = order[q];
+    const int end = s + prod_m[k] - 1;
+    if (end >= row_end) break;
+    const float cp = __shfl_sync(kFull, pre.c, end % G, G);
+    const float ann = __shfl_sync(kFull, pre.a, end % G, G);
+    float payoff = 1.0f - cp - prod_k[k] * ann;
+    payoff = (payoff < 0.0f) ? 0.0f : payoff;
+    const float value = payoff / N;
+    const bool keep = valid && fabsf(value) <= 3.40282347e+38f;
+    const double v = warp_path_sum(keep ? static_cast<double>(value) : 0.0);
+    if ((threadIdx.x & 31) == 0) red_warp[k] = v;
   }
-  return v;
+  return q;
 }
 
-// clamp and min that keep NaN (as torch.clamp, jnp.clip, jnp.minimum do)
-__device__ __forceinline__ float clamp_keep_nan(float x, float lo, float hi) {
-  x = (x < lo) ? lo : x;
-  return (x > hi) ? hi : x;
-}
-
-__device__ __forceinline__ float min_keep_nan(float x, float hi) {
-  return (x > hi) ? hi : x;
-}
-
-// false for +-inf and NaN
-__device__ __forceinline__ bool is_finite(float x) {
-  return fabsf(x) <= 3.40282347e+38f;
-}
-
-__global__ void __launch_bounds__(kTile)
+__global__ void __launch_bounds__(kThreads)
 lmm_stochvol_products_kernel(const float* __restrict__ z, long long ldz,
-                             const float* __restrict__ volT,
-                             const float* __restrict__ scal,
-                             const float* __restrict__ l0,
-                             const float* __restrict__ deltas,
+                             const float* __restrict__ packed, int width,
                              const int* __restrict__ step_first,
+                             const int* __restrict__ order,
                              const int* __restrict__ prod_m,
                              const float* __restrict__ prod_k,
-                             double* __restrict__ partials,
-                             int n, int F, int S, int P, int num_paths) {
-  extern __shared__ double smem[];
-  double* red = smem;                                        // [kWarps][P]
-  float* L = reinterpret_cast<float*>(smem + kWarps * P);    // [n][kTile]
+                             double* __restrict__ partials, int n, int S,
+                             int P, int num_paths, int B) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw);
+  double* red = reinterpret_cast<double*>(smem_raw + 16);       // [kWarps][P]
+  float* set = reinterpret_cast<float*>(red + kWarps * P);      // [width]
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int tile = blockIdx.x;
-  const int b = blockIdx.y;
-  const long long path = static_cast<long long>(tile) * kTile + tid;
+  const int g = tid & (G - 1);
+  const int b = blockIdx.x % B;
+  const int tile = blockIdx.x / B;
+  const long long path =
+      static_cast<long long>(tile) * (kThreads / G) + tid / G;
   const bool valid = path < num_paths;
-  const int rows = F + 1;                  // normals per step: F, then V's
+  const int np = ((K * G + 3) / 4) * 4;
 
-  const float dt = scal[b * 8 + 0];
-  const float sqrt_dt = scal[b * 8 + 1];
-  const float blend = scal[b * 8 + 2];
-  const float nu = scal[b * 8 + 3];
-  const float rho = scal[b * 8 + 4];
-  const float somega = scal[b * 8 + 5];
+  for (int r = tid; r < kWarps * P; r += kThreads) red[r] = 0.0;
+  stage(set, packed + static_cast<size_t>(b) * width,
+        static_cast<unsigned>(width) * sizeof(float), bar);
+
+  const float dt = set[0];
+  const float sqrt_dt = set[1];
+  const float blend = set[2];
+  const float nu = set[3];
+  const float rho = set[4];
+  const float somega = set[5];
   const float one_minus_blend = 1.0f - blend;
   const float v_drift = 0.5f * nu * nu * dt;
-  const float* vol = volT + static_cast<size_t>(b) * F * n * S;
+  const float4* cst = reinterpret_cast<const float4*>(set + 8);  // [np]
+  const float* tab = set + 8 + 4 * np;               // [S][kC][np][kV]
 
-  for (int r = tid; r < kWarps * P; r += kTile) red[r] = 0.0;
-  for (int i = 0; i < n; ++i) L[i * kTile + tid] = l0[i];
+  float L[K];
+#pragma unroll
+  for (int r = 0; r < K; ++r) L[r] = cst[r * G + g].x;
   float N = 1.0f;
   float logV = 0.0f;
-  __syncthreads();
 
   for (int s = 0; s <= S; ++s) {
     // collection at the START of the exercise step (engine ordering)
-    int pos = s;
-    float cp = 1.0f;
-    float ann = 0.0f;
-    for (int k = step_first[s]; k < step_first[s + 1]; ++k) {
-      const int end = s + prod_m[k];
-      if (end < pos) {
-        pos = s;
-        cp = 1.0f;
-        ann = 0.0f;
+    const int q1 = step_first[s + 1];
+    int q = step_first[s];
+    if (q < q1) {
+      const int last = s + prod_m[order[q1 - 1]] - 1;
+      int end = s + prod_m[order[q]] - 1;
+      Bond carry = {1.0f, 0.0f};
+#pragma unroll
+      for (int r = 0; r < K; ++r) {
+        if (r * G + G - 1 < s || r * G > last) continue;   // warp-uniform
+        const int i = r * G + g;
+        Bond x = {1.0f, 0.0f};
+        if (i >= s && i <= last) {
+          const float d = cst[i].y;
+          x.c = 1.0f / (1.0f + d * L[r]);
+          x.a = x.c * d;
+        }
+        Bond pre, tot;
+        group_scan_bond(x, g, pre, tot);
+        pre = compose(carry, pre);
+        carry = compose(carry, tot);
+        if (q < q1 && end < r * G + G) {                   // warp-uniform
+          q = value_products(q, q1, s, r * G + G, pre, N, valid, order,
+                             prod_m, prod_k, red + warp * P);
+          if (q < q1) end = s + prod_m[order[q]] - 1;
+        }
       }
-      for (; pos < end; ++pos) {
-        const float d = deltas[pos];
-        cp = cp * (1.0f / (1.0f + d * L[pos * kTile + tid]));
-        ann = ann + cp * d;
-      }
-      float payoff = 1.0f - cp - prod_k[k] * ann;
-      payoff = (payoff < 0.0f) ? 0.0f : payoff;
-      const float value = payoff / N;
-      const double v = warp_sum(
-          (valid && is_finite(value)) ? static_cast<double>(value) : 0.0);
-      if (lane == 0) red[warp * P + k] = v;
     }
     if (s == S) break;
 
-    float zr[kMaxFactors + 1];
-    float w[kMaxFactors];
-#pragma unroll
-    for (int f = 0; f <= kMaxFactors; ++f) {
-      zr[f] = (f <= F && valid)
-                  ? z[static_cast<long long>(s * rows + f) * ldz + path]
-                  : 0.0f;
-    }
-#pragma unroll
-    for (int f = 0; f < kMaxFactors; ++f) w[f] = sqrt_dt * zr[f];
+    float w[F];
     float z_v = 0.0f;                      // the V driver, row F of step s
+    const float* zs = z + static_cast<long long>(s) * (F + 1) * ldz + path;
 #pragma unroll
-    for (int f = 1; f <= kMaxFactors; ++f) {
-      if (f == F) z_v = zr[f];
-    }
+    for (int f = 0; f < F; ++f) w[f] = sqrt_dt * (valid ? zs[f * ldz] : 0.0f);
+    const float z_0 = valid ? zs[0] : 0.0f;
+    if (valid) z_v = zs[F * ldz];
 
     // spot account accrues period s at its fixing L_s
-    N = N * (1.0f + deltas[s] * L[s * kTile + tid]);
+    N = N * (1.0f + cst[s].y * libor_of(L, s));
     const float sqrt_v = expf(0.5f * logV);
 
-    float run[kMaxFactors];
+    float carry[F];
 #pragma unroll
-    for (int f = 0; f < kMaxFactors; ++f) run[f] = 0.0f;
-    for (int i = s + 1; i < n; ++i) {
-      const float Li = L[i * kTile + tid];
-      const float d = deltas[i];
-      const float mt = d / (1.0f + d * Li);
-      const float lf = (one_minus_blend * Li + blend * l0[i]) * sqrt_v;
-      float mu = 0.0f;
-      float diffusion = 0.0f;
+    for (int f = 0; f < F; ++f) carry[f] = 0.0f;
 #pragma unroll
-      for (int f = 0; f < kMaxFactors; ++f) {
-        if (f < F) {
-          const float lam = vol[(static_cast<size_t>(f) * n + i) * S + s] * lf;
-          run[f] = run[f] + mt * lam;
-          mu = mu + lam * run[f];
+    for (int r0 = 0; r0 < K; r0 += kRows) {
+      // a chunk of kRows rows whose libors are all dead is skipped (a
+      // warp-uniform branch); within a chunk no branch splits the rows, so
+      // the scheduler can overlap their independent work
+      if ((r0 + kRows < K ? r0 + kRows : K) * G - 1 <= s) continue;
+#pragma unroll
+      for (int r = r0; r < r0 + kRows && r < K; ++r) {
+        const int i = r * G + g;
+        // only the last row reaches past the curve: n > (K - 1) * G
+        const bool alive = i > s && (r < K - 1 || i < n);
+        const float4 c = cst[i];
+        const float Li = L[r];
+        // the divide is taken on every lane, then masked: a select, not a
+        // branch that would split the chunk around the divide's slow path
+        const float m = c.y / (1.0f + c.y * Li);
+        const float mt = alive ? m : 0.0f;
+        const float lf = (one_minus_blend * Li + c.z) * sqrt_v;
+        float v[kFP];
+        load_loadings(tab, np, s, i, v);
+        float mu = 0.0f;
+        float diffusion = 0.0f;
+#pragma unroll
+        for (int f = 0; f < F; ++f) {
+          const float lam = v[f] * lf;
+          float pre, tot;
+          group_scan(mt * lam, g, pre, tot);
+          const float run = carry[f] + pre;
+          carry[f] = carry[f] + tot;
+          mu = mu + lam * run;
           diffusion = diffusion + lam * w[f];
         }
+        if (alive) {
+          L[r] = clamp_keep_nan(Li + mu * dt + diffusion, -1.0e3f, 1.0e3f);
+        }
       }
-      L[i * kTile + tid] = clamp_keep_nan(Li + mu * dt + diffusion,
-                                          -1.0e3f, 1.0e3f);
     }
-    const float dw_v = sqrt_dt * (rho * zr[0] + somega * z_v);
+    const float dw_v = sqrt_dt * (rho * z_0 + somega * z_v);
     logV = min_keep_nan(logV + nu * dw_v - v_drift, kLogVCap);
   }
 
   __syncthreads();
-  double* out = partials + (static_cast<size_t>(b) * gridDim.x + tile) * P;
-  for (int r = tid; r < P; r += kTile) {
+  double* out =
+      partials + (static_cast<size_t>(b) * (gridDim.x / B) + tile) * P;
+  for (int r = tid; r < P; r += kThreads) {
     double acc = red[r];
     for (int wi = 1; wi < kWarps; ++wi) acc += red[wi * P + r];
     out[r] = acc;
@@ -210,28 +256,34 @@ lmm_stochvol_products_kernel(const float* __restrict__ z, long long ldz,
 
 extern "C" {
 
-int lmm_stochvol_products_max_factors() { return kMaxFactors; }
+// The instantiation of this library: G, K, F, R for which = 0, 1, 2, 3.
+int lmm_stochvol_products_variant(int which) {
+  const int v[4] = {G, K, F, kRows};
+  return (which >= 0 && which < 4) ? v[which] : -1;
+}
 
 // Launches on `stream` without synchronising; returns the launch's error.
 cudaError_t lmm_stochvol_products_launch(
-    const float* z, long long ldz, const float* volT, const float* scal,
-    const float* l0, const float* deltas, const int* step_first,
-    const int* prod_m, const float* prod_k, double* partials, int n, int F,
-    int S, int P, int num_paths, int B, cudaStream_t stream) {
-  if (F < 1 || F > kMaxFactors || n < 1 || S < 1 || P < 1 ||
-      num_paths < 1 || B < 1) {
+    const float* z, long long ldz, const float* packed, int width,
+    const int* step_first, const int* order, const int* prod_m,
+    const float* prod_k, double* partials, int n, int S, int P,
+    int num_paths, int B, cudaStream_t stream) {
+  const int np = ((K * G + 3) / 4) * 4;
+  if (n < 1 || n > K * G || n <= (K - 1) * G || S < 1 || S >= n || P < 1 ||
+      num_paths < 1 || B < 1 || width != 8 + 4 * np + S * kC * np * kV) {
     return cudaErrorInvalidValue;
   }
-  const int tiles = (num_paths + kTile - 1) / kTile;
-  const size_t smem = static_cast<size_t>(kWarps) * P * sizeof(double) +
-                      static_cast<size_t>(n) * kTile * sizeof(float);
+  const long long tiles = (num_paths + kThreads / G - 1) / (kThreads / G);
+  if (tiles * B > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const size_t smem = shared_bytes(P, width);
   cudaError_t err = cudaFuncSetAttribute(
       lmm_stochvol_products_kernel,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  lmm_stochvol_products_kernel<<<dim3(tiles, B), kTile, smem, stream>>>(
-      z, ldz, volT, scal, l0, deltas, step_first, prod_m, prod_k, partials,
-      n, F, S, P, num_paths);
+  lmm_stochvol_products_kernel<<<static_cast<unsigned>(tiles * B), kThreads,
+                                 smem, stream>>>(
+      z, ldz, packed, width, step_first, order, prod_m, prod_k, partials, n,
+      S, P, num_paths, B);
   return cudaGetLastError();
 }
 

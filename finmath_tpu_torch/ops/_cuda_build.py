@@ -4,8 +4,9 @@ Each ``csrc/*.cu`` file has a plain C interface (``extern "C"`` launchers
 returning ``cudaError_t``), so it compiles with ``nvcc`` alone, in seconds,
 without PyTorch's headers. The shared library lands in ``_build/`` next to
 the package (listed in ``.gitignore``), named by a hash of the source, the
-shared headers (``csrc/*.cuh``) and the flags: an edited source or header
-builds anew, an unchanged one is reused.
+shared headers (``csrc/*.cuh``), the flags and the preprocessor defines
+that pick one instantiation of a source (``defines``): an edited source
+or header builds anew, an unchanged one is reused.
 ``nvcc``'s ``-Xptxas -v`` report (registers, shared memory, spills) is kept
 beside the library as ``<name>.log``.
 """
@@ -44,29 +45,37 @@ def nvcc_path() -> str:
         "toolkit")
 
 
-def library_path(source: str) -> Path:
-    """Where the library built from ``csrc/<source>`` lives: named by a hash
-    of the source, of every header in ``csrc/`` (any of which it may
-    include) and of the flags."""
+def _define_flags(defines) -> list:
+    return [f"-D{name}={value}" for name, value in defines]
+
+
+def library_path(source: str, defines=()) -> Path:
+    """Where the library built from ``csrc/<source>`` with the
+    ``(name, value)`` pairs ``defines`` lives: named by a hash of the
+    source, of every header in ``csrc/`` (any of which it may include), of
+    the flags and of the defines."""
     src = CSRC_DIR / source
     digest = hashlib.sha256(src.read_bytes())
     for header in sorted(CSRC_DIR.glob("*.cuh")):
         digest.update(header.name.encode() + b"\0" + header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
+    digest.update(" ".join(NVCC_FLAGS + tuple(_define_flags(defines)))
+                  .encode())
+    tag = "".join(f"-{name[-1].lower()}{value}" for name, value in defines)
+    return BUILD_DIR / f"{src.stem}{tag}-{digest.hexdigest()[:16]}.so"
 
 
-def build(source: str) -> Path:
-    """Compile ``csrc/<source>`` unless a library of this exact source
-    exists; returns the library's path. Raises with nvcc's output on
-    failure."""
-    out = library_path(source)
+def build(source: str, defines=()) -> Path:
+    """Compile ``csrc/<source>`` with ``defines`` unless a library of this
+    exact source exists; returns the library's path. Raises with nvcc's
+    output on failure."""
+    out = library_path(source, defines)
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     proc = subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source)],
+        [nvcc_path(), *NVCC_FLAGS, *_define_flags(defines), "-o", str(tmp),
+         str(CSRC_DIR / source)],
         capture_output=True, text=True, check=False)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -78,6 +87,7 @@ def build(source: str) -> Path:
     return out
 
 
-def load(source: str) -> ctypes.CDLL:
-    """Build (if needed) and load the library of ``csrc/<source>``."""
-    return ctypes.CDLL(str(build(source)))
+def load(source: str, defines=()) -> ctypes.CDLL:
+    """Build (if needed) and load the library of ``csrc/<source>`` with
+    ``defines``."""
+    return ctypes.CDLL(str(build(source, defines)))

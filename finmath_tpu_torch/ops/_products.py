@@ -1,17 +1,31 @@
-"""Input checks and per-step product tables shared by the path-sweep kernel
-wrappers (``lmm_kernel``, ``lmm_stochvol_kernel``).
+"""What the two LMM products kernels' wrappers (``lmm_kernel``,
+``lmm_stochvol_kernel``) share: input checks, the per-step product tables,
+the lane group that carries a path (``lane_group``), the parameter sets
+packed as the kernels stage them (``pack_parameter_sets``), and the
+kernels' running sums in their own order of float32 additions, which the
+plain versions take (``group_running_sums``, ``group_bond_prefix``).
 
 A product is ``(exercise index, periods, strike)``; the products are
 grouped by ascending exercise index, the engine's order.
+
+The kernels (``csrc/lmm_sweep.cuh``) give each path a group of ``G``
+lanes; lane ``g`` owns the libors ``r * G + g``, ``r < K = ceil(n / G)``.
+A running sum over the libors is taken row after row: within row ``r``
+(libors ``r * G .. r * G + G - 1``) a butterfly over the ``G`` lanes, in
+which a lane adds the total of the partner segment below it to its own
+prefix in rounds of 1, 2, 4 lanes; across rows a carry that starts at the
+identity and takes each row's total. ``G = 1`` is the one-thread-a-path
+sequential order.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Sequence, Tuple
+from typing import Callable, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as nnf
 
 Product = Tuple[int, int, float]
 
@@ -23,6 +37,8 @@ class ProductTables(NamedTuple):
                                # [step_first[s], step_first[s+1])
     periods: torch.Tensor      # [P] int32
     strikes: torch.Tensor      # [P] float32
+    order: torch.Tensor        # [P] int32: the products of each step by
+                               # ascending end period (then index)
 
 
 def check_products(products: Sequence[Product], num_libors: int) -> int:
@@ -61,9 +77,158 @@ def product_tables(products: Tuple[Product, ...],
     S = products[-1][0]
     counts = np.bincount([e for e, _, _ in products], minlength=S + 2)
     step_first = np.concatenate([[0], np.cumsum(counts)[:S + 1]])
+    order = sorted(range(len(products)),
+                   key=lambda k: (products[k][0], products[k][1], k))
     return ProductTables(
         torch.from_numpy(step_first.astype(np.int32)).to(device),
         torch.from_numpy(np.asarray([m for _, m, _ in products],
                                     np.int32)).to(device),
         torch.from_numpy(np.asarray([k for _, _, k in products],
-                                    np.float32)).to(device))
+                                    np.float32)).to(device),
+        torch.from_numpy(np.asarray(order, np.int32)).to(device))
+
+
+# ---------------------------------------------------------------------------
+# lane groups, packed parameter sets, and the kernels' order of additions
+# ---------------------------------------------------------------------------
+
+MAX_LIBORS = 128              # K * G <= 128 in csrc/lmm_sweep.cuh
+THREADS = 256                 # threads a block (kThreads)
+
+
+def lane_group(num_libors: int, batch: int, num_paths: int) -> int:
+    """The lanes ``G`` that carry one path in a launch of ``batch``
+    parameter sets over ``num_paths`` paths of ``num_libors`` libors (the
+    kernels' wrappers and their plain versions both take it, so both sum
+    in one order). Measured on an H100 (``tools/compare_products_kernels.py``,
+    ``PERF.md``): one lane a path is fastest unless a lane's share of the
+    curve would pass 40 libors in a launch that does not fill the card
+    several times over (then 2 lanes, which halve the registers a thread
+    holds); 4 and 8 lanes lose to the scans' shuffles."""
+    if num_libors > 40 and batch * num_paths <= (1 << 20):
+        return 2
+    return 1
+
+
+#: the lane groups ``lane_group`` picks from
+LANE_GROUPS = (1, 2)
+
+
+def row_chunk(G: int, num_factors: int) -> int:
+    """Rows of the drift sweep that a kernel computes between two checks
+    for dead rows (``LMM_R``): no branch splits a chunk, so its rows'
+    independent work overlaps. Measured on an H100 (``PERF.md``): 8 rows
+    for one lane a path at one factor, 4 otherwise."""
+    return 8 if G == 1 and num_factors == 1 else 4
+
+
+def sweep_variant(num_libors: int, num_factors: int, G: int):
+    """``(G, K, F, R)``: the instantiation of a products kernel that a
+    lane group of ``G`` lanes runs at this shape."""
+    return (G, lanes_per_libor_row(num_libors, G)[0], int(num_factors),
+            row_chunk(G, int(num_factors)))
+
+
+def sweep_defines(G: int, K: int, F: int, R: int):
+    """The ``nvcc`` defines of the ``(G, K, F, R)`` instantiation of a
+    products kernel."""
+    return (("LMM_G", G), ("LMM_K", K), ("LMM_F", F), ("LMM_R", R))
+
+
+def lanes_per_libor_row(num_libors: int, G: int) -> Tuple[int, int]:
+    """``(K, NP)``: libors a lane (``ceil(n / G)``) and the padded libor
+    count of the packed tables (``K * G`` rounded up to 4)."""
+    K = -(-num_libors // G)
+    return K, -(-(K * G) // 4) * 4
+
+
+def loading_layout(num_factors: int) -> Tuple[int, int]:
+    """``(C, V)``: a libor's F loadings, padded to 1, 2, 4 or 8 floats, as
+    ``C`` vectors of ``V`` floats (``kC``, ``kV`` in the kernels)."""
+    F = num_factors
+    fp = 1 if F == 1 else 2 if F == 2 else 4 if F <= 4 else 8
+    return fp // min(fp, 4), min(fp, 4)
+
+
+def pack_parameter_sets(volT_b, scal_b, columns: Sequence[torch.Tensor], *,
+                        num_factors: int, G: int) -> torch.Tensor:
+    """``[B, W]`` float32, one parameter set a row, as a kernel block stages
+    it: the 8 scalars, the per-libor ``columns`` (each ``[B, n]`` or
+    ``[n]``) interleaved ``[NP][Q]``, then the loadings step-major
+    ``[S][C][NP][V]``; padding is zero."""
+    B, rows, S = volT_b.shape
+    F = num_factors
+    n = rows // F
+    _, NP = lanes_per_libor_row(n, G)
+    C, V = loading_layout(F)
+    vol = nnf.pad(volT_b.view(B, F, n, S), (0, 0, 0, NP - n, 0, C * V - F))
+    vol = vol.view(B, C, V, NP, S).permute(0, 4, 1, 3, 2)
+    cols = torch.stack([c.expand(B, n) for c in columns], dim=-1)
+    cols = nnf.pad(cols, (0, 0, 0, NP - n))
+    return torch.cat([scal_b, cols.reshape(B, -1), vol.reshape(B, -1)],
+                     dim=1).contiguous()
+
+
+def group_scan(x: Tuple[torch.Tensor, ...], combine: Callable, G: int):
+    """``(pre, tot)`` of the butterfly over the last-but-one axis (size
+    ``G``, a row's lanes) of the tuple of tensors ``x``, combined by
+    ``combine(lo, hi)``: each lane's inclusive prefix and the row's total,
+    in the kernels' order (``group_scan`` and ``group_scan_bond`` in
+    ``csrc/lmm_sweep.cuh``)."""
+    pre, tot = x, x
+    lanes = torch.arange(G, device=x[0].device)
+    off = 1
+    while off < G:
+        partner = tuple(t.index_select(-2, lanes ^ off) for t in tot)
+        upper = ((lanes & off) != 0).view(G, 1)
+        pre = tuple(torch.where(upper, a, p)
+                    for a, p in zip(combine(partner, pre), pre))
+        tot = tuple(torch.where(upper, a, b) for a, b in zip(
+            combine(partner, tot), combine(tot, partner)))
+        off <<= 1
+    return pre, tot
+
+
+def _add(lo, hi):
+    return (lo[0] + hi[0],)
+
+
+def compose_bonds(lo, hi):
+    """Two spans of periods' (bond product, annuity) composed, lower span
+    first: ``(c1 c2, a1 + c1 a2)``."""
+    return lo[0] * hi[0], lo[1] + lo[0] * hi[1]
+
+
+def group_running_sums(c: torch.Tensor, G: int, first_row: int = 0):
+    """Inclusive running sums of ``c`` ``[..., K * G, paths]`` along the
+    libors in the kernels' order: per row the butterfly, across rows a
+    carry from 0. Rows before ``first_row`` (all dead, skipped by the
+    kernels) come out 0."""
+    x = c.unflatten(-2, (-1, G))                          # [..., K, G, paths]
+    (pre,), (tot,) = group_scan((x,), _add, G)
+    out = torch.zeros_like(x)
+    carry = torch.zeros_like(x[..., 0, :1, :])
+    for r in range(first_row, x.shape[-3]):
+        out[..., r, :, :] = carry + pre[..., r, :, :]
+        carry = carry + tot[..., r, :1, :]
+    return out.flatten(-3, -2)
+
+
+def group_bond_prefix(c: torch.Tensor, a: torch.Tensor, G: int,
+                      first: int, last: int):
+    """Running (bond product, annuity) pairs of the periods ``(c, a)``
+    ``[..., K * G, paths]`` from period ``first`` on, in the kernels'
+    order, valid at the periods ``first .. last`` (the pairs outside must
+    be the identity ``(1, 0)``): the rows from ``first // G`` to
+    ``last // G``, per row the butterfly, across rows a carry from the
+    identity."""
+    xc, xa = c.unflatten(-2, (-1, G)), a.unflatten(-2, (-1, G))
+    pc, pa = torch.ones_like(xc), torch.zeros_like(xa)
+    (rc, ra), (tc, ta) = group_scan((xc, xa), compose_bonds, G)
+    carry = (torch.ones_like(xc[..., 0, :1, :]),
+             torch.zeros_like(xa[..., 0, :1, :]))
+    for r in range(first // G, last // G + 1):
+        pc[..., r, :, :], pa[..., r, :, :] = compose_bonds(
+            carry, (rc[..., r, :, :], ra[..., r, :, :]))
+        carry = compose_bonds(carry, (tc[..., r, :1, :], ta[..., r, :1, :]))
+    return pc.flatten(-3, -2), pa.flatten(-3, -2)

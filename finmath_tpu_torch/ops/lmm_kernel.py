@@ -27,6 +27,14 @@ Inputs keep the engine's layout:
   by exercise index in ascending order; ``events``: the ascending exercise
   indices, exactly those of the products.
 
+A launch carries each path on a lane group of ``G`` lanes that
+``_products.lane_group`` picks from the shape; the wrapper packs the
+parameter sets as a block stages them (``_packed``) and launches the
+``(G, K, F, R)`` instantiation of the source, built by ``nvcc`` at first use
+(``_products.sweep_variant``). ``run`` and ``prepare`` launch with a given
+``G``. The plain version sums in the kernel's order for the same ``G``
+(``sweep_payoffs``; ``G = 1`` is one thread a path).
+
 The single-swaption pricer of the same model at one factor, counterpart of
 ``lmm_swaption_kernel`` and ``lmm_swaption_kernel_with_normals`` (the
 Pallas kernel ``_lmm_kernel``, with the on-core PRNG and on injected
@@ -47,16 +55,19 @@ from typing import Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as nnf
 
 from ..utils.config import select_device
 from . import _cuda_build
 from . import _swaption_paths as sp
-from ._products import Product, check_products, check_tensor, product_tables
+from ._products import (MAX_LIBORS, THREADS, Product, check_products,
+                        check_tensor, group_bond_prefix, group_running_sums,
+                        lane_group, lanes_per_libor_row, pack_parameter_sets,
+                        product_tables, sweep_defines, sweep_variant)
 from .kernels import _check_seed, normal_pairs
 
 SOURCE = "lmm_atm_products.cu"
-TILE = 128                    # paths per block, one thread per path
-MAX_FACTORS = 8               # kMaxFactors in the CUDA source
+MAX_FACTORS = 8               # kMaxFactors in csrc/lmm_sweep.cuh
 
 #: kernel launches since the last reset (plain integer; a run resets it
 #: and reads it to show that its main path went through the kernel)
@@ -64,24 +75,27 @@ LAUNCHES = 0
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
-    lib = _cuda_build.load(SOURCE)
+def _library(G: int, K: int, F: int, R: int) -> ctypes.CDLL:
+    lib = _cuda_build.load(SOURCE, sweep_defines(G, K, F, R))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.lmm_atm_products_launch.argtypes = (
-        [ptr, ctypes.c_longlong] + [ptr] * 9 + [i32] * 8 + [ptr])
+        [ptr, ctypes.c_longlong, ptr, i32] + [ptr] * 6 + [i32] * 7 + [ptr])
     lib.lmm_atm_products_launch.restype = i32
     lib.lmm_atm_products_error_string.argtypes = [i32]
     lib.lmm_atm_products_error_string.restype = ctypes.c_char_p
-    lib.lmm_atm_products_max_factors.restype = i32
-    if lib.lmm_atm_products_max_factors() != MAX_FACTORS:
-        raise RuntimeError("lmm_atm_products.cu and lmm_kernel.py disagree "
-                           "on the factor bound")
+    lib.lmm_atm_products_variant.argtypes = [i32]
+    lib.lmm_atm_products_variant.restype = i32
+    if [lib.lmm_atm_products_variant(j) for j in range(4)] != [G, K, F, R]:
+        raise RuntimeError(f"{SOURCE}: the library is not the instantiation "
+                           f"G={G}, K={K}, F={F}, R={R}")
     return lib
 
 
-def load_kernel() -> None:
-    """Build and load the kernel's library (first use only)."""
-    _library()
+def load_kernel(*variants: Tuple[int, int, int, int]) -> None:
+    """Build and load the kernel's library for each ``(G, K, F, R)`` of
+    ``variants`` (``_products.sweep_variant``; first use only)."""
+    for v in variants:
+        _library(*v)
 
 
 def _check_layout(products: Sequence[Product], events: Sequence[int],
@@ -103,13 +117,18 @@ def _step_events(events: Tuple[int, ...], device: torch.device) -> torch.Tensor:
     return torch.from_numpy(step_event).to(device)
 
 
+def _packed(volT_b, scal_b, initial_forwards, deltas, F, G):
+    """The parameter sets as a block stages them: per libor (L0, delta)."""
+    return pack_parameter_sets(volT_b, scal_b, (initial_forwards, deltas),
+                               num_factors=F, G=G)
+
+
 def lmm_atm_swaptions_batch(z, volT_b, scal_b, initial_forwards, deltas, *,
                             num_libors: int, num_factors: int,
                             products: Sequence[Product],
                             events: Sequence[int], displaced: bool,
                             num_paths: int) -> torch.Tensor:
     """Float64 path sums ``[B, P + E]`` (see the module docstring)."""
-    global LAUNCHES
     n, F = int(num_libors), int(num_factors)
     products = tuple((int(e), int(m), float(k)) for e, m, k in products)
     events = tuple(int(e) for e in events)
@@ -132,32 +151,80 @@ def lmm_atm_swaptions_batch(z, volT_b, scal_b, initial_forwards, deltas, *,
     if device.type != "cuda":
         raise ValueError(f"lmm_atm_swaptions_batch: unsupported device "
                          f"{device}")
-    if not 1 <= F <= MAX_FACTORS:
-        raise ValueError(f"num_factors={F} outside the kernel's 1.."
-                         f"{MAX_FACTORS}")
-    P, E = len(products), len(events)
-    # a curve or row count that needs more shared memory per block than the
-    # card allows fails in the launcher's cudaFuncSetAttribute, raised below
-    step_event = _step_events(events, device)
+    if not 1 <= F <= MAX_FACTORS or n > MAX_LIBORS:
+        raise ValueError(f"num_factors={F}, num_libors={n} outside the "
+                         f"kernel's 1..{MAX_FACTORS} factors and "
+                         f"{MAX_LIBORS} libors")
+    return run(z, volT_b, scal_b, initial_forwards, deltas, num_libors=n,
+               num_factors=F, products=products, events=events,
+               displaced=displaced, num_paths=num_paths,
+               G=lane_group(n, B, num_paths))
+
+
+def run(z, volT_b, scal_b, initial_forwards, deltas, *, num_libors: int,
+        num_factors: int, products: Sequence[Product], events: Sequence[int],
+        displaced: bool, num_paths: int, G: int) -> torch.Tensor:
+    """The kernel's float64 path sums ``[B, P + E]`` with a lane group of
+    ``G`` lanes on checked CUDA inputs."""
+    go, partials = prepare(
+        z, volT_b, scal_b, initial_forwards, deltas, num_libors=num_libors,
+        num_factors=num_factors, products=products, events=events,
+        displaced=displaced, num_paths=num_paths, G=G)
+    go()
+    return partials.sum(dim=1)
+
+
+def prepare(z, volT_b, scal_b, initial_forwards, deltas, *, num_libors: int,
+            num_factors: int, products: Sequence[Product],
+            events: Sequence[int], displaced: bool, num_paths: int, G: int):
+    """Pack the parameter sets and allocate the partials ``[B, tiles, P +
+    E]`` of a launch with a lane group of ``G`` lanes; returns ``(go,
+    partials)``, ``go()`` enqueuing the launch alone."""
+    n, F = num_libors, num_factors
+    B, device = volT_b.shape[0], z.device
+    products, events = tuple(products), tuple(events)
+    packed = _packed(volT_b, scal_b, initial_forwards, deltas, F, G)
     tables = product_tables(products, device)
-    tiles = -(-num_paths // TILE)
-    partials = torch.empty((B, tiles, P + E), dtype=torch.float64,
-                           device=device)
-    lib = _library()
+    step_event = _step_events(events, device)
+    tiles = -(-num_paths // (THREADS // G))
+    partials = torch.empty((B, tiles, len(products) + len(events)),
+                           dtype=torch.float64, device=device)
+    variant = sweep_variant(n, F, G)
+
+    def go():
+        launch(z, packed, tables, step_event, partials, n=n,
+               S=products[-1][0], num_paths=num_paths, displaced=displaced,
+               variant=variant)
+
+    return go, partials
+
+
+def launch(z, packed, tables, step_event, partials, *, n: int, S: int,
+           num_paths: int, displaced: bool,
+           variant: Tuple[int, int, int, int]) -> None:
+    """One launch of the instantiation ``variant`` on packed parameter sets
+    (``_packed``) into ``partials`` ``[B, tiles, P + E]``, on the current
+    stream; raises if it fails (a table or row count that needs more
+    shared memory than a block may have fails here too). Counted in
+    ``LAUNCHES``."""
+    global LAUNCHES
+    lib = _library(*variant)
+    B, width = packed.shape
+    P = tables.periods.shape[0]
+    device = z.device
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.lmm_atm_products_launch(
-            z.data_ptr(), num_paths, volT_b.data_ptr(), scal_b.data_ptr(),
-            initial_forwards.data_ptr(), deltas.data_ptr(),
+            z.data_ptr(), num_paths, packed.data_ptr(), width,
             step_event.data_ptr(), tables.step_first.data_ptr(),
-            tables.periods.data_ptr(), tables.strikes.data_ptr(),
-            partials.data_ptr(), n, F, S, P, E,
-            num_paths, B, int(bool(displaced)), stream)
+            tables.order.data_ptr(), tables.periods.data_ptr(),
+            tables.strikes.data_ptr(), partials.data_ptr(), n, S, P,
+            partials.shape[2] - P, num_paths, B, int(bool(displaced)),
+            stream)
     if err != 0:
         msg = lib.lmm_atm_products_error_string(err).decode()
         raise RuntimeError(f"lmm_atm_products launch failed: {msg} ({err})")
     LAUNCHES += 1
-    return partials.sum(dim=1)
 
 
 def lmm_atm_swaptions_batch_reference(z, volT_b, scal_b, initial_forwards,
@@ -168,14 +235,31 @@ def lmm_atm_swaptions_batch_reference(z, volT_b, scal_b, initial_forwards,
                                       num_paths: int) -> torch.Tensor:
     """Plain PyTorch version of the kernel on any device: a Python loop over
     steps, vectorised over ``[B, libors, paths]``, with the kernel's float32
-    arithmetic (sequential prefix sums via ``cumsum``/``cumprod``) and a
+    arithmetic and its order of additions (the lane group of
+    ``lane_group``: ``group_running_sums``, ``group_bond_prefix``) and a
     float64 path sum."""
-    n, F = int(num_libors), int(num_factors)
+    return sweep_payoffs(
+        z, volT_b, scal_b, initial_forwards, deltas,
+        num_libors=int(num_libors), num_factors=int(num_factors),
+        products=products, events=events, displaced=displaced,
+        num_paths=num_paths,
+        G=lane_group(int(num_libors), volT_b.shape[0], num_paths))
+
+
+def sweep_payoffs(z, volT_b, scal_b, initial_forwards, deltas, *,
+                  num_libors: int, num_factors: int,
+                  products: Sequence[Product], events: Sequence[int],
+                  displaced: bool, num_paths: int, G: int) -> torch.Tensor:
+    """The plain version's float64 path sums ``[B, P + E]`` with the running
+    sums of a lane group of ``G`` lanes (``G = 1``: one thread a path)."""
+    n, F = num_libors, num_factors
     products = tuple((int(e), int(m), float(k)) for e, m, k in products)
     events = tuple(int(e) for e in events)
     S = _check_layout(products, events, n)
     B = volT_b.shape[0]
     z = z[:, :num_paths]
+    K, _ = lanes_per_libor_row(n, G)
+    NP = K * G
     by_step = {}
     for k, (e, m, strike) in enumerate(products):
         by_step.setdefault(e, []).append((k, m, strike))
@@ -183,9 +267,12 @@ def lmm_atm_swaptions_batch_reference(z, volT_b, scal_b, initial_forwards,
     dt = scal_b[:, 0, None, None]
     sqrt_dt = scal_b[:, 1, None, None]
     disp = scal_b[:, 2, None, None]
-    d = deltas[None, :, None]                                   # [1, n, 1]
+    pad = (0, NP - n)
+    d = nnf.pad(deltas, pad)[None, :, None]                    # [1, NP, 1]
+    vol = nnf.pad(volT_b.view(B, F, n, S), (0, 0) + pad)       # [B, F, NP, S]
+    libor = torch.arange(NP, device=z.device)[:, None]
 
-    L = initial_forwards[None, :, None].expand(B, n, num_paths)
+    L = nnf.pad(initial_forwards, pad)[None, :, None].expand(B, NP, num_paths)
     N = torch.ones((B, num_paths), dtype=torch.float32, device=z.device)
     rows = [None] * (len(products) + len(events))
     P = len(products)
@@ -193,29 +280,31 @@ def lmm_atm_swaptions_batch_reference(z, volT_b, scal_b, initial_forwards,
         if s in by_step:
             inv_n = 1.0 / N
             rows[P + ev_of_step[s]] = inv_n
+            last = s + max(m for _, m, _ in by_step[s]) - 1
+            span = (libor >= s) & (libor <= last)
+            c = torch.where(span, 1.0 / (1.0 + d * L), 1.0)
+            a = torch.where(span, c * d, 0.0)
+            cp, ann = group_bond_prefix(c, a, G, s, last)
             for k, m, strike in by_step[s]:
-                dd = d[:, s:s + m]
-                cp = torch.cumprod(1.0 / (1.0 + dd * L[:, s:s + m]), dim=1)
-                ann = torch.cumsum(cp * dd, dim=1)[:, -1]
                 payoff = torch.clamp_min(
-                    1.0 - cp[:, -1] - float(np.float32(strike)) * ann, 0.0)
+                    1.0 - cp[:, s + m - 1] - float(np.float32(strike))
+                    * ann[:, s + m - 1], 0.0)
                 rows[k] = payoff * inv_n
         if s == S:
             break
         N = N * (1.0 + deltas[s] * L[:, s])
-        Lt = L[:, s + 1:]                                       # alive
-        dt_ = d[:, s + 1:]
-        mt = dt_ / (1.0 + dt_ * Lt)
-        mu = torch.zeros_like(Lt)
-        diffusion = torch.zeros_like(Lt)
+        alive = (libor > s) & (libor < n)
+        mt = torch.where(alive, d / (1.0 + d * L), 0.0)
+        mu = torch.zeros_like(L)
+        diffusion = torch.zeros_like(L)
         for f in range(F):
-            base = volT_b[:, f * n + s + 1:(f + 1) * n, s, None]  # [B, n', 1]
-            lam = base * (Lt + disp) if displaced else base
-            mu = mu + lam * torch.cumsum(mt * lam, dim=1)
+            base = vol[:, f, :, s, None]                           # [B, NP, 1]
+            lam = base * (L + disp) if displaced else base
+            run = group_running_sums(mt * lam, G, (s + 1) // G)
+            mu = mu + lam * run
             diffusion = diffusion + lam * (sqrt_dt * z[s * F + f])
-        L = torch.cat(
-            [L[:, :s + 1], torch.clamp(Lt + mu * dt + diffusion, -1e3, 1e3)],
-            dim=1)
+        L = torch.where(alive, torch.clamp(L + mu * dt + diffusion, -1e3, 1e3),
+                        L)
     sums = torch.stack(rows, dim=1).to(torch.float64)           # [B, R, paths]
     return sums.sum(dim=-1)
 

@@ -14,6 +14,13 @@ on every row's path sum: rtol 1e-5, atol 1e-7 * paths — both sides
 simulate in float32, but the spot drift's prefix sum runs in another order
 (sequential here, Hillis-Steele there).
 
+The plain version takes its running sums in the kernel's order: per row of
+G libors a butterfly over the lane group, across rows a carry
+(``ops/_products.py``). Two tests hold that order: bit for bit against a
+float32 sum taken one addition at a time (11 libors, so no G > 1 divides
+them, F = 1 and 5, B = 3, 37 paths), and against the one-thread-a-path
+sequential order (G = 1) within the bound above.
+
 The ``gpu`` tests need a card and no JAX; on a machine with the card:
 ``python -m pytest tests/test_torch_stochvol_kernel.py -m gpu --noconftest``."""
 
@@ -23,7 +30,10 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+from finmath_tpu_torch.ops import _products  # noqa: E402
 from finmath_tpu_torch.ops import lmm_stochvol_kernel as svk  # noqa: E402
+from test_torch_lane_order import (GROUPS,  # noqa: E402
+                                   assert_kernel_order, recording)
 
 N_LIBORS, FACTORS, PATHS, B, S = 8, 2, 250, 3, 4
 PRODUCTS = ((2, 4, 0.021), (3, 3, 0.0205), (4, 2, 0.025), (4, 4, 0.018))
@@ -122,8 +132,66 @@ def test_wrapper_rejects_bad_inputs():
              **dict(KW, products=((4, 5, 0.02),)))
 
 
+ODD_N, ODD_PATHS = 11, 37
+ODD_PRODUCTS = ((1, 4, 0.021), (3, 8, 0.02), (3, 3, 0.0205), (6, 5, 0.024),
+                (6, 2, 0.018))
+
+
+def _odd_inputs(F, B_=B, seed=43):
+    """Seeded inputs at 11 libors (no lane group but one divides them),
+    parameter sets from benign to a curated-basin-like one."""
+    rng = np.random.default_rng(seed)
+    S_ = ODD_PRODUCTS[-1][0]
+    z = rng.standard_normal((S_ * (F + 1), ODD_PATHS)).astype(np.float32)
+    volT = ((0.1 + 0.2 * rng.random((B_, F * ODD_N, S_))) / np.sqrt(F)
+            ).astype(np.float32)
+    scal = np.zeros((B_, 8), np.float32)
+    for b in range(B_):
+        blend, nu, rho = STOCH_VOL[b % len(STOCH_VOL)]
+        scal[b, :6] = (0.5, np.sqrt(0.5), blend, nu, rho,
+                       np.sqrt(max(1.0 - rho * rho, 1e-12)))
+    l0 = (0.02 + 0.002 * np.arange(ODD_N)).astype(np.float32)
+    deltas = np.full(ODD_N, 0.5, np.float32)
+    return [torch.from_numpy(a) for a in (z, volT, scal, l0, deltas)], dict(
+        num_libors=ODD_N, num_factors=F, products=ODD_PRODUCTS,
+        num_paths=ODD_PATHS)
+
+
+@pytest.mark.parametrize("F", [1, 5])
+def test_plain_running_sums_follow_kernel_order(F):
+    """Every running sum of the plain version, at each lane group, equals a
+    float32 sum taken one addition at a time in the kernel's order."""
+    args, kw = _odd_inputs(F)
+    G0 = _products.lane_group(ODD_N, B, ODD_PATHS)
+    with recording(svk) as calls:
+        default = svk.lmm_stochvol_swaptions_batch(*args, **kw)
+    assert {g for _, g, _, _ in calls} == {G0}
+    for G in GROUPS:
+        with recording(svk) as calls:
+            got = svk.sweep_payoffs(*args, **kw, G=G)
+        if G == G0:
+            assert torch.equal(got, default)
+        assert_kernel_order(calls, G)
+
+
+@pytest.mark.parametrize("F", [1, 5])
+def test_plain_version_matches_sequential_order(F):
+    """Each lane group's order of additions against one thread a path
+    (G = 1, the parent kernel's sequential order), within the kernel-vs-
+    plain bound."""
+    args, kw = _odd_inputs(F)
+    seq = svk.sweep_payoffs(*args, **kw, G=1).numpy()
+    assert np.all(np.isfinite(seq)) and np.all(seq > 0)
+    for G in GROUPS[1:]:
+        np.testing.assert_allclose(svk.sweep_payoffs(*args, **kw, G=G).numpy(),
+                                   seq, rtol=RTOL, atol=1e-7 * ODD_PATHS)
+
+
 @pytest.mark.gpu
 def test_cuda_kernel_matches_plain_version():
+    """Through the wrapper, and at every lane group at 11 libors (a partial
+    group), F = 1 and 5 and the FD batch B = 17, each against the plain
+    version in the same order; a second launch is bitwise equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     cuda = [torch.from_numpy(a).cuda() for a in _inputs()]
@@ -136,6 +204,15 @@ def test_cuda_kernel_matches_plain_version():
     ref = svk.lmm_stochvol_swaptions_batch_reference(*cuda, **KW)
     np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
                                rtol=RTOL, atol=ATOL)
+    for F, batch in ((1, B), (5, B), (5, 17)):
+        args, kw = _odd_inputs(F, B_=batch)
+        args = [a.cuda() for a in args]
+        for G in GROUPS:
+            got = svk.run(*args, **kw, G=G)
+            assert torch.equal(got, svk.run(*args, **kw, G=G))
+            ref = svk.sweep_payoffs(*args, **kw, G=G)
+            np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                                       rtol=RTOL, atol=1e-7 * ODD_PATHS)
 
 
 @pytest.mark.gpu
