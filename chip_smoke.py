@@ -11,16 +11,17 @@ Phases, one line of output each (more for the kernel builds), in order:
 2. build the kernel sources, one ``nvcc`` each, all started together: the
    Monte-Carlo path kernels (``csrc/mc_paths.cu``), the single-swaption LMM
    path kernels (``csrc/lmm_swaption_paths.cu``), and every instantiation
-   (lane group G, libors a lane K, factors F, row chunk R) of the
-   ATM-surface kernel (``csrc/lmm_atm_products.cu``) and the stoch-vol
-   kernel (``csrc/lmm_stochvol_products.cu``) that phases 3-9 launch; print
+   (libors K, factors F, row chunk R) of the ATM-surface kernel
+   (``csrc/lmm_atm_products.cu``) and the stoch-vol kernel
+   (``csrc/lmm_stochvol_products.cu``) that phases 3-9 launch; print
    each build's seconds and ptxas' register/spill report;
 3. the ATM kernel against its plain PyTorch version on the card at the ATM
    shapes: 100,000 paths B=1 NORMAL, 100,003 paths (ragged tail), and the
-   FD-Jacobian batch B=87 at 8,192 paths DISPLACED, then at every lane
-   group the launcher can pick on 37 libors (a partial row, 8,197 paths,
-   B=3, DISPLACED); every row's path sum within rtol 1e-5, atol 1e-7 *
-   paths, and a second launch bitwise equal;
+   FD-Jacobian batch B=87 at 8,192 paths DISPLACED (the build that the
+   B=87 launch of phase 5 runs), then a synthetic sweep on 37 libors with
+   2 factors (a partial row chunk, 8,197 paths, B=3, DISPLACED); every
+   row's path sum within rtol 1e-5, atol 1e-7 * paths, and a second launch
+   bitwise equal;
 4. slice A's main path — the reference's ATM swaption calibration at
    100,000 paths with the 5,000-path engine Jacobian and kernel residuals,
    warmed up once, then timed; it must reach |mean_dev| < 2e-4 and
@@ -36,8 +37,8 @@ Phases, one line of output each (more for the kernel builds), in order:
    benchmark setup at its initial parameters and the reference's Mersenne
    realization: 81,920 paths at B=1 and the FD-Jacobian batch B=17 (the
    main path's two launch shapes), 81,923 paths (ragged tail), and B=17 at
-   8,192 paths, then at every lane group the launcher can pick on 37
-   libors (5 factors, 8,197 paths, B=3); the same bounds and the same
+   8,192 paths, then the synthetic sweep on 37 libors with 5 factors
+   (8,197 paths, B=3); the same bounds and the same
    bitwise repeat as phase 3; then the kernel-vs-engine residual gap at
    the first curated basin (fails above 5e-3 vol);
 8. slice B's main path — the reference's stoch-vol benchmark calibration
@@ -133,8 +134,8 @@ BS_PARAMS, BS_PATHS, BS_STEPS, BS_SEED = (1.0, 0.05, 0.3, 1.0, 1.05), \
 PRICER_PATHS, PRICER_SEED = 409_600, 2718
 RTOL, ATOL_PER_PATH = 1e-5, 1e-7
 # the products kernels' shapes: (libors, factors) of the ATM and benchmark
-# setups, and the synthetic sweep of phases 3d / 7e (a partial row at every
-# lane group: 37 libors)
+# setups, and the synthetic sweep of phases 3d / 7e (37 libors: a partial
+# chunk of rows)
 ATM_SHAPE, SV_SHAPE = (80, 1), (40, 5)
 SYN_LIBORS, SYN_PATHS, SYN_B = 37, 8_197, 3
 SYN_PRODUCTS = ((2, 10, 0.021), (2, 30, 0.02), (5, 4, 0.022),
@@ -221,20 +222,12 @@ def _mc_path_operations(paths, steps, asian):
 
 
 def _sweep_variants(products, lmm_kernel, lmm_stochvol_kernel):
-    """The instantiations (G, K, F, R) of the two products kernels that
-    phases 3-9 launch: the launcher's pick at each launch shape, and every
-    lane group on the synthetic sweep."""
-    pick = products.lane_group
-    atm = {products.sweep_variant(*ATM_SHAPE, pick(ATM_SHAPE[0], B, paths))
-           for B, paths in ((1, PATHS), (1, PATHS + 3), (87, 8_192),
-                            (87, PATHS))}
-    sv = {products.sweep_variant(*SV_SHAPE, pick(SV_SHAPE[0], B, paths))
-          for B, paths in ((1, SV_PATHS), (17, SV_PATHS), (1, SV_PATHS + 3),
-                           (17, 8_192))}
-    for G in products.LANE_GROUPS:
-        atm.add(products.sweep_variant(SYN_LIBORS, 2, G))
-        sv.add(products.sweep_variant(SYN_LIBORS, 5, G))
-    return {lmm_kernel: atm, lmm_stochvol_kernel: sv}
+    """The instantiations (K, F, R) of the two products kernels that phases
+    3-9 launch: the calibrations' shapes and the synthetic sweep."""
+    return {lmm_kernel: [products.sweep_variant(*ATM_SHAPE),
+                         products.sweep_variant(SYN_LIBORS, 2)],
+            lmm_stochvol_kernel: [products.sweep_variant(*SV_SHAPE),
+                                  products.sweep_variant(SYN_LIBORS, 5)]}
 
 
 def _synthetic_sweep(torch, kind):
@@ -267,34 +260,32 @@ def _synthetic_sweep(torch, kind):
     return args, kwargs
 
 
-def _check_lane_group(torch, module, kind, G):
-    """The products kernel ``module`` with a lane group of ``G`` lanes on
-    the synthetic sweep against its plain version in the same order:
-    within rtol 1e-5, atol 1e-7 * paths, a second launch bitwise equal.
-    Returns the largest absolute error; raises on a failure."""
+def _check_synthetic(torch, wrapper, plain, kind):
+    """A products kernel (through ``wrapper``) on the synthetic sweep
+    against its ``plain`` version: within rtol 1e-5, atol 1e-7 * paths, a
+    second launch bitwise equal. Returns the largest absolute error;
+    raises on a failure."""
     args, kwargs = _synthetic_sweep(torch, kind)
-    got = module.run(*args, **kwargs, G=G)
-    again = module.run(*args, **kwargs, G=G)
+    got = wrapper(*args, **kwargs)
+    again = wrapper(*args, **kwargs)
     torch.cuda.synchronize()
-    ref = module.sweep_payoffs(*args, **kwargs, G=G)
+    ref = plain(*args, **kwargs)
     err = (got - ref).abs()
     ok = (bool(torch.isfinite(got).all()) and bool(torch.equal(got, again))
           and bool((err <= RTOL * ref.abs() + ATOL_PER_PATH * SYN_PATHS)
                    .all()))
     if not ok:
-        raise SystemExit(f"chip_smoke: {module.SOURCE} with G={G} disagrees "
-                         f"with its plain version on the synthetic sweep "
+        raise SystemExit(f"chip_smoke: the {kind} kernel disagrees with its "
+                         f"plain version on the synthetic sweep "
                          f"(max_abs_err {float(err.max()):.3e})")
     return float(err.max())
 
 
-def _products_ms(torch, products, module, wrapper, args, kwargs):
+def _products_ms(torch, module, wrapper, args, kwargs):
     """(launch alone, wrapper) median ms of the products kernel ``module``
     on the inputs of one ``wrapper`` call: the launch on parameter sets
     packed and partials allocated beforehand, then the whole wrapper."""
-    B, paths = args[1].shape[0], kwargs["num_paths"]
-    go, _ = module.prepare(*args, **kwargs, G=products.lane_group(
-        kwargs["num_libors"], B, paths))
+    go, _ = module.prepare(*args, **kwargs)
     return (_launch_ms(torch, go),
             _time_ms(torch, lambda: wrapper(*args, **kwargs)))
 
@@ -957,7 +948,7 @@ def main(argv=None) -> int:
             ".log")
         ptxas = [ln.strip() for ln in log.read_text().splitlines()
                  if "registers" in ln or "spill" in ln]
-        tag = (" (G, K, F, R) = " + str(variant[0])) if variant else ""
+        tag = (" (K, F, R) = " + str(variant[0])) if variant else ""
         print(f"phase 2 build: {seconds:.3f} s ({module.SOURCE}{tag}); "
               + " | ".join(ptxas), flush=True)
 
@@ -994,13 +985,13 @@ def main(argv=None) -> int:
             raise SystemExit(f"chip_smoke: phase 3{label}: kernel disagrees "
                              "with its plain version")
         del setup, kb, args, got, ref
-    for G in _products.LANE_GROUPS:
-        err = _check_lane_group(torch, lmm_kernel, "atm", G)
-        max_abs_err = max(max_abs_err, err)
-        print(f"phase 3d G={G} kernel vs plain: paths={SYN_PATHS} B=3 "
-              f"libors={SYN_LIBORS} DISPLACED max_abs_err={err:.3e} "
-              f"bitwise repeatable, within rtol={RTOL}, "
-              f"atol={ATOL_PER_PATH}*paths: True", flush=True)
+    err = _check_synthetic(torch, lmm_kernel.lmm_atm_swaptions_batch,
+                           lmm_kernel.lmm_atm_swaptions_batch_reference, "atm")
+    max_abs_err = max(max_abs_err, err)
+    print(f"phase 3d kernel vs plain: paths={SYN_PATHS} B={SYN_B} "
+          f"libors={SYN_LIBORS} factors=2 DISPLACED max_abs_err={err:.3e} "
+          f"bitwise repeatable, within rtol={RTOL}, "
+          f"atol={ATOL_PER_PATH}*paths: True", flush=True)
 
     # -- 4: the main path --------------------------------------------------
     t0 = time.perf_counter()
@@ -1091,9 +1082,9 @@ def main(argv=None) -> int:
     X = kb.fd_parameter_sets(kb.params(result.parameters))[0]
     fd_args, fd_kwargs = kb.kernel_arguments(X)
     atm_run = lmm_kernel.lmm_atm_swaptions_batch
-    ms, wrapper_ms = _products_ms(torch, _products, lmm_kernel, atm_run,
+    ms, wrapper_ms = _products_ms(torch, lmm_kernel, atm_run,
                                   args, kwargs)
-    fd_ms, fd_wrapper_ms = _products_ms(torch, _products, lmm_kernel, atm_run,
+    fd_ms, fd_wrapper_ms = _products_ms(torch, lmm_kernel, atm_run,
                                         fd_args, fd_kwargs)
     plain_ms = _time_ms(
         torch, lambda: lmm_kernel.lmm_atm_swaptions_batch_reference(
@@ -1108,14 +1099,12 @@ def main(argv=None) -> int:
     fd_bound_ms, _ = _bound(
         fd_args, lmm_kernel.lmm_atm_swaptions_batch(*fd_args, **fd_kwargs),
         _sweep_operations(B=X.shape[0], **atm_ops))
-    G1, G87 = (_products.lane_group(ATM_SHAPE[0], B, PATHS)
-               for B in (1, X.shape[0]))
     print(f"phase 5 timing (median of 5, CUDA events; {smi}): B=1 "
-          f"paths={PATHS} G={G1} "
+          f"paths={PATHS} "
           f"kernel_ms={ms:.4f} wrapper_ms={wrapper_ms:.4f} "
           f"plain_ms={plain_ms:.4f} speedup={plain_ms / ms:.2f}x "
           f"bound_ms={bound_ms:.4f} ({bound_by}); B={X.shape[0]} "
-          f"paths={PATHS} G={G87} "
+          f"paths={PATHS} "
           f"kernel_ms={fd_ms:.4f} wrapper_ms={fd_wrapper_ms:.4f} "
           f"bound_ms={fd_bound_ms:.4f}", flush=True)
     atm_row = {
@@ -1181,13 +1170,15 @@ def main(argv=None) -> int:
                 raise SystemExit("chip_smoke: phase 7a: kernel and engine "
                                  "disagree at the curated basin")
         del sv, sv_kb
-    for G in _products.LANE_GROUPS:
-        err = _check_lane_group(torch, lmm_stochvol_kernel, "stochvol", G)
-        sv_max_abs_err = max(sv_max_abs_err, err)
-        print(f"phase 7e G={G} stoch-vol kernel vs plain: paths={SYN_PATHS} "
-              f"B={SYN_B} libors={SYN_LIBORS} factors=5 "
-              f"max_abs_err={err:.3e} bitwise repeatable, within "
-              f"rtol={RTOL}, atol={ATOL_PER_PATH}*paths: True", flush=True)
+    err = _check_synthetic(
+        torch, lmm_stochvol_kernel.lmm_stochvol_swaptions_batch,
+        lmm_stochvol_kernel.lmm_stochvol_swaptions_batch_reference,
+        "stochvol")
+    sv_max_abs_err = max(sv_max_abs_err, err)
+    print(f"phase 7e stoch-vol kernel vs plain: paths={SYN_PATHS} "
+          f"B={SYN_B} libors={SYN_LIBORS} factors=5 "
+          f"max_abs_err={err:.3e} bitwise repeatable, within "
+          f"rtol={RTOL}, atol={ATOL_PER_PATH}*paths: True", flush=True)
 
     # -- 8: slice B's main path, the stoch-vol benchmark calibration -------
     t0 = time.perf_counter()
@@ -1298,10 +1289,10 @@ def main(argv=None) -> int:
         sv_kb.fd_parameter_sets(x)[0])
     run = lmm_stochvol_kernel.lmm_stochvol_swaptions_batch
     plain = lmm_stochvol_kernel.lmm_stochvol_swaptions_batch_reference
-    sv_ms, sv_wrapper_ms = _products_ms(torch, _products, lmm_stochvol_kernel,
+    sv_ms, sv_wrapper_ms = _products_ms(torch, lmm_stochvol_kernel,
                                         run, sv_args, sv_kwargs)
     sv_fd_ms, sv_fd_wrapper_ms = _products_ms(
-        torch, _products, lmm_stochvol_kernel, run, sv_fd_args, sv_fd_kwargs)
+        torch, lmm_stochvol_kernel, run, sv_fd_args, sv_fd_kwargs)
     sv_plain_ms = _time_ms(torch, lambda: plain(*sv_args, **sv_kwargs))
     sv_fd_plain_ms = _time_ms(torch, lambda: plain(*sv_fd_args,
                                                    **sv_fd_kwargs))
@@ -1315,14 +1306,11 @@ def main(argv=None) -> int:
     sv_fd_bound_ms, sv_fd_bound_by = _bound(
         sv_fd_args, run(*sv_fd_args, **sv_fd_kwargs),
         _sweep_operations(B=B_fd, **sv_ops))
-    G1, G_fd = (_products.lane_group(SV_SHAPE[0], B, SV_PATHS)
-                for B in (1, B_fd))
     print(f"phase 9 timing (median of 5, CUDA events; {smi}): "
-          f"paths={SV_PATHS} B=1 G={G1} "
+          f"paths={SV_PATHS} B=1 "
           f"kernel_ms={sv_ms:.4f} wrapper_ms={sv_wrapper_ms:.4f} "
           f"plain_ms={sv_plain_ms:.4f} bound_ms={sv_bound_ms:.4f} "
           f"({sv_bound_by}); B={B_fd} "
-          f"G={G_fd} "
           f"kernel_ms={sv_fd_ms:.4f} wrapper_ms={sv_fd_wrapper_ms:.4f} "
           f"plain_ms={sv_fd_plain_ms:.4f} bound_ms={sv_fd_bound_ms:.4f} "
           f"({sv_fd_bound_by})", flush=True)

@@ -16,39 +16,38 @@
 // alive (step, libor) updates and 11 collections of up to 78 periods for
 // 144 products, all float32 with a sequential dependence through the
 // running sums; the normals are read once (24 MB at 100,000 paths). The
-// first design (one thread a path, the [n][128] curve in shared memory,
-// 45 KB a block) ran 782 blocks at 4-5 blocks an SM, two waves with the
-// second mostly empty, and cost every alive libor 235 SASS instructions (a
-// shared load and store, and all 8 factor slots of global loads with 64-bit
-// index arithmetic, whatever F): 3.5-5.5% of the operations bound. This
-// design issues 27 (G = 1) to 36 (G = 2) an alive libor at F = 1.
+// first design (the [n][128] curve in shared memory, 45 KB a block) ran 782
+// blocks at 4-5 blocks an SM, two waves with the second mostly empty, and
+// cost every alive libor 235 SASS instructions (a shared load and store,
+// and all 8 factor slots of global loads with 64-bit index arithmetic,
+// whatever F): 3.5-5.5% of the operations bound. This design issues 27 an
+// alive libor at F = 1.
 //
 // Design (lmm_sweep.cuh has the shared pieces; lmm_stochvol_products.cu
 // the same design with the stoch-vol local factor):
-//   * a lane group of G lanes carries one path; lane g holds the libors
-//     r * G + g in registers, K = ceil(n / G) of them, in rows unrolled at
-//     compile time. The wrapper picks G by shape
-//     (ops/_products.py::lane_group; each (G, K, F, R) is its own build).
-//     On the H100: G = 2 for the calibration's B = 1 launch (80 libors at
-//     one lane a path need about 120 registers: 2 blocks an SM, 1.5 waves;
-//     two lanes halve that), G = 1 for the FD batch B = 87, whose grid
-//     fills the card many times over and where the shuffles only add
-//     issue slots; 4 and 8 lanes lose at both shapes
-//     (tools/compare_products_kernels.py, PERF.md);
-//   * the drift's running sums: a butterfly scan over the G lanes of each
-//     row plus a carry across rows; N's fixing is shuffled from its owner;
-//   * rows are swept in chunks of R (8 at G = 1, 4 at G = 2): a chunk
+//   * one thread a path; its forward curve lives in registers, K = n
+//     libors unrolled at compile time (each (K, F, R) is its own build,
+//     ops/_products.py::sweep_variant), so the curve never touches memory.
+//     At 80 libors that is about 120 registers, 2 blocks an SM. Lane groups
+//     of 2, 4 and 8 lanes a path (the rates split over the lanes, the
+//     running sums as shuffle scans) were measured and not kept: at the
+//     calibration's B = 1 two lanes came within 1% of one, a gap smaller
+//     than the spread between runs; at B = 87, and with 4 or 8 lanes at
+//     both shapes, they lost to the shuffles' issue slots (PERF.md, PR 5);
+//   * the drift's running sums are one addition after another over the
+//     libors; N's fixing is a select of the register holding L_s;
+//   * rows are swept in chunks of R (8 at one factor, 4 above): a chunk
 //     whose libors are all dead is skipped by a warp-uniform branch, and no
 //     branch splits a chunk, so the scheduler overlaps its rows' divides
 //     and loads;
-//   * a block (256 threads, 256 / G paths) stages its parameter set into
+//   * a block (256 threads, 256 paths) stages its parameter set into
 //     shared memory with bulk asynchronous copies (TMA) on an mbarrier: the
 //     scalars, (L0, delta) per libor and the loadings step-major
 //     [S][C][NP][V] (19 KB at the ATM shape), packed by the wrapper;
 //   * the grid is (path tile, B) with B fastest, so the 87 parameter sets of
 //     the FD Jacobian read one tile's normals from L2;
-//   * collection: a scan of (bond product, annuity) pairs over the rows the
-//     step's swaps span, products visited in order of their end period;
+//   * collection: the running bond product and annuity over the periods
+//     the step's swaps span, products visited in order of their end period;
 //   * the deterministic float64 path reduction of lmm_sweep.cuh into
 //     partials[B, tiles, P + E]; the wrapper sums tiles in float64. No
 //     atomics. Paths past num_paths read no z and contribute 0.
@@ -62,33 +61,9 @@ namespace {
 
 using namespace lmm_sweep;
 
-constexpr int G = LMM_G;
 constexpr int K = LMM_K;
 constexpr int F = LMM_F;
 constexpr int kRows = LMM_R;             // rows a chunk of the drift sweep
-
-// Values the products of step s from position q on (in order of their last
-// period) whose last period lies before row_end, off the running pairs
-// `pre` of the current row: payoff / N, summed over the warp's paths into
-// red_warp[k]. Returns the next position.
-__device__ __forceinline__ int value_products(
-    int q, int q1, int s, int row_end, Bond pre, float inv_n, bool valid,
-    const int* __restrict__ order, const int* __restrict__ prod_m,
-    const float* __restrict__ prod_k, double* red_warp) {
-  for (; q < q1; ++q) {
-    const int k = order[q];
-    const int end = s + prod_m[k] - 1;
-    if (end >= row_end) break;
-    const float cp = __shfl_sync(kFull, pre.c, end % G, G);
-    const float ann = __shfl_sync(kFull, pre.a, end % G, G);
-    float payoff = 1.0f - cp - prod_k[k] * ann;
-    payoff = (payoff < 0.0f) ? 0.0f : payoff;
-    const double v =
-        warp_path_sum(valid ? static_cast<double>(payoff * inv_n) : 0.0);
-    if ((threadIdx.x & 31) == 0) red_warp[k] = v;
-  }
-  return q;
-}
 
 __global__ void __launch_bounds__(kThreads)
 lmm_atm_products_kernel(const float* __restrict__ z, long long ldz,
@@ -98,8 +73,8 @@ lmm_atm_products_kernel(const float* __restrict__ z, long long ldz,
                         const int* __restrict__ order,
                         const int* __restrict__ prod_m,
                         const float* __restrict__ prod_k,
-                        double* __restrict__ partials, int n, int S, int P,
-                        int E, int num_paths, int B, int displaced) {
+                        double* __restrict__ partials, int S, int P, int E,
+                        int num_paths, int B, int displaced) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int R = P + E;
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw);
@@ -109,13 +84,10 @@ lmm_atm_products_kernel(const float* __restrict__ z, long long ldz,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int g = tid & (G - 1);
   const int b = blockIdx.x % B;
   const int tile = blockIdx.x / B;
-  const long long path =
-      static_cast<long long>(tile) * (kThreads / G) + tid / G;
+  const long long path = static_cast<long long>(tile) * kThreads + tid;
   const bool valid = path < num_paths;
-  const int np = ((K * G + 3) / 4) * 4;
 
   for (int r = tid; r < kWarps * R; r += kThreads) red[r] = 0.0;
   stage(set, packed + static_cast<size_t>(b) * width,
@@ -124,12 +96,12 @@ lmm_atm_products_kernel(const float* __restrict__ z, long long ldz,
   const float dt = set[0];
   const float sqrt_dt = set[1];
   const float disp = set[2];
-  const float2* cst = reinterpret_cast<const float2*>(set + 8);  // [np]
-  const float* tab = set + 8 + 2 * np;               // [S][kC][np][kV]
+  const float2* cst = reinterpret_cast<const float2*>(set + 8);  // [kNP]
+  const float* tab = set + 8 + 2 * kNP;              // [S][kC][kNP][kV]
 
   float L[K];
 #pragma unroll
-  for (int r = 0; r < K; ++r) L[r] = cst[r * G + g].x;
+  for (int r = 0; r < K; ++r) L[r] = cst[r].x;
   float N = 1.0f;
 
   for (int s = 0; s <= S; ++s) {
@@ -144,25 +116,23 @@ lmm_atm_products_kernel(const float* __restrict__ z, long long ldz,
       int q = step_first[s];
       const int last = s + prod_m[order[q1 - 1]] - 1;
       int end = s + prod_m[order[q]] - 1;
-      Bond carry = {1.0f, 0.0f};
+      float cp = 1.0f;                   // bond product of periods s..r
+      float ann = 0.0f;                  // annuity of periods s..r
 #pragma unroll
       for (int r = 0; r < K; ++r) {
-        if (r * G + G - 1 < s || r * G > last) continue;   // warp-uniform
-        const int i = r * G + g;
-        Bond x = {1.0f, 0.0f};
-        if (i >= s && i <= last) {
-          const float d = cst[i].y;
-          x.c = 1.0f / (1.0f + d * L[r]);
-          x.a = x.c * d;
-        }
-        Bond pre, tot;
-        group_scan_bond(x, g, pre, tot);
-        pre = compose(carry, pre);
-        carry = compose(carry, tot);
-        if (q < q1 && end < r * G + G) {                   // warp-uniform
-          q = value_products(q, q1, s, r * G + G, pre, inv_n, valid, order,
-                             prod_m, prod_k, red + warp * R);
-          if (q < q1) end = s + prod_m[order[q]] - 1;
+        if (r < s || r > last) continue;                   // warp-uniform
+        const float d = cst[r].y;
+        cp = cp * (1.0f / (1.0f + d * L[r]));
+        ann = ann + cp * d;
+        // value the products whose last period is r: payoff / N
+        for (; q < q1 && end == r;) {                      // warp-uniform
+          const int k = order[q];
+          float payoff = 1.0f - cp - prod_k[k] * ann;
+          payoff = (payoff < 0.0f) ? 0.0f : payoff;
+          const double pv = warp_path_sum(
+              valid ? static_cast<double>(payoff * inv_n) : 0.0);
+          if (lane == 0) red[warp * R + k] = pv;
+          if (++q < q1) end = s + prod_m[order[q]] - 1;
         }
       }
     }
@@ -174,41 +144,37 @@ lmm_atm_products_kernel(const float* __restrict__ z, long long ldz,
     for (int f = 0; f < F; ++f) w[f] = valid ? sqrt_dt * zs[f * ldz] : 0.0f;
 
     // spot account accrues period s at its fixing L_s
-    N = N * (1.0f + cst[s].y * libor_of(L, s));
+    N = N * (1.0f + cst[s].y * libor_at(L, s));
 
-    float carry[F];
+    float run[F];                        // running sums of m_j lambda_j
 #pragma unroll
-    for (int f = 0; f < F; ++f) carry[f] = 0.0f;
+    for (int f = 0; f < F; ++f) run[f] = 0.0f;
 #pragma unroll
     for (int r0 = 0; r0 < K; r0 += kRows) {
       // a chunk of kRows rows whose libors are all dead is skipped (a
       // warp-uniform branch); within a chunk no branch splits the rows, so
       // the scheduler can overlap their independent work
-      if ((r0 + kRows < K ? r0 + kRows : K) * G - 1 <= s) continue;
+      if ((r0 + kRows < K ? r0 + kRows : K) - 1 <= s) continue;
 #pragma unroll
       for (int r = r0; r < r0 + kRows && r < K; ++r) {
-        const int i = r * G + g;
-        // only the last row reaches past the curve: n > (K - 1) * G
-        const bool alive = i > s && (r < K - 1 || i < n);
-        const float d = cst[i].y;
+        const bool alive = r > s;
+        const float d = cst[r].y;
         const float Li = L[r];
-        // the divide is taken on every lane, then masked: a select, not a
-        // branch that would split the chunk around the divide's slow path
+        // the divide is taken on every row of the chunk, then masked: a
+        // select, not a branch that would split the chunk around the
+        // divide's slow path
         const float m = d / (1.0f + d * Li);
         const float mt = alive ? m : 0.0f;
         const float lf = Li + disp;
         float v[kFP];
-        load_loadings(tab, np, s, i, v);
+        load_loadings(tab, s, r, v);
         float mu = 0.0f;
         float diffusion = 0.0f;
 #pragma unroll
         for (int f = 0; f < F; ++f) {
           const float lam = displaced ? v[f] * lf : v[f];
-          float pre, tot;
-          group_scan(mt * lam, g, pre, tot);
-          const float run = carry[f] + pre;
-          carry[f] = carry[f] + tot;
-          mu = mu + lam * run;
+          run[f] = run[f] + mt * lam;
+          mu = mu + lam * run[f];
           diffusion = diffusion + lam * w[f];
         }
         if (alive) {
@@ -232,10 +198,10 @@ lmm_atm_products_kernel(const float* __restrict__ z, long long ldz,
 
 extern "C" {
 
-// The instantiation of this library: G, K, F, R for which = 0, 1, 2, 3.
+// The instantiation of this library: K, F, R for which = 0, 1, 2.
 int lmm_atm_products_variant(int which) {
-  const int v[4] = {G, K, F, kRows};
-  return (which >= 0 && which < 4) ? v[which] : -1;
+  const int v[3] = {K, F, kRows};
+  return (which >= 0 && which < 3) ? v[which] : -1;
 }
 
 // Launches on `stream` without synchronising; returns the launch's error.
@@ -244,13 +210,12 @@ cudaError_t lmm_atm_products_launch(
     const int* step_event, const int* step_first, const int* order,
     const int* prod_m, const float* prod_k, double* partials, int n, int S,
     int P, int E, int num_paths, int B, int displaced, cudaStream_t stream) {
-  const int np = ((K * G + 3) / 4) * 4;
-  if (n < 1 || n > K * G || n <= (K - 1) * G || S < 1 || S >= n || P < 1 ||
-      E < 1 || num_paths < 1 || B < 1 ||
-      width != 8 + 2 * np + S * kC * np * kV) {
+  if (n != K || S < 1 || S >= n || P < 1 || E < 1 || num_paths < 1 ||
+      B < 1 || width != 8 + 2 * kNP + S * kC * kNP * kV ||
+      !stageable(packed, width)) {
     return cudaErrorInvalidValue;
   }
-  const long long tiles = (num_paths + kThreads / G - 1) / (kThreads / G);
+  const long long tiles = (num_paths + kThreads - 1) / kThreads;
   if (tiles * B > 0x7fffffffLL) return cudaErrorInvalidValue;
   const size_t smem = shared_bytes(P + E, width);
   cudaError_t err = cudaFuncSetAttribute(
@@ -260,7 +225,7 @@ cudaError_t lmm_atm_products_launch(
   lmm_atm_products_kernel<<<static_cast<unsigned>(tiles * B), kThreads, smem,
                             stream>>>(
       z, ldz, packed, width, step_event, step_first, order, prod_m, prod_k,
-      partials, n, S, P, E, num_paths, B, displaced);
+      partials, S, P, E, num_paths, B, displaced);
   return cudaGetLastError();
 }
 

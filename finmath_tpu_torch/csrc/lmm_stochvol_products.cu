@@ -33,27 +33,25 @@
 // wave, so there one thread's sweep latency sets the time.
 //
 // Design (lmm_sweep.cuh has the shared pieces):
-//   * a lane group of G lanes carries one path; lane g holds the libors
-//     r * G + g of its path in registers, K = ceil(n / G) of them, in rows
-//     unrolled at compile time, so the curve never touches memory. The
-//     wrapper picks G by shape (ops/_products.py::lane_group) and each
-//     (G, K, F, R) is its own build (LMM_G, LMM_K, LMM_F, LMM_R);
-//   * the drift's running sums: per row, a butterfly scan of m_i lambda_i
-//     over the G lanes (log2 G shuffles a factor) plus a carry across
-//     rows; N's fixing L_s is shuffled from its owner. On the H100 one lane
-//     a path (G = 1: no shuffles, the scan is a running sum) is the fastest
-//     at both of this kernel's launch shapes: the register-resident,
-//     unrolled curve gives one thread the independent work (F loadings,
-//     the divide) that the lane groups of 4 or 8 would have spread over
-//     lanes, while each of their shuffle rounds costs a quarter-rate issue
-//     slot a factor (tools/compare_products_kernels.py, PERF.md);
+//   * one thread a path; its forward curve lives in registers, K = n
+//     libors unrolled at compile time, so the curve never touches memory;
+//     each (K, F, R) is its own build (LMM_K, LMM_F, LMM_R,
+//     ops/_products.py::sweep_variant). Lane groups of 2, 4 and 8 lanes a
+//     path (the rates split over the lanes, the running sums as shuffle
+//     scans) were measured at both launch shapes and lost at both: the
+//     register-resident, unrolled curve already gives one thread the
+//     independent work (F loadings, the divide) that the lanes would share,
+//     while each shuffle round costs a quarter-rate issue slot a factor
+//     (tools/compare_products_kernels.py, PERF.md, PR 5);
+//   * the drift's running sums are one addition after another over the
+//     libors; N's fixing is a select of the register holding L_s;
 //   * rows are swept in chunks of R: a chunk whose libors are all dead
 //     (i <= s) is skipped by a warp-uniform branch, and no branch splits a
 //     chunk, so the scheduler overlaps its rows' divides and loads (R = 4
 //     at 5 factors);
-//   * a block (256 threads, 256 / G paths) first stages its parameter set
-//     into shared memory with bulk asynchronous copies (TMA) completed on
-//     an mbarrier: the 8 scalars, (L0, delta, b L0) per libor and the
+//   * a block (256 threads, 256 paths) first stages its parameter set into
+//     shared memory with bulk asynchronous copies (TMA) completed on an
+//     mbarrier: the 8 scalars, (L0, delta, b L0) per libor and the
 //     loadings step-major [S][C][NP][V] (F padded to 8 as two float4 a
 //     libor), packed by the wrapper; 26 KB at the benchmark's shape. The
 //     inner loop then reads one float4 of constants and C float4 of
@@ -62,9 +60,8 @@
 //   * the grid is (path tile, B) with B fastest, so the B parameter sets
 //     of one tile run together and read its normals from L2;
 //   * collection: per exercise step, the running bond product and annuity
-//     as a scan of (product, sum) pairs over the rows that the step's swaps
-//     span; products visit in order of their end period (the wrapper's
-//     `order`), each reading its pair from the owner of its last period;
+//     over the periods that the step's swaps span; products visit in order
+//     of their end period (the wrapper's `order`);
 //   * the path reduction is deterministic: a float64 shuffle sum over the
 //     paths of a warp, a fixed-order sum of the 8 warp partials, written per
 //     tile to partials[B, tiles, P]; the wrapper sums tiles in float64. No
@@ -80,35 +77,10 @@ namespace {
 
 using namespace lmm_sweep;
 
-constexpr int G = LMM_G;
 constexpr int K = LMM_K;
 constexpr int F = LMM_F;
 constexpr int kRows = LMM_R;             // rows a chunk of the drift sweep
 constexpr float kLogVCap = 13.815511f;   // log(1e6), the engine's cap of V
-
-// Values the products of step s from position q on (in order of their last
-// period) whose last period lies before row_end, off the running pairs
-// `pre` of the current row: payoff / N, non-finite values dropped, summed
-// over the warp's paths into red_warp[k]. Returns the next position.
-__device__ __forceinline__ int value_products(
-    int q, int q1, int s, int row_end, Bond pre, float N, bool valid,
-    const int* __restrict__ order, const int* __restrict__ prod_m,
-    const float* __restrict__ prod_k, double* red_warp) {
-  for (; q < q1; ++q) {
-    const int k = order[q];
-    const int end = s + prod_m[k] - 1;
-    if (end >= row_end) break;
-    const float cp = __shfl_sync(kFull, pre.c, end % G, G);
-    const float ann = __shfl_sync(kFull, pre.a, end % G, G);
-    float payoff = 1.0f - cp - prod_k[k] * ann;
-    payoff = (payoff < 0.0f) ? 0.0f : payoff;
-    const float value = payoff / N;
-    const bool keep = valid && fabsf(value) <= 3.40282347e+38f;
-    const double v = warp_path_sum(keep ? static_cast<double>(value) : 0.0);
-    if ((threadIdx.x & 31) == 0) red_warp[k] = v;
-  }
-  return q;
-}
 
 __global__ void __launch_bounds__(kThreads)
 lmm_stochvol_products_kernel(const float* __restrict__ z, long long ldz,
@@ -117,22 +89,20 @@ lmm_stochvol_products_kernel(const float* __restrict__ z, long long ldz,
                              const int* __restrict__ order,
                              const int* __restrict__ prod_m,
                              const float* __restrict__ prod_k,
-                             double* __restrict__ partials, int n, int S,
-                             int P, int num_paths, int B) {
+                             double* __restrict__ partials, int S, int P,
+                             int num_paths, int B) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw);
   double* red = reinterpret_cast<double*>(smem_raw + 16);       // [kWarps][P]
   float* set = reinterpret_cast<float*>(red + kWarps * P);      // [width]
 
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int g = tid & (G - 1);
   const int b = blockIdx.x % B;
   const int tile = blockIdx.x / B;
-  const long long path =
-      static_cast<long long>(tile) * (kThreads / G) + tid / G;
+  const long long path = static_cast<long long>(tile) * kThreads + tid;
   const bool valid = path < num_paths;
-  const int np = ((K * G + 3) / 4) * 4;
 
   for (int r = tid; r < kWarps * P; r += kThreads) red[r] = 0.0;
   stage(set, packed + static_cast<size_t>(b) * width,
@@ -146,12 +116,12 @@ lmm_stochvol_products_kernel(const float* __restrict__ z, long long ldz,
   const float somega = set[5];
   const float one_minus_blend = 1.0f - blend;
   const float v_drift = 0.5f * nu * nu * dt;
-  const float4* cst = reinterpret_cast<const float4*>(set + 8);  // [np]
-  const float* tab = set + 8 + 4 * np;               // [S][kC][np][kV]
+  const float4* cst = reinterpret_cast<const float4*>(set + 8);  // [kNP]
+  const float* tab = set + 8 + 4 * kNP;              // [S][kC][kNP][kV]
 
   float L[K];
 #pragma unroll
-  for (int r = 0; r < K; ++r) L[r] = cst[r * G + g].x;
+  for (int r = 0; r < K; ++r) L[r] = cst[r].x;
   float N = 1.0f;
   float logV = 0.0f;
 
@@ -162,25 +132,26 @@ lmm_stochvol_products_kernel(const float* __restrict__ z, long long ldz,
     if (q < q1) {
       const int last = s + prod_m[order[q1 - 1]] - 1;
       int end = s + prod_m[order[q]] - 1;
-      Bond carry = {1.0f, 0.0f};
+      float cp = 1.0f;                   // bond product of periods s..r
+      float ann = 0.0f;                  // annuity of periods s..r
 #pragma unroll
       for (int r = 0; r < K; ++r) {
-        if (r * G + G - 1 < s || r * G > last) continue;   // warp-uniform
-        const int i = r * G + g;
-        Bond x = {1.0f, 0.0f};
-        if (i >= s && i <= last) {
-          const float d = cst[i].y;
-          x.c = 1.0f / (1.0f + d * L[r]);
-          x.a = x.c * d;
-        }
-        Bond pre, tot;
-        group_scan_bond(x, g, pre, tot);
-        pre = compose(carry, pre);
-        carry = compose(carry, tot);
-        if (q < q1 && end < r * G + G) {                   // warp-uniform
-          q = value_products(q, q1, s, r * G + G, pre, N, valid, order,
-                             prod_m, prod_k, red + warp * P);
-          if (q < q1) end = s + prod_m[order[q]] - 1;
+        if (r < s || r > last) continue;                   // warp-uniform
+        const float d = cst[r].y;
+        cp = cp * (1.0f / (1.0f + d * L[r]));
+        ann = ann + cp * d;
+        // value the products whose last period is r: payoff / N, the
+        // non-finite values dropped
+        for (; q < q1 && end == r;) {                      // warp-uniform
+          const int k = order[q];
+          float payoff = 1.0f - cp - prod_k[k] * ann;
+          payoff = (payoff < 0.0f) ? 0.0f : payoff;
+          const float value = payoff / N;
+          const bool keep = valid && fabsf(value) <= 3.40282347e+38f;
+          const double pv =
+              warp_path_sum(keep ? static_cast<double>(value) : 0.0);
+          if (lane == 0) red[warp * P + k] = pv;
+          if (++q < q1) end = s + prod_m[order[q]] - 1;
         }
       }
     }
@@ -195,42 +166,38 @@ lmm_stochvol_products_kernel(const float* __restrict__ z, long long ldz,
     if (valid) z_v = zs[F * ldz];
 
     // spot account accrues period s at its fixing L_s
-    N = N * (1.0f + cst[s].y * libor_of(L, s));
+    N = N * (1.0f + cst[s].y * libor_at(L, s));
     const float sqrt_v = expf(0.5f * logV);
 
-    float carry[F];
+    float run[F];                        // running sums of m_j lambda_j
 #pragma unroll
-    for (int f = 0; f < F; ++f) carry[f] = 0.0f;
+    for (int f = 0; f < F; ++f) run[f] = 0.0f;
 #pragma unroll
     for (int r0 = 0; r0 < K; r0 += kRows) {
       // a chunk of kRows rows whose libors are all dead is skipped (a
       // warp-uniform branch); within a chunk no branch splits the rows, so
       // the scheduler can overlap their independent work
-      if ((r0 + kRows < K ? r0 + kRows : K) * G - 1 <= s) continue;
+      if ((r0 + kRows < K ? r0 + kRows : K) - 1 <= s) continue;
 #pragma unroll
       for (int r = r0; r < r0 + kRows && r < K; ++r) {
-        const int i = r * G + g;
-        // only the last row reaches past the curve: n > (K - 1) * G
-        const bool alive = i > s && (r < K - 1 || i < n);
-        const float4 c = cst[i];
+        const bool alive = r > s;
+        const float4 c = cst[r];
         const float Li = L[r];
-        // the divide is taken on every lane, then masked: a select, not a
-        // branch that would split the chunk around the divide's slow path
+        // the divide is taken on every row of the chunk, then masked: a
+        // select, not a branch that would split the chunk around the
+        // divide's slow path
         const float m = c.y / (1.0f + c.y * Li);
         const float mt = alive ? m : 0.0f;
         const float lf = (one_minus_blend * Li + c.z) * sqrt_v;
         float v[kFP];
-        load_loadings(tab, np, s, i, v);
+        load_loadings(tab, s, r, v);
         float mu = 0.0f;
         float diffusion = 0.0f;
 #pragma unroll
         for (int f = 0; f < F; ++f) {
           const float lam = v[f] * lf;
-          float pre, tot;
-          group_scan(mt * lam, g, pre, tot);
-          const float run = carry[f] + pre;
-          carry[f] = carry[f] + tot;
-          mu = mu + lam * run;
+          run[f] = run[f] + mt * lam;
+          mu = mu + lam * run[f];
           diffusion = diffusion + lam * w[f];
         }
         if (alive) {
@@ -256,10 +223,10 @@ lmm_stochvol_products_kernel(const float* __restrict__ z, long long ldz,
 
 extern "C" {
 
-// The instantiation of this library: G, K, F, R for which = 0, 1, 2, 3.
+// The instantiation of this library: K, F, R for which = 0, 1, 2.
 int lmm_stochvol_products_variant(int which) {
-  const int v[4] = {G, K, F, kRows};
-  return (which >= 0 && which < 4) ? v[which] : -1;
+  const int v[3] = {K, F, kRows};
+  return (which >= 0 && which < 3) ? v[which] : -1;
 }
 
 // Launches on `stream` without synchronising; returns the launch's error.
@@ -268,12 +235,12 @@ cudaError_t lmm_stochvol_products_launch(
     const int* step_first, const int* order, const int* prod_m,
     const float* prod_k, double* partials, int n, int S, int P,
     int num_paths, int B, cudaStream_t stream) {
-  const int np = ((K * G + 3) / 4) * 4;
-  if (n < 1 || n > K * G || n <= (K - 1) * G || S < 1 || S >= n || P < 1 ||
-      num_paths < 1 || B < 1 || width != 8 + 4 * np + S * kC * np * kV) {
+  if (n != K || S < 1 || S >= n || P < 1 || num_paths < 1 || B < 1 ||
+      width != 8 + 4 * kNP + S * kC * kNP * kV ||
+      !stageable(packed, width)) {
     return cudaErrorInvalidValue;
   }
-  const long long tiles = (num_paths + kThreads / G - 1) / (kThreads / G);
+  const long long tiles = (num_paths + kThreads - 1) / kThreads;
   if (tiles * B > 0x7fffffffLL) return cudaErrorInvalidValue;
   const size_t smem = shared_bytes(P, width);
   cudaError_t err = cudaFuncSetAttribute(
@@ -282,8 +249,8 @@ cudaError_t lmm_stochvol_products_launch(
   if (err != cudaSuccess) return err;
   lmm_stochvol_products_kernel<<<static_cast<unsigned>(tiles * B), kThreads,
                                  smem, stream>>>(
-      z, ldz, packed, width, step_first, order, prod_m, prod_k, partials, n,
-      S, P, num_paths, B);
+      z, ldz, packed, width, step_first, order, prod_m, prod_k, partials, S,
+      P, num_paths, B);
   return cudaGetLastError();
 }
 

@@ -1,24 +1,20 @@
 // What the two LMM products kernels (lmm_atm_products.cu,
-// lmm_stochvol_products.cu) share: the lane group that carries one path,
-// its shuffle scans, the staging of one parameter set into shared memory,
-// and the deterministic path reduction.
+// lmm_stochvol_products.cu) share: the staging of one parameter set into
+// shared memory, the loadings' layout, the NaN-keeping clamps and the
+// deterministic path reduction.
 //
-// A lane group is G consecutive lanes of a warp (G = 1, 2, 4 or 8, a
-// compile-time constant; G = 1 is one thread a path, and its scans are
-// plain running sums). Lane g of a group owns the libors i = r * G + g,
-// r = 0 .. K - 1 (interleaved), its forward rates in registers. Row r of a
-// path's curve is the G libors r * G .. r * G + G - 1, one a lane. Every
-// running sum over the libors is taken row after row: within a row a
-// butterfly scan over the G lanes (lane g adds the total of the partner
-// segment below it, log2 G rounds), across rows a carry that starts at the
-// identity. ops/_products.py repeats exactly these additions in its
-// plain versions (group_scan, group_running_sums, group_bond_prefix).
+// One thread carries one path; its forward curve, K libors, lives in
+// registers, the sweep over it unrolled at compile time. Every running sum
+// over the libors is taken one addition after another from libor 0 on;
+// ops/_products.py (running_sums, bond_prefix) takes the same additions in
+// the same order in the plain versions. nvcc may fuse a multiply and the
+// add after it into one FMA, which rounds once where the plain version
+// rounds twice, so the two agree to rounding, not bit for bit.
 //
 // Each launch runs a library built for one instantiation: nvcc is given
-// LMM_G (lanes a path), LMM_K (libors a lane), LMM_F (factors) and LMM_R
-// (rows of the drift sweep a chunk) by ops/_cuda_build.py, which the
-// wrappers call with what ops/_products.py::sweep_variant picks for the
-// shape (lane_group, row_chunk).
+// LMM_K (libors), LMM_F (factors) and LMM_R (rows of the drift sweep a
+// chunk) by ops/_cuda_build.py, which the wrappers call with what
+// ops/_products.py::sweep_variant picks for the shape.
 
 #pragma once
 
@@ -26,27 +22,27 @@
 
 #include <cstdint>
 
-#if !defined(LMM_G) || !defined(LMM_K) || !defined(LMM_F) || !defined(LMM_R)
-#error "build with -DLMM_G, -DLMM_K, -DLMM_F and -DLMM_R"
+#if !defined(LMM_K) || !defined(LMM_F) || !defined(LMM_R)
+#error "build with -DLMM_K, -DLMM_F and -DLMM_R"
 #endif
 
 namespace lmm_sweep {
 
-constexpr int kThreads = 256;                 // threads a block
+constexpr int kThreads = 256;                 // threads (paths) a block
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxFactors = 8;
 constexpr unsigned kFull = 0xffffffffu;
 
-static_assert(LMM_G == 1 || LMM_G == 2 || LMM_G == 4 || LMM_G == 8,
-              "a lane group is 1, 2, 4 or 8 lanes");
-static_assert(LMM_K >= 1 && LMM_K * LMM_G <= 128, "at most 128 libors");
+static_assert(LMM_K >= 1 && LMM_K <= 128, "1 to 128 libors");
 static_assert(LMM_F >= 1 && LMM_F <= kMaxFactors, "1 to 8 factors");
 static_assert(LMM_R >= 1, "a chunk is at least one row");
 
+// The libors padded to a whole float4 of per-libor constants.
+constexpr int kNP = (LMM_K + 3) / 4 * 4;
+
 // The loadings of one (step, libor) are F floats padded to FP = 1, 2, 4 or
-// 8, stored as C chunks of V = min(FP, 4) floats: [S][C][NP][V], so a lane
-// reads its libor's loadings with C vector loads, and the G lanes of a
-// group read neighbouring vectors (no bank conflicts).
+// 8, stored as C chunks of V = min(FP, 4) floats: [S][C][NP][V], so a thread
+// reads its libor's loadings with C vector loads at an immediate offset.
 constexpr int kFP = LMM_F == 1 ? 1 : LMM_F == 2 ? 2 : LMM_F <= 4 ? 4 : 8;
 constexpr int kV = kFP < 4 ? kFP : 4;
 constexpr int kC = kFP / kV;
@@ -67,11 +63,11 @@ __device__ __forceinline__ float min_keep_nan(float x, float hi) {
 }
 
 // The loadings of (step s, libor i), F floats, from the staged table.
-__device__ __forceinline__ void load_loadings(const float* tab, int np, int s,
-                                              int i, float (&v)[kFP]) {
+__device__ __forceinline__ void load_loadings(const float* tab, int s, int i,
+                                              float (&v)[kFP]) {
 #pragma unroll
   for (int c = 0; c < kC; ++c) {
-    const float* p = tab + (static_cast<size_t>(s * kC + c) * np + i) * kV;
+    const float* p = tab + (static_cast<size_t>(s * kC + c) * kNP + i) * kV;
     if constexpr (kV == 4) {
       const float4 q = *reinterpret_cast<const float4*>(p);
       v[4 * c] = q.x; v[4 * c + 1] = q.y; v[4 * c + 2] = q.z;
@@ -85,72 +81,32 @@ __device__ __forceinline__ void load_loadings(const float* tab, int np, int s,
   }
 }
 
-// Inclusive sum over lanes 0..g of the group (pre) and the group's total
-// (tot, the same bits in every lane: a + b == b + a in IEEE arithmetic).
-__device__ __forceinline__ void group_scan(float x, int g, float& pre,
-                                           float& tot) {
-  pre = x;
-  tot = x;
-#pragma unroll
-  for (int off = 1; off < LMM_G; off <<= 1) {
-    const float o = __shfl_xor_sync(kFull, tot, off);
-    if (g & off) pre = o + pre;
-    tot = tot + o;
-  }
-}
-
-// A running bond product and annuity over consecutive periods: the pair
-// (c, a) of a period is (1 / (1 + d L), c d); two spans compose as
-// (c1, a1) o (c2, a2) = (c1 c2, a1 + c1 a2). The FMA is explicit so that
-// the two lanes of a butterfly, which compose the same spans, round alike.
-struct Bond {
-  float c, a;
-};
-
-__device__ __forceinline__ Bond compose(Bond lo, Bond hi) {
-  return {lo.c * hi.c, __fmaf_rn(lo.c, hi.a, lo.a)};
-}
-
-__device__ __forceinline__ void group_scan_bond(Bond x, int g, Bond& pre,
-                                                Bond& tot) {
-  pre = x;
-  tot = x;
-#pragma unroll
-  for (int off = 1; off < LMM_G; off <<= 1) {
-    const Bond o = {__shfl_xor_sync(kFull, tot.c, off),
-                    __shfl_xor_sync(kFull, tot.a, off)};
-    if (g & off) {
-      pre = compose(o, pre);
-      tot = compose(o, tot);
-    } else {
-      tot = compose(tot, o);
-    }
-  }
-}
-
-// The forward rate L_i of the path, i any libor: from the lane that owns it.
-__device__ __forceinline__ float libor_of(const float (&L)[LMM_K], int i) {
+// The forward rate L[i] of the curve in registers, i known only at run time:
+// a select over the unrolled rows (an indexed register array would go to
+// local memory).
+__device__ __forceinline__ float libor_at(const float (&L)[LMM_K], int i) {
   float v = 0.0f;
 #pragma unroll
   for (int r = 0; r < LMM_K; ++r) {
-    if (r == i / LMM_G) v = L[r];
+    if (r == i) v = L[r];
   }
-  return __shfl_sync(kFull, v, i % LMM_G, LMM_G);
+  return v;
 }
 
-// Sum over the paths of a warp of one value per path (every lane of a group
-// holds it), in a fixed order; the sum is valid in lane 0.
+// Sum over the 32 paths of a warp of one value per path, in a fixed order;
+// the sum is valid in lane 0.
 __device__ __forceinline__ double warp_path_sum(double v) {
 #pragma unroll
-  for (int off = 16; off >= LMM_G; off >>= 1) {
+  for (int off = 16; off >= 1; off >>= 1) {
     v += __shfl_down_sync(kFull, v, off);
   }
   return v;
 }
 
-// Copies `bytes` (a multiple of 16, both addresses 16-byte aligned) from
-// global to shared memory with bulk asynchronous copies (TMA) completed on
-// the mbarrier `bar`; every thread of the block returns once they landed.
+// Copies `bytes` (a multiple of 16, both addresses 16-byte aligned, which
+// the launchers check) from global to shared memory with bulk asynchronous
+// copies (TMA) completed on the mbarrier `bar`; every thread of the block
+// returns once they landed.
 __device__ __forceinline__ void stage(float* dst, const float* src,
                                       unsigned bytes, uint64_t* bar) {
   constexpr unsigned kChunk = 16384;
@@ -186,6 +142,13 @@ __device__ __forceinline__ void stage(float* dst, const float* src,
         : "r"(bar_addr)
         : "memory");
   }
+}
+
+// Whether a packed parameter table of `width` floats a set can be staged:
+// the table 16-byte aligned and every set a whole number of 16-byte chunks
+// (cp.async.bulk's requirement on addresses and sizes).
+__host__ inline bool stageable(const float* packed, int width) {
+  return reinterpret_cast<uintptr_t>(packed) % 16 == 0 && width % 4 == 0;
 }
 
 // Shared memory of a block: the mbarrier, the per-warp path sums [kWarps][R]

@@ -1,27 +1,26 @@
 """What the two LMM products kernels' wrappers (``lmm_kernel``,
 ``lmm_stochvol_kernel``) share: input checks, the per-step product tables,
-the lane group that carries a path (``lane_group``), the parameter sets
+the instantiation a launch runs (``sweep_variant``), the parameter sets
 packed as the kernels stage them (``pack_parameter_sets``), and the
 kernels' running sums in their own order of float32 additions, which the
-plain versions take (``group_running_sums``, ``group_bond_prefix``).
+plain versions take (``running_sums``, ``bond_prefix``).
 
 A product is ``(exercise index, periods, strike)``; the products are
 grouped by ascending exercise index, the engine's order.
 
-The kernels (``csrc/lmm_sweep.cuh``) give each path a group of ``G``
-lanes; lane ``g`` owns the libors ``r * G + g``, ``r < K = ceil(n / G)``.
-A running sum over the libors is taken row after row: within row ``r``
-(libors ``r * G .. r * G + G - 1``) a butterfly over the ``G`` lanes, in
-which a lane adds the total of the partner segment below it to its own
-prefix in rounds of 1, 2, 4 lanes; across rows a carry that starts at the
-identity and takes each row's total. ``G = 1`` is the one-thread-a-path
-sequential order.
+The kernels (``csrc/lmm_sweep.cuh``) carry one path a thread, its forward
+curve in registers, and take every running sum over the libors one
+addition after another from 0, in float32. ``torch.cumsum`` is not that
+order on the CPU, where it accumulates float32 in float64; the helpers here
+are. Where ``nvcc`` fuses a multiply and the add after it into one FMA the
+kernel rounds once and the plain version twice, so the two agree to
+rounding, not bit for bit.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Callable, NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -89,57 +88,37 @@ def product_tables(products: Tuple[Product, ...],
 
 
 # ---------------------------------------------------------------------------
-# lane groups, packed parameter sets, and the kernels' order of additions
+# the instantiation, packed parameter sets, and the kernels' order of sums
 # ---------------------------------------------------------------------------
 
-MAX_LIBORS = 128              # K * G <= 128 in csrc/lmm_sweep.cuh
-THREADS = 256                 # threads a block (kThreads)
+MAX_LIBORS = 128              # LMM_K <= 128 in csrc/lmm_sweep.cuh
+THREADS = 256                 # threads (paths) a block (kThreads)
 
 
-def lane_group(num_libors: int, batch: int, num_paths: int) -> int:
-    """The lanes ``G`` that carry one path in a launch of ``batch``
-    parameter sets over ``num_paths`` paths of ``num_libors`` libors (the
-    kernels' wrappers and their plain versions both take it, so both sum
-    in one order). Measured on an H100 (``tools/compare_products_kernels.py``,
-    ``PERF.md``): one lane a path is fastest unless a lane's share of the
-    curve would pass 40 libors in a launch that does not fill the card
-    several times over (then 2 lanes, which halve the registers a thread
-    holds); 4 and 8 lanes lose to the scans' shuffles."""
-    if num_libors > 40 and batch * num_paths <= (1 << 20):
-        return 2
-    return 1
-
-
-#: the lane groups ``lane_group`` picks from
-LANE_GROUPS = (1, 2)
-
-
-def row_chunk(G: int, num_factors: int) -> int:
+def row_chunk(num_factors: int) -> int:
     """Rows of the drift sweep that a kernel computes between two checks
     for dead rows (``LMM_R``): no branch splits a chunk, so its rows'
-    independent work overlaps. Measured on an H100 (``PERF.md``): 8 rows
-    for one lane a path at one factor, 4 otherwise."""
-    return 8 if G == 1 and num_factors == 1 else 4
+    independent work overlaps. Measured on an H100 (``PERF.md``, PR 5):
+    8 rows at one factor, 4 above."""
+    return 8 if num_factors == 1 else 4
 
 
-def sweep_variant(num_libors: int, num_factors: int, G: int):
-    """``(G, K, F, R)``: the instantiation of a products kernel that a
-    lane group of ``G`` lanes runs at this shape."""
-    return (G, lanes_per_libor_row(num_libors, G)[0], int(num_factors),
-            row_chunk(G, int(num_factors)))
+def sweep_variant(num_libors: int, num_factors: int):
+    """``(K, F, R)``: the instantiation of a products kernel for a curve of
+    ``K = num_libors`` libors and ``F`` factors."""
+    return (int(num_libors), int(num_factors), row_chunk(int(num_factors)))
 
 
-def sweep_defines(G: int, K: int, F: int, R: int):
-    """The ``nvcc`` defines of the ``(G, K, F, R)`` instantiation of a
+def sweep_defines(K: int, F: int, R: int):
+    """The ``nvcc`` defines of the ``(K, F, R)`` instantiation of a
     products kernel."""
-    return (("LMM_G", G), ("LMM_K", K), ("LMM_F", F), ("LMM_R", R))
+    return (("LMM_K", K), ("LMM_F", F), ("LMM_R", R))
 
 
-def lanes_per_libor_row(num_libors: int, G: int) -> Tuple[int, int]:
-    """``(K, NP)``: libors a lane (``ceil(n / G)``) and the padded libor
-    count of the packed tables (``K * G`` rounded up to 4)."""
-    K = -(-num_libors // G)
-    return K, -(-(K * G) // 4) * 4
+def padded_libors(num_libors: int) -> int:
+    """``NP``: the libor count of the packed tables, rounded up to 4
+    (``kNP``)."""
+    return -(-num_libors // 4) * 4
 
 
 def loading_layout(num_factors: int) -> Tuple[int, int]:
@@ -151,15 +130,17 @@ def loading_layout(num_factors: int) -> Tuple[int, int]:
 
 
 def pack_parameter_sets(volT_b, scal_b, columns: Sequence[torch.Tensor], *,
-                        num_factors: int, G: int) -> torch.Tensor:
+                        num_factors: int) -> torch.Tensor:
     """``[B, W]`` float32, one parameter set a row, as a kernel block stages
     it: the 8 scalars, the per-libor ``columns`` (each ``[B, n]`` or
     ``[n]``) interleaved ``[NP][Q]``, then the loadings step-major
-    ``[S][C][NP][V]``; padding is zero."""
+    ``[S][C][NP][V]``; padding is zero. A fresh contiguous tensor, so the
+    table is 16-byte aligned, and ``W`` is a multiple of 4 floats (``NP``
+    is): every set a whole number of the bulk copies' 16-byte chunks."""
     B, rows, S = volT_b.shape
     F = num_factors
     n = rows // F
-    _, NP = lanes_per_libor_row(n, G)
+    NP = padded_libors(n)
     C, V = loading_layout(F)
     vol = nnf.pad(volT_b.view(B, F, n, S), (0, 0, 0, NP - n, 0, C * V - F))
     vol = vol.view(B, C, V, NP, S).permute(0, 4, 1, 3, 2)
@@ -169,66 +150,32 @@ def pack_parameter_sets(volT_b, scal_b, columns: Sequence[torch.Tensor], *,
                      dim=1).contiguous()
 
 
-def group_scan(x: Tuple[torch.Tensor, ...], combine: Callable, G: int):
-    """``(pre, tot)`` of the butterfly over the last-but-one axis (size
-    ``G``, a row's lanes) of the tuple of tensors ``x``, combined by
-    ``combine(lo, hi)``: each lane's inclusive prefix and the row's total,
-    in the kernels' order (``group_scan`` and ``group_scan_bond`` in
-    ``csrc/lmm_sweep.cuh``)."""
-    pre, tot = x, x
-    lanes = torch.arange(G, device=x[0].device)
-    off = 1
-    while off < G:
-        partner = tuple(t.index_select(-2, lanes ^ off) for t in tot)
-        upper = ((lanes & off) != 0).view(G, 1)
-        pre = tuple(torch.where(upper, a, p)
-                    for a, p in zip(combine(partner, pre), pre))
-        tot = tuple(torch.where(upper, a, b) for a, b in zip(
-            combine(partner, tot), combine(tot, partner)))
-        off <<= 1
-    return pre, tot
+def running_sums(c: torch.Tensor, first: int = 0) -> torch.Tensor:
+    """Inclusive running sums of ``c`` ``[..., n, paths]`` along the
+    libors, one addition after another in ``c``'s type from 0 at libor
+    ``first`` (the kernels' order); the libors before ``first`` (dead,
+    skipped by the kernels) come out 0."""
+    out = torch.zeros_like(c)
+    acc = torch.zeros_like(c[..., 0, :])
+    for i in range(first, c.shape[-2]):
+        acc = acc + c[..., i, :]
+        out[..., i, :] = acc
+    return out
 
 
-def _add(lo, hi):
-    return (lo[0] + hi[0],)
-
-
-def compose_bonds(lo, hi):
-    """Two spans of periods' (bond product, annuity) composed, lower span
-    first: ``(c1 c2, a1 + c1 a2)``."""
-    return lo[0] * hi[0], lo[1] + lo[0] * hi[1]
-
-
-def group_running_sums(c: torch.Tensor, G: int, first_row: int = 0):
-    """Inclusive running sums of ``c`` ``[..., K * G, paths]`` along the
-    libors in the kernels' order: per row the butterfly, across rows a
-    carry from 0. Rows before ``first_row`` (all dead, skipped by the
-    kernels) come out 0."""
-    x = c.unflatten(-2, (-1, G))                          # [..., K, G, paths]
-    (pre,), (tot,) = group_scan((x,), _add, G)
-    out = torch.zeros_like(x)
-    carry = torch.zeros_like(x[..., 0, :1, :])
-    for r in range(first_row, x.shape[-3]):
-        out[..., r, :, :] = carry + pre[..., r, :, :]
-        carry = carry + tot[..., r, :1, :]
-    return out.flatten(-3, -2)
-
-
-def group_bond_prefix(c: torch.Tensor, a: torch.Tensor, G: int,
-                      first: int, last: int):
-    """Running (bond product, annuity) pairs of the periods ``(c, a)``
-    ``[..., K * G, paths]`` from period ``first`` on, in the kernels'
-    order, valid at the periods ``first .. last`` (the pairs outside must
-    be the identity ``(1, 0)``): the rows from ``first // G`` to
-    ``last // G``, per row the butterfly, across rows a carry from the
-    identity."""
-    xc, xa = c.unflatten(-2, (-1, G)), a.unflatten(-2, (-1, G))
-    pc, pa = torch.ones_like(xc), torch.zeros_like(xa)
-    (rc, ra), (tc, ta) = group_scan((xc, xa), compose_bonds, G)
-    carry = (torch.ones_like(xc[..., 0, :1, :]),
-             torch.zeros_like(xa[..., 0, :1, :]))
-    for r in range(first // G, last // G + 1):
-        pc[..., r, :, :], pa[..., r, :, :] = compose_bonds(
-            carry, (rc[..., r, :, :], ra[..., r, :, :]))
-        carry = compose_bonds(carry, (tc[..., r, :1, :], ta[..., r, :1, :]))
-    return pc.flatten(-3, -2), pa.flatten(-3, -2)
+def bond_prefix(L: torch.Tensor, d: torch.Tensor, first: int, last: int):
+    """The running bond product and annuity of the forward curve ``L``
+    ``[..., n, paths]`` with period lengths ``d`` (``[n, 1]``, or
+    broadcasting with ``L``), from period ``first`` on, one period after
+    another as the kernels take them: ``cp = cp * (1 / (1 + d L))``, ``ann
+    = ann + cp * d``. Valid at the periods ``first .. last`` (1 and 0
+    elsewhere)."""
+    cp_out, ann_out = torch.ones_like(L), torch.zeros_like(L)
+    cp = torch.ones_like(L[..., 0, :])
+    ann = torch.zeros_like(cp)
+    for i in range(first, last + 1):
+        di = d[..., i, :]
+        cp = cp * (1.0 / (1.0 + di * L[..., i, :]))
+        ann = ann + cp * di
+        cp_out[..., i, :], ann_out[..., i, :] = cp, ann
+    return cp_out, ann_out

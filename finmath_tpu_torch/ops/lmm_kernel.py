@@ -27,13 +27,11 @@ Inputs keep the engine's layout:
   by exercise index in ascending order; ``events``: the ascending exercise
   indices, exactly those of the products.
 
-A launch carries each path on a lane group of ``G`` lanes that
-``_products.lane_group`` picks from the shape; the wrapper packs the
-parameter sets as a block stages them (``_packed``) and launches the
-``(G, K, F, R)`` instantiation of the source, built by ``nvcc`` at first use
-(``_products.sweep_variant``). ``run`` and ``prepare`` launch with a given
-``G``. The plain version sums in the kernel's order for the same ``G``
-(``sweep_payoffs``; ``G = 1`` is one thread a path).
+A launch carries one path a thread; the wrapper packs the parameter sets
+as a block stages them (``_packed``) and launches the ``(K, F, R)``
+instantiation of the source for the shape, built by ``nvcc`` at first use
+(``_products.sweep_variant``). The plain version takes the kernel's running
+sums in its order (``_products.running_sums``, ``bond_prefix``).
 
 The single-swaption pricer of the same model at one factor, counterpart of
 ``lmm_swaption_kernel`` and ``lmm_swaption_kernel_with_normals`` (the
@@ -55,15 +53,14 @@ from typing import Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as nnf
 
 from ..utils.config import select_device
 from . import _cuda_build
 from . import _swaption_paths as sp
-from ._products import (MAX_LIBORS, THREADS, Product, check_products,
-                        check_tensor, group_bond_prefix, group_running_sums,
-                        lane_group, lanes_per_libor_row, pack_parameter_sets,
-                        product_tables, sweep_defines, sweep_variant)
+from ._products import (MAX_LIBORS, THREADS, Product, bond_prefix,
+                        check_products, check_tensor, pack_parameter_sets,
+                        product_tables, running_sums, sweep_defines,
+                        sweep_variant)
 from .kernels import _check_seed, normal_pairs
 
 SOURCE = "lmm_atm_products.cu"
@@ -75,8 +72,8 @@ LAUNCHES = 0
 
 
 @functools.cache
-def _library(G: int, K: int, F: int, R: int) -> ctypes.CDLL:
-    lib = _cuda_build.load(SOURCE, sweep_defines(G, K, F, R))
+def _library(K: int, F: int, R: int) -> ctypes.CDLL:
+    lib = _cuda_build.load(SOURCE, sweep_defines(K, F, R))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.lmm_atm_products_launch.argtypes = (
         [ptr, ctypes.c_longlong, ptr, i32] + [ptr] * 6 + [i32] * 7 + [ptr])
@@ -85,14 +82,14 @@ def _library(G: int, K: int, F: int, R: int) -> ctypes.CDLL:
     lib.lmm_atm_products_error_string.restype = ctypes.c_char_p
     lib.lmm_atm_products_variant.argtypes = [i32]
     lib.lmm_atm_products_variant.restype = i32
-    if [lib.lmm_atm_products_variant(j) for j in range(4)] != [G, K, F, R]:
+    if [lib.lmm_atm_products_variant(j) for j in range(3)] != [K, F, R]:
         raise RuntimeError(f"{SOURCE}: the library is not the instantiation "
-                           f"G={G}, K={K}, F={F}, R={R}")
+                           f"K={K}, F={F}, R={R}")
     return lib
 
 
-def load_kernel(*variants: Tuple[int, int, int, int]) -> None:
-    """Build and load the kernel's library for each ``(G, K, F, R)`` of
+def load_kernel(*variants: Tuple[int, int, int]) -> None:
+    """Build and load the kernel's library for each ``(K, F, R)`` of
     ``variants`` (``_products.sweep_variant``; first use only)."""
     for v in variants:
         _library(*v)
@@ -117,10 +114,10 @@ def _step_events(events: Tuple[int, ...], device: torch.device) -> torch.Tensor:
     return torch.from_numpy(step_event).to(device)
 
 
-def _packed(volT_b, scal_b, initial_forwards, deltas, F, G):
+def _packed(volT_b, scal_b, initial_forwards, deltas, F):
     """The parameter sets as a block stages them: per libor (L0, delta)."""
     return pack_parameter_sets(volT_b, scal_b, (initial_forwards, deltas),
-                               num_factors=F, G=G)
+                               num_factors=F)
 
 
 def lmm_atm_swaptions_batch(z, volT_b, scal_b, initial_forwards, deltas, *,
@@ -155,41 +152,30 @@ def lmm_atm_swaptions_batch(z, volT_b, scal_b, initial_forwards, deltas, *,
         raise ValueError(f"num_factors={F}, num_libors={n} outside the "
                          f"kernel's 1..{MAX_FACTORS} factors and "
                          f"{MAX_LIBORS} libors")
-    return run(z, volT_b, scal_b, initial_forwards, deltas, num_libors=n,
-               num_factors=F, products=products, events=events,
-               displaced=displaced, num_paths=num_paths,
-               G=lane_group(n, B, num_paths))
-
-
-def run(z, volT_b, scal_b, initial_forwards, deltas, *, num_libors: int,
-        num_factors: int, products: Sequence[Product], events: Sequence[int],
-        displaced: bool, num_paths: int, G: int) -> torch.Tensor:
-    """The kernel's float64 path sums ``[B, P + E]`` with a lane group of
-    ``G`` lanes on checked CUDA inputs."""
     go, partials = prepare(
-        z, volT_b, scal_b, initial_forwards, deltas, num_libors=num_libors,
-        num_factors=num_factors, products=products, events=events,
-        displaced=displaced, num_paths=num_paths, G=G)
+        z, volT_b, scal_b, initial_forwards, deltas, num_libors=n,
+        num_factors=F, products=products, events=events, displaced=displaced,
+        num_paths=num_paths)
     go()
     return partials.sum(dim=1)
 
 
 def prepare(z, volT_b, scal_b, initial_forwards, deltas, *, num_libors: int,
             num_factors: int, products: Sequence[Product],
-            events: Sequence[int], displaced: bool, num_paths: int, G: int):
+            events: Sequence[int], displaced: bool, num_paths: int):
     """Pack the parameter sets and allocate the partials ``[B, tiles, P +
-    E]`` of a launch with a lane group of ``G`` lanes; returns ``(go,
-    partials)``, ``go()`` enqueuing the launch alone."""
+    E]`` of a launch; returns ``(go, partials)``, ``go()`` enqueuing the
+    launch alone."""
     n, F = num_libors, num_factors
     B, device = volT_b.shape[0], z.device
     products, events = tuple(products), tuple(events)
-    packed = _packed(volT_b, scal_b, initial_forwards, deltas, F, G)
+    packed = _packed(volT_b, scal_b, initial_forwards, deltas, F)
     tables = product_tables(products, device)
     step_event = _step_events(events, device)
-    tiles = -(-num_paths // (THREADS // G))
+    tiles = -(-num_paths // THREADS)
     partials = torch.empty((B, tiles, len(products) + len(events)),
                            dtype=torch.float64, device=device)
-    variant = sweep_variant(n, F, G)
+    variant = sweep_variant(n, F)
 
     def go():
         launch(z, packed, tables, step_event, partials, n=n,
@@ -201,12 +187,13 @@ def prepare(z, volT_b, scal_b, initial_forwards, deltas, *, num_libors: int,
 
 def launch(z, packed, tables, step_event, partials, *, n: int, S: int,
            num_paths: int, displaced: bool,
-           variant: Tuple[int, int, int, int]) -> None:
+           variant: Tuple[int, int, int]) -> None:
     """One launch of the instantiation ``variant`` on packed parameter sets
     (``_packed``) into ``partials`` ``[B, tiles, P + E]``, on the current
     stream; raises if it fails (a table or row count that needs more
-    shared memory than a block may have fails here too). Counted in
-    ``LAUNCHES``."""
+    shared memory than a block may have, or a ``packed`` that is not
+    16-byte aligned with a width a multiple of 4 floats, fails here too).
+    Counted in ``LAUNCHES``."""
     global LAUNCHES
     lib = _library(*variant)
     B, width = packed.shape
@@ -235,31 +222,14 @@ def lmm_atm_swaptions_batch_reference(z, volT_b, scal_b, initial_forwards,
                                       num_paths: int) -> torch.Tensor:
     """Plain PyTorch version of the kernel on any device: a Python loop over
     steps, vectorised over ``[B, libors, paths]``, with the kernel's float32
-    arithmetic and its order of additions (the lane group of
-    ``lane_group``: ``group_running_sums``, ``group_bond_prefix``) and a
-    float64 path sum."""
-    return sweep_payoffs(
-        z, volT_b, scal_b, initial_forwards, deltas,
-        num_libors=int(num_libors), num_factors=int(num_factors),
-        products=products, events=events, displaced=displaced,
-        num_paths=num_paths,
-        G=lane_group(int(num_libors), volT_b.shape[0], num_paths))
-
-
-def sweep_payoffs(z, volT_b, scal_b, initial_forwards, deltas, *,
-                  num_libors: int, num_factors: int,
-                  products: Sequence[Product], events: Sequence[int],
-                  displaced: bool, num_paths: int, G: int) -> torch.Tensor:
-    """The plain version's float64 path sums ``[B, P + E]`` with the running
-    sums of a lane group of ``G`` lanes (``G = 1``: one thread a path)."""
-    n, F = num_libors, num_factors
+    arithmetic and its order of additions (``running_sums``,
+    ``bond_prefix``) and a float64 path sum."""
+    n, F = int(num_libors), int(num_factors)
     products = tuple((int(e), int(m), float(k)) for e, m, k in products)
     events = tuple(int(e) for e in events)
     S = _check_layout(products, events, n)
     B = volT_b.shape[0]
     z = z[:, :num_paths]
-    K, _ = lanes_per_libor_row(n, G)
-    NP = K * G
     by_step = {}
     for k, (e, m, strike) in enumerate(products):
         by_step.setdefault(e, []).append((k, m, strike))
@@ -267,12 +237,10 @@ def sweep_payoffs(z, volT_b, scal_b, initial_forwards, deltas, *,
     dt = scal_b[:, 0, None, None]
     sqrt_dt = scal_b[:, 1, None, None]
     disp = scal_b[:, 2, None, None]
-    pad = (0, NP - n)
-    d = nnf.pad(deltas, pad)[None, :, None]                    # [1, NP, 1]
-    vol = nnf.pad(volT_b.view(B, F, n, S), (0, 0) + pad)       # [B, F, NP, S]
-    libor = torch.arange(NP, device=z.device)[:, None]
+    d = deltas[None, :, None]                                   # [1, n, 1]
+    libor = torch.arange(n, device=z.device)[:, None]
 
-    L = nnf.pad(initial_forwards, pad)[None, :, None].expand(B, NP, num_paths)
+    L = initial_forwards[None, :, None].expand(B, n, num_paths)
     N = torch.ones((B, num_paths), dtype=torch.float32, device=z.device)
     rows = [None] * (len(products) + len(events))
     P = len(products)
@@ -281,10 +249,7 @@ def sweep_payoffs(z, volT_b, scal_b, initial_forwards, deltas, *,
             inv_n = 1.0 / N
             rows[P + ev_of_step[s]] = inv_n
             last = s + max(m for _, m, _ in by_step[s]) - 1
-            span = (libor >= s) & (libor <= last)
-            c = torch.where(span, 1.0 / (1.0 + d * L), 1.0)
-            a = torch.where(span, c * d, 0.0)
-            cp, ann = group_bond_prefix(c, a, G, s, last)
+            cp, ann = bond_prefix(L, d, s, last)
             for k, m, strike in by_step[s]:
                 payoff = torch.clamp_min(
                     1.0 - cp[:, s + m - 1] - float(np.float32(strike))
@@ -293,14 +258,14 @@ def sweep_payoffs(z, volT_b, scal_b, initial_forwards, deltas, *,
         if s == S:
             break
         N = N * (1.0 + deltas[s] * L[:, s])
-        alive = (libor > s) & (libor < n)
+        alive = libor > s
         mt = torch.where(alive, d / (1.0 + d * L), 0.0)
         mu = torch.zeros_like(L)
         diffusion = torch.zeros_like(L)
         for f in range(F):
-            base = vol[:, f, :, s, None]                           # [B, NP, 1]
+            base = volT_b[:, f * n:(f + 1) * n, s, None]          # [B, n, 1]
             lam = base * (L + disp) if displaced else base
-            run = group_running_sums(mt * lam, G, (s + 1) // G)
+            run = running_sums(mt * lam, s + 1)
             mu = mu + lam * run
             diffusion = diffusion + lam * (sqrt_dt * z[s * F + f])
         L = torch.where(alive, torch.clamp(L + mu * dt + diffusion, -1e3, 1e3),

@@ -11,12 +11,12 @@ rtol 1e-5, atol 1e-7 * paths — both sides simulate in float32, but the
 spot drift's prefix sum runs in another order (sequential here,
 Hillis-Steele there) and the Pallas kernel sums lanes in float32.
 
-The plain version takes its running sums in the kernel's order: per row of
-G libors a butterfly over the lane group, across rows a carry
-(``ops/_products.py``). Two tests hold that order: bit for bit against a
-float32 sum taken one addition at a time (13 libors, so no G divides
-them, F = 1 and 2, B = 3, DISPLACED, 37 paths), and against the
-one-thread-a-path sequential order (G = 1) within the bound above.
+The plain version takes its running sums in the kernel's order, one
+float32 addition after another (``ops/_products.py``). Two tests hold that
+order (13 libors, so no row chunk divides them, F = 1 and 2, B = 3,
+DISPLACED, 37 paths): bit for bit against a float32 sum taken one addition
+at a time, and against the earlier ``torch.cumsum`` / ``torch.cumprod``
+order within the bound above.
 
 The ``gpu`` tests need a card and no JAX; on a machine with the card:
 ``python -m pytest tests/test_torch_lmm_kernel.py -m gpu --noconftest``."""
@@ -27,9 +27,9 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from finmath_tpu_torch.ops import _products, lmm_kernel  # noqa: E402
-from test_torch_lane_order import (GROUPS,  # noqa: E402
-                                  assert_kernel_order, recording)
+from finmath_tpu_torch.ops import lmm_kernel  # noqa: E402
+from test_torch_sum_order import (assert_kernel_order,  # noqa: E402
+                                  cumsum_order, recording)
 
 N_LIBORS, FACTORS, PATHS, B = 12, 2, 250, 3
 PRODUCTS = ((2, 4, 0.021), (4, 4, 0.0195), (6, 4, 0.022), (6, 6, 0.0205))
@@ -131,7 +131,7 @@ ODD_EVENTS = (1, 3, 7)
 
 
 def _odd_inputs(F, displaced, B_=B, seed=41):
-    """Seeded inputs at 13 libors (no lane group divides them)."""
+    """Seeded inputs at 13 libors (no row chunk divides them)."""
     rng = np.random.default_rng(seed)
     S_ = ODD_PRODUCTS[-1][0]
     z = rng.standard_normal((S_ * F, ODD_PATHS)).astype(np.float32)
@@ -151,41 +151,33 @@ def _odd_inputs(F, displaced, B_=B, seed=41):
 
 @pytest.mark.parametrize("F,displaced", [(1, False), (2, True)])
 def test_plain_running_sums_follow_kernel_order(F, displaced):
-    """Every running sum of the plain version, at each lane group, equals a
-    float32 sum taken one addition at a time in the kernel's order."""
+    """Every running sum of the plain version, through the wrapper, equals
+    a float32 sum taken one addition at a time in the kernel's order."""
     args, kw = _odd_inputs(F, displaced)
-    G0 = _products.lane_group(ODD_N, B, ODD_PATHS)
     with recording(lmm_kernel) as calls:
-        default = lmm_kernel.lmm_atm_swaptions_batch(*args, **kw)
-    assert {g for _, g, _, _ in calls} == {G0}
-    for G in GROUPS:
-        with recording(lmm_kernel) as calls:
-            got = lmm_kernel.sweep_payoffs(*args, **kw, G=G)
-        if G == G0:
-            assert torch.equal(got, default)
-        assert_kernel_order(calls, G)
+        lmm_kernel.lmm_atm_swaptions_batch(*args, **kw)
+    assert_kernel_order(calls)
 
 
 @pytest.mark.parametrize("F,displaced", [(1, False), (2, True)])
-def test_plain_version_matches_sequential_order(F, displaced):
-    """Each lane group's order of additions against one thread a path
-    (G = 1, the parent kernel's sequential order), within the kernel-vs-
-    plain bound."""
+def test_plain_version_matches_cumsum_order(F, displaced):
+    """The kernel's order of additions against the earlier plain version's
+    ``cumsum`` / ``cumprod`` order, within the kernel-vs-plain bound."""
     args, kw = _odd_inputs(F, displaced)
-    seq = lmm_kernel.sweep_payoffs(*args, **kw, G=1).numpy()
-    assert np.all(np.isfinite(seq))
-    for G in GROUPS[1:]:
-        np.testing.assert_allclose(
-            lmm_kernel.sweep_payoffs(*args, **kw, G=G).numpy(), seq,
-            rtol=RTOL, atol=1e-7 * ODD_PATHS)
+    got = lmm_kernel.lmm_atm_swaptions_batch_reference(*args, **kw).numpy()
+    with cumsum_order(lmm_kernel):
+        ref = lmm_kernel.lmm_atm_swaptions_batch_reference(*args,
+                                                           **kw).numpy()
+    assert np.all(np.isfinite(got)) and not np.array_equal(got, ref)
+    np.testing.assert_allclose(got, ref, rtol=RTOL, atol=1e-7 * ODD_PATHS)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("displaced", [False, True])
 def test_cuda_kernel_matches_plain_version(displaced):
-    """Through the wrapper, and at every lane group at 13 libors (a partial
-    group) and the FD batch B = 87, each against the plain version in the
-    same order; a second launch is bitwise equal."""
+    """Through the wrapper, and at 13 libors (a partial row chunk) at B = 3
+    and at the FD batch B = 87, each against the plain version; a second
+    launch is bitwise equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     cuda = [torch.from_numpy(a).cuda() for a in _inputs(displaced)]
@@ -202,12 +194,12 @@ def test_cuda_kernel_matches_plain_version(displaced):
     for batch in (B, 87):
         args, kw = _odd_inputs(1 if displaced else 2, displaced, B_=batch)
         args = [a.cuda() for a in args]
-        for G in GROUPS:
-            got = lmm_kernel.run(*args, **kw, G=G)
-            assert torch.equal(got, lmm_kernel.run(*args, **kw, G=G))
-            ref = lmm_kernel.sweep_payoffs(*args, **kw, G=G)
-            np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
-                                       rtol=RTOL, atol=1e-7 * ODD_PATHS)
+        got = lmm_kernel.lmm_atm_swaptions_batch(*args, **kw)
+        assert torch.equal(got, lmm_kernel.lmm_atm_swaptions_batch(*args,
+                                                                   **kw))
+        ref = lmm_kernel.lmm_atm_swaptions_batch_reference(*args, **kw)
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                                   rtol=RTOL, atol=1e-7 * ODD_PATHS)
 
 
 @pytest.mark.gpu

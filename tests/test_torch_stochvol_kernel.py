@@ -14,12 +14,12 @@ on every row's path sum: rtol 1e-5, atol 1e-7 * paths — both sides
 simulate in float32, but the spot drift's prefix sum runs in another order
 (sequential here, Hillis-Steele there).
 
-The plain version takes its running sums in the kernel's order: per row of
-G libors a butterfly over the lane group, across rows a carry
-(``ops/_products.py``). Two tests hold that order: bit for bit against a
-float32 sum taken one addition at a time (11 libors, so no G > 1 divides
-them, F = 1 and 5, B = 3, 37 paths), and against the one-thread-a-path
-sequential order (G = 1) within the bound above.
+The plain version takes its running sums in the kernel's order, one
+float32 addition after another (``ops/_products.py``). Two tests hold that
+order (11 libors, so no row chunk divides them, F = 1 and 5, B = 3, 37
+paths): bit for bit against a float32 sum taken one addition at a time,
+and against the earlier ``torch.cumsum`` / ``torch.cumprod`` order within
+the bound above.
 
 The ``gpu`` tests need a card and no JAX; on a machine with the card:
 ``python -m pytest tests/test_torch_stochvol_kernel.py -m gpu --noconftest``."""
@@ -30,10 +30,9 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from finmath_tpu_torch.ops import _products  # noqa: E402
 from finmath_tpu_torch.ops import lmm_stochvol_kernel as svk  # noqa: E402
-from test_torch_lane_order import (GROUPS,  # noqa: E402
-                                   assert_kernel_order, recording)
+from test_torch_sum_order import (assert_kernel_order,  # noqa: E402
+                                  cumsum_order, recording)
 
 N_LIBORS, FACTORS, PATHS, B, S = 8, 2, 250, 3, 4
 PRODUCTS = ((2, 4, 0.021), (3, 3, 0.0205), (4, 2, 0.025), (4, 4, 0.018))
@@ -138,7 +137,7 @@ ODD_PRODUCTS = ((1, 4, 0.021), (3, 8, 0.02), (3, 3, 0.0205), (6, 5, 0.024),
 
 
 def _odd_inputs(F, B_=B, seed=43):
-    """Seeded inputs at 11 libors (no lane group but one divides them),
+    """Seeded inputs at 11 libors (no row chunk divides them),
     parameter sets from benign to a curated-basin-like one."""
     rng = np.random.default_rng(seed)
     S_ = ODD_PRODUCTS[-1][0]
@@ -159,39 +158,32 @@ def _odd_inputs(F, B_=B, seed=43):
 
 @pytest.mark.parametrize("F", [1, 5])
 def test_plain_running_sums_follow_kernel_order(F):
-    """Every running sum of the plain version, at each lane group, equals a
-    float32 sum taken one addition at a time in the kernel's order."""
+    """Every running sum of the plain version, through the wrapper, equals
+    a float32 sum taken one addition at a time in the kernel's order."""
     args, kw = _odd_inputs(F)
-    G0 = _products.lane_group(ODD_N, B, ODD_PATHS)
     with recording(svk) as calls:
-        default = svk.lmm_stochvol_swaptions_batch(*args, **kw)
-    assert {g for _, g, _, _ in calls} == {G0}
-    for G in GROUPS:
-        with recording(svk) as calls:
-            got = svk.sweep_payoffs(*args, **kw, G=G)
-        if G == G0:
-            assert torch.equal(got, default)
-        assert_kernel_order(calls, G)
+        svk.lmm_stochvol_swaptions_batch(*args, **kw)
+    assert_kernel_order(calls)
 
 
 @pytest.mark.parametrize("F", [1, 5])
-def test_plain_version_matches_sequential_order(F):
-    """Each lane group's order of additions against one thread a path
-    (G = 1, the parent kernel's sequential order), within the kernel-vs-
-    plain bound."""
+def test_plain_version_matches_cumsum_order(F):
+    """The kernel's order of additions against the earlier plain version's
+    ``cumsum`` / ``cumprod`` order, within the kernel-vs-plain bound."""
     args, kw = _odd_inputs(F)
-    seq = svk.sweep_payoffs(*args, **kw, G=1).numpy()
-    assert np.all(np.isfinite(seq)) and np.all(seq > 0)
-    for G in GROUPS[1:]:
-        np.testing.assert_allclose(svk.sweep_payoffs(*args, **kw, G=G).numpy(),
-                                   seq, rtol=RTOL, atol=1e-7 * ODD_PATHS)
+    got = svk.lmm_stochvol_swaptions_batch_reference(*args, **kw).numpy()
+    with cumsum_order(svk):
+        ref = svk.lmm_stochvol_swaptions_batch_reference(*args, **kw).numpy()
+    assert np.all(np.isfinite(got)) and np.all(got > 0)
+    assert not np.array_equal(got, ref)
+    np.testing.assert_allclose(got, ref, rtol=RTOL, atol=1e-7 * ODD_PATHS)
 
 
 @pytest.mark.gpu
 def test_cuda_kernel_matches_plain_version():
-    """Through the wrapper, and at every lane group at 11 libors (a partial
-    group), F = 1 and 5 and the FD batch B = 17, each against the plain
-    version in the same order; a second launch is bitwise equal."""
+    """Through the wrapper, and at 11 libors (a partial row chunk) with
+    F = 1 and 5 at B = 3 and the FD batch B = 17, each against the plain
+    version; a second launch is bitwise equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     cuda = [torch.from_numpy(a).cuda() for a in _inputs()]
@@ -207,12 +199,11 @@ def test_cuda_kernel_matches_plain_version():
     for F, batch in ((1, B), (5, B), (5, 17)):
         args, kw = _odd_inputs(F, B_=batch)
         args = [a.cuda() for a in args]
-        for G in GROUPS:
-            got = svk.run(*args, **kw, G=G)
-            assert torch.equal(got, svk.run(*args, **kw, G=G))
-            ref = svk.sweep_payoffs(*args, **kw, G=G)
-            np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
-                                       rtol=RTOL, atol=1e-7 * ODD_PATHS)
+        got = svk.lmm_stochvol_swaptions_batch(*args, **kw)
+        assert torch.equal(got, svk.lmm_stochvol_swaptions_batch(*args, **kw))
+        ref = svk.lmm_stochvol_swaptions_batch_reference(*args, **kw)
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                                   rtol=RTOL, atol=1e-7 * ODD_PATHS)
 
 
 @pytest.mark.gpu

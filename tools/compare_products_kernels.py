@@ -1,20 +1,17 @@
 """Time the two LMM products kernels against the parent commit's on one card.
 
-    python3 tools/compare_products_kernels.py --parent DIR \
-        [--groups 1,2,4,8] [--chunks 1]
+    python3 tools/compare_products_kernels.py --parent DIR
 
 ``DIR`` holds the earlier ``lmm_atm_products.cu`` and
-``lmm_stochvol_products.cu`` (one thread a path, the curve in shared
-memory), e.g. ``git show <commit>:finmath_tpu_torch/csrc/<name>`` of each.
-The script builds them and the instantiations of the current sources for
-each lane group G of ``--groups`` and row chunk R of ``--chunks`` (rows of
-the drift sweep between two checks for dead rows) at the four launch
-shapes of the calibrations (ATM B=1 and B=87 at
-100,000 paths, stoch-vol B=1 and B=17 at 81,920 Mersenne paths), checks
-each new instantiation against its plain version (B=1) or the earlier kernel
-(the FD batches) within rtol 1e-5, atol 1e-7 * paths, with a bitwise repeat,
-and times the launch alone (median of 5, CUDA events, a spin kernel ahead)
-in turns: earlier, each (G, R), each in reverse, earlier. It prints, and writes
+``lmm_stochvol_products.cu`` (e.g. ``git show
+<commit>:finmath_tpu_torch/csrc/<name>`` of each). The script builds them
+and the instantiations of the current sources at the four launch shapes
+of the calibrations (ATM B=1 and B=87 at 100,000 paths, stoch-vol B=1 and
+B=17 at 81,920 Mersenne paths), the ones the wrappers launch. It checks
+each new kernel against its plain version (B=1) or the earlier kernel (the
+FD batches) within rtol 1e-5, atol 1e-7 * paths, with a bitwise repeat,
+and times the launch alone (median of 5, CUDA events, a spin kernel
+ahead) in turns: earlier, new, new, earlier. It prints, and writes
 to ``chiprun_out/compare_products.json``, the times, the share of the
 operations bound of ``chip_smoke.py``, ``ptxas``' registers and spills, and
 SASS counts from ``cuobjdump`` / ``nvdisasm``: for the earlier kernels the
@@ -50,8 +47,8 @@ from finmath_tpu_torch.models.lmm import (  # noqa: E402
 from finmath_tpu_torch.ops import (_cuda_build, lmm_kernel,  # noqa: E402
                                    lmm_stochvol_kernel)
 from finmath_tpu_torch.ops._products import (THREADS,  # noqa: E402
-                                             lanes_per_libor_row,
-                                             product_tables, sweep_defines)
+                                             product_tables, sweep_defines,
+                                             sweep_variant)
 
 OLD_TILE = 128
 
@@ -139,13 +136,10 @@ def _row_instructions(source: str, defines, out_dir: Path):
     drift = {(src.name, j) for j in _body_lines(
         cu, "for (int r = r0; r < r0 + kRows", "L[r] = clamp_keep_nan(")}
     drift |= {("lmm_sweep.cuh", j) for name in
-              ("group_scan", "load_loadings", "clamp_keep_nan")
+              ("load_loadings", "clamp_keep_nan")
               for j in _function_lines(cuh, name)}
     collect = {(src.name, j) for j in _body_lines(
-        cu, "for (int r = 0; r < K; ++r) {", "carry = compose(carry, tot);")}
-    collect |= {("lmm_sweep.cuh", j) for name in
-                ("group_scan_bond", "compose")
-                for j in _function_lines(cuh, name)}
+        cu, "for (int r = 0; r < K; ++r) {", "ann = ann + cp * d;")}
     K = dict(defines)["LMM_K"]
     # the compiler may emit the sweep more than once (a copy for each value
     # of a uniform flag, such as the ATM kernel's `displaced`): count the
@@ -209,13 +203,9 @@ def _old_loop_sizes(lib: Path):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True, type=Path)
-    ap.add_argument("--groups", default="1,2,4,8")
-    ap.add_argument("--chunks", default="1")
     ap.add_argument("--out", default=str(REPO / "chiprun_out" /
                                          "compare_products.json"))
     opts = ap.parse_args(argv)
-    variants = [(int(g), int(r)) for g in opts.groups.split(",")
-                for r in opts.chunks.split(",")]
     if not torch.cuda.is_available():
         raise SystemExit("compare_products_kernels: needs a CUDA device")
     smi = subprocess.run(
@@ -249,10 +239,9 @@ def main(argv=None) -> int:
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for sh in shapes:
-        n, F = sh["kwargs"]["num_libors"], sh["kwargs"]["num_factors"]
-        for G, R in variants:
-            K = lanes_per_libor_row(n, G)[0]
-            jobs[(sh["mod"].SOURCE, G, K, F, R)] = None
+        sh["variant"] = sweep_variant(sh["kwargs"]["num_libors"],
+                                      sh["kwargs"]["num_factors"])
+        jobs[(sh["mod"].SOURCE, *sh["variant"])] = None
     with ThreadPoolExecutor(os.cpu_count() or 4) as pool:
         old = dict(zip(("atm", "stochvol"), pool.map(
             lambda src: _build_old(opts.parent / src, out_dir),
@@ -319,83 +308,73 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         old_sums = old_partials.sum(dim=1)
 
-        runs = {"earlier": run_old}
-        rows = {}
-        for G, R in variants:
-            K = lanes_per_libor_row(n, G)[0]
-            packed = mod._packed(volT_b, scal_b, l0, deltas, F, G)
-            partials = torch.empty((B, -(-paths // (THREADS // G)), out_rows),
-                                   dtype=torch.float64, device="cuda")
-            if atm_kind:
-                def run_new(packed=packed, partials=partials, v=(G, K, F, R)):
-                    mod.launch(z, packed, tables, step_event, partials, n=n,
-                               S=S, num_paths=paths,
-                               displaced=kwargs["displaced"], variant=v)
-            else:
-                def run_new(packed=packed, partials=partials, v=(G, K, F, R)):
-                    mod.launch(z, packed, tables, partials, n=n, S=S,
-                               num_paths=paths, variant=v)
-            run_new()
-            got = partials.sum(dim=1)
-            run_new()
-            again = partials.sum(dim=1)
-            torch.cuda.synchronize()
-            if B == 1:
-                ref = mod.sweep_payoffs(*args, **kwargs, G=G)
-                against = "plain"
-            else:
-                ref, against = old_sums, "earlier kernel"
-            err = (got - ref).abs()
-            ok = bool(torch.isfinite(got).all()) and bool(
-                (err <= cs.RTOL * ref.abs() + cs.ATOL_PER_PATH * paths).all())
-            lib = jobs[(mod.SOURCE, G, K, F, R)]
-            log = Path(lib).with_suffix(".log").read_text()
-            rows[G, R] = {"G": G, "R": R, "K": K, "against": against,
-                       "max_abs_err": float(err.max()),
-                       "max_rel_err": float((err / ref.abs()).max()),
-                       "within": ok,
-                       "bitwise_repeat": bool(torch.equal(got, again)),
-                       "vs_earlier_max_rel": float(
-                           ((got - old_sums).abs() / old_sums.abs()).max()),
-                       **_ptxas(log),
-                       **rows_sass[(mod.SOURCE, G, K, F, R)],
-                       "ms": []}
-            runs[G, R] = run_new
-            print(f"{sh['name']} G={G} R={R} K={K}: "
-                  f"{json.dumps(rows[G, R])}", flush=True)
+        packed = mod._packed(volT_b, scal_b, l0, deltas, F)
+        partials = torch.empty((B, -(-paths // THREADS), out_rows),
+                               dtype=torch.float64, device="cuda")
+        v = sh["variant"]
+        if atm_kind:
+            def run_new():
+                mod.launch(z, packed, tables, step_event, partials, n=n, S=S,
+                           num_paths=paths, displaced=kwargs["displaced"],
+                           variant=v)
+        else:
+            def run_new():
+                mod.launch(z, packed, tables, partials, n=n, S=S,
+                           num_paths=paths, variant=v)
+        run_new()
+        got = partials.sum(dim=1)
+        run_new()
+        again = partials.sum(dim=1)
+        torch.cuda.synchronize()
+        if B == 1:
+            ref = (mod.lmm_atm_swaptions_batch_reference if atm_kind
+                   else mod.lmm_stochvol_swaptions_batch_reference)(
+                *args, **kwargs)
+            against = "plain"
+        else:
+            ref, against = old_sums, "earlier kernel"
+        err = (got - ref).abs()
+        ok = bool(torch.isfinite(got).all()) and bool(
+            (err <= cs.RTOL * ref.abs() + cs.ATOL_PER_PATH * paths).all())
+        log = Path(jobs[(mod.SOURCE, *v)]).with_suffix(".log").read_text()
+        new = {"K": v[0], "F": v[1], "R": v[2], "against": against,
+               "max_abs_err": float(err.max()),
+               "max_rel_err": float((err / ref.abs()).max()),
+               "within": ok,
+               "bitwise_repeat": bool(torch.equal(got, again)),
+               "vs_earlier_max_rel": float(
+                   ((got - old_sums).abs() / old_sums.abs()).max()),
+               **_ptxas(log), **rows_sass[(mod.SOURCE, *v)]}
+        print(f"{sh['name']} (K, F, R) = {v}: {json.dumps(new)}", flush=True)
 
-        order = ["earlier", *variants, *variants[::-1], "earlier"]
+        runs = {"earlier": run_old, "new": run_new}
         times = {key: [] for key in runs}
-        for key in order:
+        for key in ("earlier", "new", "new", "earlier"):
             times[key].append(cs._launch_ms(torch, runs[key]))
         ops = cs._sweep_operations(n, F, products, paths, B,
                                    stoch_vol=not atm_kind,
                                    displaced=bool(kwargs.get("displaced")))
         bound_ms, bound_by = cs._bound(args, old_sums, ops)
+        new["ms"] = times["new"]
+        new["share_of_bound"] = bound_ms / statistics.mean(times["new"])
         entry = {"shape": sh["name"], "paths": paths, "B": B,
                  "bound_ms": bound_ms, "bound_by": bound_by,
                  "earlier": {"ms": times["earlier"],
                              **old[sh["kind"]][1],
                              **_old_loop_sizes(old[sh["kind"]][0])},
-                 "new": []}
-        for v in variants:
-            rows[v]["ms"] = times[v]
-            rows[v]["share_of_bound"] = bound_ms / statistics.mean(times[v])
-            entry["new"].append(rows[v])
+                 "new": new}
         entry["earlier"]["share_of_bound"] = bound_ms / statistics.mean(
             times["earlier"])
         report["shapes"].append(entry)
         print(f"{sh['name']}: bound {bound_ms:.4f} ms ({bound_by}); "
-              f"earlier {times['earlier']} ms; " + "; ".join(
-                  f"G={G} R={R} {times[G, R]} ms" for G, R in variants),
+              f"earlier {times['earlier']} ms; new {times['new']} ms",
               flush=True)
         del old_partials
 
     Path(opts.out).parent.mkdir(parents=True, exist_ok=True)
     Path(opts.out).write_text(json.dumps(report, indent=1))
-    bad = [(e["shape"], r["G"], r["R"]) for e in report["shapes"]
-           for r in e["new"]
-           if not (r["within"] and r["bitwise_repeat"])]
+    bad = [e["shape"] for e in report["shapes"]
+           if not (e["new"]["within"] and e["new"]["bitwise_repeat"])]
     if bad:
         raise SystemExit(f"compare_products_kernels: disagrees: {bad}")
     print(json.dumps(report))
