@@ -9,19 +9,21 @@ Phases, one line of output each (more for the kernel builds), in order:
 1. the card: ``torch.cuda.get_device_name()`` and ``nvidia-smi``'s name
    and power limit (fails without a CUDA device);
 2. build the kernel sources, one ``nvcc`` each, all started together: the
-   Monte-Carlo path kernels (``csrc/mc_paths.cu``), the single-swaption LMM
-   path kernels (``csrc/lmm_swaption_paths.cu``), and every instantiation
-   (libors K, factors F, row chunk R) of the ATM-surface kernel
-   (``csrc/lmm_atm_products.cu``) and the stoch-vol kernel
-   (``csrc/lmm_stochvol_products.cu``) that phases 3-9 launch; print
-   each build's seconds and ptxas' register/spill report;
+   Monte-Carlo path kernels (``csrc/mc_paths.cu``), every instantiation
+   (libors K, factors F) of the single-swaption LMM path kernels
+   (``csrc/lmm_swaption_paths.cu``) that phases 15-17 launch, and every
+   one (K, F, row chunk R) of the ATM-surface kernel
+   (``csrc/lmm_atm_products.cu``) and of the stoch-vol kernel
+   (``csrc/lmm_stochvol_products.cu``) that phases 3-9 launch (those two
+   without FMA contraction); print each build's
+   seconds and ptxas' register/spill report;
 3. the ATM kernel against its plain PyTorch version on the card at the ATM
    shapes: 100,000 paths B=1 NORMAL, 100,003 paths (ragged tail), and the
    FD-Jacobian batch B=87 at 8,192 paths DISPLACED (the build that the
    B=87 launch of phase 5 runs), then a synthetic sweep on 37 libors with
-   2 factors (a partial row chunk, 8,197 paths, B=3, DISPLACED); every
-   row's path sum within rtol 1e-5, atol 1e-7 * paths, and a second launch
-   bitwise equal;
+   2 factors (a partial row chunk, 8,197 paths, B=3, DISPLACED); a launch's
+   float64 partials ``[B, tiles, rows]`` equal the plain partials (the
+   kernel's order of additions) bit for bit, and a second launch's too;
 4. slice A's main path — the reference's ATM swaption calibration at
    100,000 paths with the 5,000-path engine Jacobian and kernel residuals,
    warmed up once, then timed; it must reach |mean_dev| < 2e-4 and
@@ -38,9 +40,9 @@ Phases, one line of output each (more for the kernel builds), in order:
    realization: 81,920 paths at B=1 and the FD-Jacobian batch B=17 (the
    main path's two launch shapes), 81,923 paths (ragged tail), and B=17 at
    8,192 paths, then the synthetic sweep on 37 libors with 5 factors
-   (8,197 paths, B=3); the same bounds and the same
-   bitwise repeat as phase 3; then the kernel-vs-engine residual gap at
-   the first curated basin (fails above 5e-3 vol);
+   (8,197 paths, B=3); the partials bit for bit, as in phase 3; then the
+   kernel-vs-engine residual gap at the first curated basin (fails above
+   5e-3 vol);
 8. slice B's main path — the reference's stoch-vol benchmark calibration
    (LIBORMarketModelCalibrationTest) at 81,920 paths on its Mersenne
    realization, every program warmed up, then
@@ -74,14 +76,16 @@ Phases, one line of output each (more for the kernel builds), in order:
     operations at 1M paths against ``RandomVariableFloat`` at the JAX
     parity sweep's tolerances, and the float64 reductions against NumPy;
 14. the European and Asian kernels against their plain versions, timed at
-    1M x 100 (median of 5, CUDA events);
+    1M x 100 (median of 5, CUDA events): the launch alone into a
+    preallocated output (a spin kernel keeping the host's submission
+    outside the events), the wrapper and the plain version;
 15. the four single-swaption launchers (the 1-factor and the stoch-vol
     kernel, each drawing its own normals or reading injected ones) against
     their plain versions on the card, on the two configurations of phase
     16: 409,600 paths at 10 steps, 409,603 paths (ragged tail) and 8,192
-    paths at one step; per path within rtol 1e-5, atol 1e-7, the float64
-    price within 1e-6 relative, a second launch bitwise equal, and each
-    PRNG launch bitwise equal to the injected launch fed its own stream;
+    paths at one step; every path bit for bit (``torch.equal``), a second
+    launch too, and each PRNG launch bitwise equal to the injected launch
+    fed its own stream;
 16. slice D1's main path, ``bench.py:1007 bench_lmm_pricer_kernels`` at
     409,600 paths through the port's entry points: the 5Y x 10Y ATM
     swaption of the ATM setup (80 libors, 1 factor) and the 5Y x 10Y ATM
@@ -89,12 +93,13 @@ Phases, one line of output each (more for the kernel builds), in order:
     their initial parameters; each kernel price within 2% of the port's
     engine on another stream (printed in combined standard errors too),
     and within 1e-5 of it on one shared normal block; one launch per
-    pricer call; then the walls (min of 5 after a warm-up) of the engine's
-    ``values`` and of the kernel entry point;
+    pricer call; the four prices printed to 9 digits; then the walls (min
+    of 5 after a warm-up) of the engine's ``values`` and of the kernel
+    entry point;
 17. the four launchers against their plain versions, timed at 409,600
-    paths (median of 5, CUDA events): the launch alone on prepacked inputs
-    (the host's submission kept outside the events), the payoffs wrapper
-    and the plain version;
+    paths (median of 5, CUDA events): the launch alone on a prepacked
+    table (the host's submission kept outside the events), the payoffs
+    wrapper (which packs the table) and the plain version;
 6. with ``--profile`` only, last: device operations and busy time under
    ``torch.profiler`` for one ATM calibration, one engine Jacobian, one
    ATM kernel residual call, one stoch-vol kernel
@@ -132,7 +137,7 @@ BS_PARAMS, BS_PATHS, BS_STEPS, BS_SEED = (1.0, 0.05, 0.3, 1.0, 1.05), \
     1_000_000, 100, 3141
 # bench.py:1007 bench_lmm_pricer_kernels: one swaption at 409,600 paths
 PRICER_PATHS, PRICER_SEED = 409_600, 2718
-RTOL, ATOL_PER_PATH = 1e-5, 1e-7
+PRICER_E, PRICER_M, PRICER_DT = 10, 20, 0.5   # exercise step, periods, dt
 # the products kernels' shapes: (libors, factors) of the ATM and benchmark
 # setups, and the synthetic sweep of phases 3d / 7e (37 libors: a partial
 # chunk of rows)
@@ -170,12 +175,14 @@ def _sweep_operations(num_libors, num_factors, products, paths, B, *,
     return ops * paths * B
 
 
-def _pricer_operations(num_libors, num_factors, steps, periods, paths, *,
+def _pricer_operations(num_factors, steps, exercise, periods, paths, *,
                        stoch_vol):
     """Float32 operations of one single-swaption pricer launch as
     ``csrc/lmm_swaption_paths.cu`` does them, each add, multiply, divide
     and compare counted once (the kernels issue no FMA), from the shapes:
-    per step and alive libor the 1-factor update (9: the drift term's four,
+    per step and alive libor below the swap's end and the last fixing (the
+    libors above reach neither the numeraire nor the payoff, and no kernel
+    needs to evolve them) the 1-factor update (9: the drift term's four,
     the running sum, its scaling, the shock, the loading, the new L) or the
     stoch-vol one (12 + 7 a factor: m_j 3, the local factor 4, per factor
     the loading, the running sum and the drift and shock sums 7, the new L
@@ -183,8 +190,9 @@ def _pricer_operations(num_libors, num_factors, steps, periods, paths, *,
     (3), and for stoch vol sqrt(V) (about 8), the V step (8) and its expf
     (about 20); per path the payoff (6 a period and 5) and the stoch-vol
     constants (4). The PRNG variants' draws are the caller's to add."""
-    n, F, S = num_libors, num_factors, steps
-    alive = sum(n - 1 - s for s in range(S))
+    F, S = num_factors, steps
+    swept = max(exercise + periods, S)
+    alive = sum(swept - 1 - s for s in range(S))
     if stoch_vol:
         per_libor, per_step, per_path = 12 + 7 * F, F + 3 + 8 + 8 + 20, 4
     else:
@@ -221,13 +229,21 @@ def _mc_path_operations(paths, steps, asian):
     return per_path * paths
 
 
-def _sweep_variants(products, lmm_kernel, lmm_stochvol_kernel):
+def _sweep_variants(products, lmm_kernel, lmm_stochvol_kernel,
+                    swaption_paths):
     """The instantiations (K, F, R) of the two products kernels that phases
-    3-9 launch: the calibrations' shapes and the synthetic sweep."""
+    3-9 launch (the calibrations' shapes and the synthetic sweep) and
+    (K, F) of the pricer kernels that phases 15-17 launch (the two
+    configurations of ``bench_lmm_pricer_kernels``; the stoch-vol one at
+    the libors it sweeps at ``PRICER_E`` and at one step)."""
     return {lmm_kernel: [products.sweep_variant(*ATM_SHAPE),
                          products.sweep_variant(SYN_LIBORS, 2)],
             lmm_stochvol_kernel: [products.sweep_variant(*SV_SHAPE),
-                                  products.sweep_variant(SYN_LIBORS, 5)]}
+                                  products.sweep_variant(SYN_LIBORS, 5)],
+            swaption_paths: [swaption_paths.pricer_variant(*ATM_SHAPE)] + [
+                swaption_paths.pricer_variant(
+                    *SV_SHAPE, swaption_paths.swept_libors(e, e, PRICER_M))
+                for e in (PRICER_E, 1)]}
 
 
 def _synthetic_sweep(torch, kind):
@@ -260,25 +276,34 @@ def _synthetic_sweep(torch, kind):
     return args, kwargs
 
 
-def _check_synthetic(torch, wrapper, plain, kind):
-    """A products kernel (through ``wrapper``) on the synthetic sweep
-    against its ``plain`` version: within rtol 1e-5, atol 1e-7 * paths, a
-    second launch bitwise equal. Returns the largest absolute error;
-    raises on a failure."""
-    args, kwargs = _synthetic_sweep(torch, kind)
-    got = wrapper(*args, **kwargs)
-    again = wrapper(*args, **kwargs)
+def _partials_equal(torch, module, plain, args, kwargs):
+    """Two launches of the products kernel ``module`` into fresh partials
+    against the ``plain`` partials (the kernel's order of additions): both
+    launches must equal them bit for bit. Returns ``(ok, max_abs_err,
+    partials)``."""
+    outs = []
+    for _ in range(2):
+        go, partials = module.prepare(*args, **kwargs)
+        go()
+        outs.append(partials)
     torch.cuda.synchronize()
     ref = plain(*args, **kwargs)
-    err = (got - ref).abs()
-    ok = (bool(torch.isfinite(got).all()) and bool(torch.equal(got, again))
-          and bool((err <= RTOL * ref.abs() + ATOL_PER_PATH * SYN_PATHS)
-                   .all()))
+    ok = (bool(torch.isfinite(outs[0]).all())
+          and all(bool(torch.equal(p, ref)) for p in outs))
+    return ok, float((outs[0] - ref).abs().max()), outs[0]
+
+
+def _check_synthetic(torch, module, plain, kind):
+    """A products kernel on the synthetic sweep against its ``plain``
+    partials, bit for bit (``_partials_equal``). Returns the largest
+    absolute error; raises on a failure."""
+    args, kwargs = _synthetic_sweep(torch, kind)
+    ok, err, _ = _partials_equal(torch, module, plain, args, kwargs)
     if not ok:
-        raise SystemExit(f"chip_smoke: the {kind} kernel disagrees with its "
-                         f"plain version on the synthetic sweep "
-                         f"(max_abs_err {float(err.max()):.3e})")
-    return float(err.max())
+        raise SystemExit(f"chip_smoke: the {kind} kernel's partials differ "
+                         f"from the plain version's on the synthetic sweep "
+                         f"(max_abs_err {err:.3e})")
+    return err
 
 
 def _products_ms(torch, module, wrapper, args, kwargs):
@@ -598,10 +623,16 @@ def _slice_c(torch, smi):
 
     # -- 14: the path kernels against their plain versions, timed ----------
     rows = []
+    out = torch.empty(BS_PATHS, dtype=torch.float32, device="cuda")
+    p4 = [float(v) for v in params[:4].tolist()]
     for name, source_line in (("bs_paths", 94), ("asian_paths", 185)):
         run, plain = runs[name]
-        ms = _time_ms(torch, lambda: run(BS_SEED, BS_PATHS, BS_STEPS, params,
-                                         "cuda"))
+        # the launch alone, into a preallocated output
+        ms = _launch_ms(torch, lambda: kernels._launch(
+            name, f"mc_{name}_launch", out.data_ptr(), BS_PATHS, BS_STEPS,
+            BS_SEED, *p4, device=out.device))
+        wrapper_ms = _time_ms(torch, lambda: run(BS_SEED, BS_PATHS, BS_STEPS,
+                                                 params, "cuda"))
         plain_ms = _time_ms(torch, lambda: plain(BS_SEED, BS_PATHS, BS_STEPS,
                                                  params, "cuda"))
         by_ops = _mc_path_operations(BS_PATHS, BS_STEPS,
@@ -611,8 +642,8 @@ def _slice_c(torch, smi):
         bound_by = "operations" if by_ops >= by_bytes else "bytes"
         print(f"phase 14 timing (median of 5, CUDA events; {smi}): {name} "
               f"paths={BS_PATHS} steps={BS_STEPS} kernel_ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
-              f"({bound_by})", flush=True)
+              f"wrapper_ms={wrapper_ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
         rows.append({
             "name": name,
             "route": "cuda",
@@ -629,25 +660,22 @@ def _slice_c(torch, smi):
     return rows
 
 
-def _slice_d1(torch, smi):
-    """Phases 15-17: the single-swaption LMM path kernels against their
-    plain versions, slice D1's main path (``bench.py:1007
-    bench_lmm_pricer_kernels`` at 409,600 paths through the port's entry
-    points) and the four launchers' times. Returns their rows of the final
-    JSON line."""
-    from finmath_tpu_torch import convert
+def _pricer_setups(torch):
+    """The two configurations of ``bench.py:1007 bench_lmm_pricer_kernels``
+    on the card, at their initial parameters: the 5Y x 10Y ATM swaption of
+    the ATM setup (80 libors, 1 factor) and of the benchmark setup (40
+    libors, 5 factors, stoch vol), exercise step ``PRICER_E``, ``PRICER_M``
+    periods. Returns a namespace: ``kinds`` (per pricer: its shape, input
+    packing, launchers, entry points and plain versions) and what the main
+    path's entry points take."""
+    from types import SimpleNamespace
+
     from finmath_tpu_torch.models.lmm import (build_atm_calibration,
                                               build_benchmark_calibration)
-    from finmath_tpu_torch.models.lmm.model import (LIBORMarketModelTorch,
-                                                    LMMValuationEngine,
-                                                    SwaptionProduct)
-    from finmath_tpu_torch.ops import _swaption_paths as sp
-    from finmath_tpu_torch.ops import kernels
     from finmath_tpu_torch.ops import lmm_kernel as k1
     from finmath_tpu_torch.ops import lmm_stochvol_kernel as ksv
 
-    P, E, M, DT = PRICER_PATHS, 10, 20, 0.5
-    # -- the two configurations, at their initial parameters ----------------
+    E, M, DT = PRICER_E, PRICER_M, PRICER_DT
     a = build_atm_calibration(num_paths=256, num_factors=1, device="cuda")
     cov = a.covariance
     a_p0 = np.asarray(cov.initial_parameters)
@@ -670,7 +698,8 @@ def _slice_d1(torch, smi):
     am, bm = a.model, b.model
     kinds = {
         "one_factor": dict(
-            rows=1, n=am.num_libors, F=1, strike=a_strike, scalars=3,
+            rows=1, n=am.num_libors, F=1, strike=a_strike,
+            packed=k1.lmm_swaption_packed,
             pack=lambda S: k1.lmm_swaption_inputs(
                 a_vol, am.initial_forwards, am.deltas, S, DT, a_strike,
                 "cuda"),
@@ -681,7 +710,8 @@ def _slice_d1(torch, smi):
             replaces=("finmath_tpu/ops/lmm_kernel.py:141",
                       "finmath_tpu/ops/lmm_kernel.py:351")),
         "stochvol": dict(
-            rows=F + 1, n=bm.num_libors, F=F, strike=b_strike, scalars=7,
+            rows=F + 1, n=bm.num_libors, F=F, strike=b_strike,
+            packed=ksv.lmm_stochvol_swaption_packed,
             pack=lambda S: ksv.lmm_stochvol_swaption_inputs(
                 b_vol, b_R, bm.initial_forwards, bm.deltas, S, DT, b_strike,
                 blend, nu, rho, "cuda"),
@@ -694,6 +724,35 @@ def _slice_d1(torch, smi):
             replaces=("finmath_tpu/ops/lmm_stochvol_kernel.py:157",
                       "finmath_tpu/ops/lmm_stochvol_kernel.py:362")),
     }
+
+    return SimpleNamespace(
+        kinds=kinds, am=am, bm=bm, F=F, a_p0=a_p0, b_p0=b_p0, a_vol=a_vol,
+        b_vol=b_vol, b_R=b_R, blend=blend, nu=nu, rho=rho, a_strike=a_strike,
+        b_strike=b_strike)
+
+
+def _slice_d1(torch, smi):
+    """Phases 15-17: the single-swaption LMM path kernels against their
+    plain versions, slice D1's main path (``bench.py:1007
+    bench_lmm_pricer_kernels`` at 409,600 paths through the port's entry
+    points) and the four launchers' times. Returns their rows of the final
+    JSON line."""
+    from finmath_tpu_torch import convert
+    from finmath_tpu_torch.models.lmm.model import (LIBORMarketModelTorch,
+                                                    LMMValuationEngine,
+                                                    SwaptionProduct)
+    from finmath_tpu_torch.ops import _swaption_paths as sp
+    from finmath_tpu_torch.ops import kernels
+    from finmath_tpu_torch.ops import lmm_kernel as k1
+    from finmath_tpu_torch.ops import lmm_stochvol_kernel as ksv
+
+    P, E, M, DT = PRICER_PATHS, PRICER_E, PRICER_M, PRICER_DT
+    cfg = _pricer_setups(torch)
+    kinds, am, bm, F = cfg.kinds, cfg.am, cfg.bm, cfg.F
+    a_p0, b_p0, a_vol, b_vol, b_R = (cfg.a_p0, cfg.b_p0, cfg.a_vol,
+                                     cfg.b_vol, cfg.b_R)
+    blend, nu, rho = cfg.blend, cfg.nu, cfg.rho
+    a_strike, b_strike = cfg.a_strike, cfg.b_strike
 
     # -- 15: each launcher against its plain version on the card -----------
     max_abs = dict.fromkeys(sp.LAUNCHES, 0.0)
@@ -714,18 +773,16 @@ def _slice_d1(torch, smi):
                 ref = plain(*head, *args, **swap)
                 err = (got - ref).abs()
                 p_got = float(got.sum(dtype=torch.float64)) / paths
-                p_ref = float(ref.sum(dtype=torch.float64)) / paths
-                price_rel = abs(p_got - p_ref) / abs(p_ref)
                 ok = (bool(torch.isfinite(got).all())
-                      and bool((err <= RTOL * ref.abs() + ATOL_PER_PATH).all())
-                      and price_rel < 1e-6 and bool(torch.equal(got, again)))
+                      and bool(torch.equal(got, ref))
+                      and bool(torch.equal(got, again)))
                 max_abs[name] = max(max_abs[name], float(err.max()))
                 print(f"phase 15{label} {name} vs plain: paths={paths} "
                       f"steps={e} libors={c['n']} factors={c['F']} "
                       f"max_abs_err={float(err.max()):.3e} "
-                      f"price={p_got:.9f} price_rel={price_rel:.3e} "
-                      f"within rtol {RTOL}, atol {ATOL_PER_PATH}, price 1e-6, "
-                      f"bitwise repeatable: {ok}", flush=True)
+                      f"price={p_got:.9f} every path bit for bit equal to "
+                      f"the plain version, and a second launch: {ok}",
+                      flush=True)
                 if not ok:
                     raise SystemExit(f"chip_smoke: phase 15{label}: {name} "
                                      "disagrees with its plain version")
@@ -812,6 +869,9 @@ def _slice_d1(torch, smi):
         checks[f"{kind}: same normals within 1e-5"] = rel_sn < 1e-5
     print(f"phase 16 main path ({P:,} paths, e={E}, periods={M}): "
           + json.dumps({"values": report, "launches": launches}), flush=True)
+    print("phase 16 prices: " + "; ".join(
+        f"{kind} kernel {v_k:.9f} (same normals {v_sn:.9f})"
+        for kind, (v_k, v_sn) in values.items()), flush=True)
     failed = [name for name, ok in checks.items() if not ok]
     if failed:
         raise SystemExit(f"chip_smoke: phase 16 failed: {failed}")
@@ -839,28 +899,23 @@ def _slice_d1(torch, smi):
     del engines, entry, z1, z5
 
     # -- 17: the four launchers against their plain versions, timed --------
-    # ms: the launch alone (prepacked inputs, a preallocated output, no
+    # ms: the launch alone (a prepacked table, a preallocated output, no
     # host submission inside the events); wrapper_ms: the payoffs entry
-    # (checks, scalars, the output's allocation, the launch)
+    # (checks, the table's packing, the output's allocation, the launch)
     rows_out = []
     for kind, c in kinds.items():
         args = c["pack"](E)
-        volT, l0, dl, scal = args
         swap = dict(exercise=E, periods=M)
         rows = E * c["rows"]
         z = torch.from_numpy(np.random.default_rng(17).standard_normal(
             (rows, P)).astype(np.float32)).cuda()
-        floats = [float(v) for v in scal[:c["scalars"]].tolist()]
-        ints = (c["n"], E, E, M) if kind == "one_factor" else \
-            (c["n"], c["F"], E, E, M)
+        packed = c["packed"](*args, **swap)
         out = torch.empty(P, dtype=torch.float32, device="cuda")
         base = c["launchers"][0]
         launch = (
-            lambda: sp.launch_prng(base, out, PRICER_SEED, volT, l0, dl,
-                                   floats, ints),
-            lambda: sp.launch_injected(base, out, z, volT, l0, dl, floats,
-                                       ints))
-        ops = _pricer_operations(c["n"], c["F"], E, M, P,
+            lambda: sp.launch_prng(base, out, PRICER_SEED, packed),
+            lambda: sp.launch_injected(base, out, z, packed))
+        ops = _pricer_operations(c["F"], E, E, M, P,
                                  stoch_vol=kind == "stochvol")
         for j, (name, run, plain) in enumerate(zip(
                 c["launchers"], c["run"], c["plain"])):
@@ -936,19 +991,24 @@ def main(argv=None) -> int:
         module.load_kernel(*variant)
         return time.perf_counter() - t0
 
-    jobs = [(kernels, ()), (_swaption_paths, ())] + [
+    jobs = [(kernels, ())] + [
         (module, (v,)) for module, variants in _sweep_variants(
-            _products, lmm_kernel, lmm_stochvol_kernel).items()
+            _products, lmm_kernel, lmm_stochvol_kernel,
+            _swaption_paths).items()
         for v in sorted(variants)]
     with ThreadPoolExecutor(len(jobs)) as pool:
         build_s = list(pool.map(build, jobs))
     for (module, variant), seconds in zip(jobs, build_s):
-        defines = _products.sweep_defines(*variant[0]) if variant else ()
-        log = _cuda_build.library_path(module.SOURCE, defines).with_suffix(
-            ".log")
+        pricer = module is _swaption_paths
+        defines = () if not variant else (
+            _swaption_paths.pricer_defines if pricer
+            else _products.sweep_defines)(*variant[0])
+        log = _cuda_build.library_path(module.SOURCE, defines,
+                                       module.FLAGS).with_suffix(".log")
         ptxas = [ln.strip() for ln in log.read_text().splitlines()
                  if "registers" in ln or "spill" in ln]
-        tag = (" (K, F, R) = " + str(variant[0])) if variant else ""
+        tag = "" if not variant else (
+            (" (K, F) = " if pricer else " (K, F, R) = ") + str(variant[0]))
         print(f"phase 2 build: {seconds:.3f} s ({module.SOURCE}{tag}); "
               + " | ".join(ptxas), flush=True)
 
@@ -964,34 +1024,26 @@ def main(argv=None) -> int:
         x = kb.params(setup.covariance.initial_parameters)
         X = kb.fd_parameter_sets(x)[0] if fd_batch else x[None, :]
         args, kwargs = kb.kernel_arguments(X)
-        got = lmm_kernel.lmm_atm_swaptions_batch(*args, **kwargs)
-        again = lmm_kernel.lmm_atm_swaptions_batch(*args, **kwargs)
-        torch.cuda.synchronize()
-        ref = lmm_kernel.lmm_atm_swaptions_batch_reference(*args, **kwargs)
-        err = (got - ref).abs()
-        bound = RTOL * ref.abs() + ATOL_PER_PATH * paths
-        repeatable = bool(torch.equal(got, again))
-        ok = (bool(torch.isfinite(got).all()) and bool((err <= bound).all())
-              and repeatable)
-        max_abs_err = max(max_abs_err, float(err.max()))
+        ok, err, got = _partials_equal(
+            torch, lmm_kernel,
+            lmm_kernel.lmm_atm_swaptions_partials_reference, args, kwargs)
+        max_abs_err = max(max_abs_err, err)
         print(f"phase 3{label} kernel vs plain: paths={paths} "
-              f"B={X.shape[0]} {model_type} rows={got.shape[1]} "
-              f"max_abs_err={float(err.max()):.3e} "
-              f"max_rel_err={float((err / ref.abs()).max()):.3e} "
-              f"bitwise repeatable={repeatable} "
-              f"within rtol={RTOL}, atol={ATOL_PER_PATH}*paths: {ok}",
-              flush=True)
+              f"B={X.shape[0]} {model_type} partials={tuple(got.shape)} "
+              f"max_abs_err={err:.3e} partials of two launches bit for bit "
+              f"equal to the plain partials: {ok}", flush=True)
         if not ok:
             raise SystemExit(f"chip_smoke: phase 3{label}: kernel disagrees "
                              "with its plain version")
-        del setup, kb, args, got, ref
-    err = _check_synthetic(torch, lmm_kernel.lmm_atm_swaptions_batch,
-                           lmm_kernel.lmm_atm_swaptions_batch_reference, "atm")
+        del setup, kb, args, got
+    err = _check_synthetic(torch, lmm_kernel,
+                           lmm_kernel.lmm_atm_swaptions_partials_reference,
+                           "atm")
     max_abs_err = max(max_abs_err, err)
     print(f"phase 3d kernel vs plain: paths={SYN_PATHS} B={SYN_B} "
           f"libors={SYN_LIBORS} factors=2 DISPLACED max_abs_err={err:.3e} "
-          f"bitwise repeatable, within rtol={RTOL}, "
-          f"atol={ATOL_PER_PATH}*paths: True", flush=True)
+          f"partials bit for bit equal to the plain partials: True",
+          flush=True)
 
     # -- 4: the main path --------------------------------------------------
     t0 = time.perf_counter()
@@ -1137,29 +1189,18 @@ def main(argv=None) -> int:
         for label, fd_batch in cases:
             X = sv_kb.fd_parameter_sets(x)[0] if fd_batch else x[None, :]
             args, kwargs = sv_kb.kernel_arguments(X)
-            run = lmm_stochvol_kernel.lmm_stochvol_swaptions_batch
-            got = run(*args, **kwargs)
-            again = run(*args, **kwargs)
-            torch.cuda.synchronize()
-            ref = lmm_stochvol_kernel.lmm_stochvol_swaptions_batch_reference(
-                *args, **kwargs)
-            err = (got - ref).abs()
-            bound = RTOL * ref.abs() + ATOL_PER_PATH * paths
-            repeatable = bool(torch.equal(got, again))
-            ok = (bool(torch.isfinite(got).all())
-                  and bool((err <= bound).all()) and repeatable)
-            sv_max_abs_err = max(sv_max_abs_err, float(err.max()))
+            ok, err, got = _partials_equal(
+                torch, lmm_stochvol_kernel, lmm_stochvol_kernel
+                .lmm_stochvol_swaptions_partials_reference, args, kwargs)
+            sv_max_abs_err = max(sv_max_abs_err, err)
             print(f"phase 7{label} stoch-vol kernel vs plain: paths={paths} "
-                  f"B={X.shape[0]} rows={got.shape[1]} "
-                  f"max_abs_err={float(err.max()):.3e} "
-                  f"max_rel_err={float((err / ref.abs()).max()):.3e} "
-                  f"bitwise repeatable={repeatable} "
-                  f"within rtol={RTOL}, atol={ATOL_PER_PATH}*paths: {ok}",
-                  flush=True)
+                  f"B={X.shape[0]} partials={tuple(got.shape)} "
+                  f"max_abs_err={err:.3e} partials of two launches bit for "
+                  f"bit equal to the plain partials: {ok}", flush=True)
             if not ok:
                 raise SystemExit(f"chip_smoke: phase 7{label}: stoch-vol "
                                  "kernel disagrees with its plain version")
-            del args, got, again, ref
+            del args, got
         if paths == SV_PATHS:
             basin = CURATED_BASINS[0]
             basin_gap = float(np.abs(sv_kb.residuals(basin)
@@ -1171,14 +1212,14 @@ def main(argv=None) -> int:
                                  "disagree at the curated basin")
         del sv, sv_kb
     err = _check_synthetic(
-        torch, lmm_stochvol_kernel.lmm_stochvol_swaptions_batch,
-        lmm_stochvol_kernel.lmm_stochvol_swaptions_batch_reference,
+        torch, lmm_stochvol_kernel,
+        lmm_stochvol_kernel.lmm_stochvol_swaptions_partials_reference,
         "stochvol")
     sv_max_abs_err = max(sv_max_abs_err, err)
     print(f"phase 7e stoch-vol kernel vs plain: paths={SYN_PATHS} "
           f"B={SYN_B} libors={SYN_LIBORS} factors=5 "
-          f"max_abs_err={err:.3e} bitwise repeatable, within "
-          f"rtol={RTOL}, atol={ATOL_PER_PATH}*paths: True", flush=True)
+          f"max_abs_err={err:.3e} partials bit for bit equal to the plain "
+          f"partials: True", flush=True)
 
     # -- 8: slice B's main path, the stoch-vol benchmark calibration -------
     t0 = time.perf_counter()

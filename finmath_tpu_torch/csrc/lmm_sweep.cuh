@@ -7,14 +7,19 @@
 // registers, the sweep over it unrolled at compile time. Every running sum
 // over the libors is taken one addition after another from libor 0 on;
 // ops/_products.py (running_sums, bond_prefix) takes the same additions in
-// the same order in the plain versions. nvcc may fuse a multiply and the
-// add after it into one FMA, which rounds once where the plain version
-// rounds twice, so the two agree to rounding, not bit for bit.
+// the same order in the plain versions. The two products sources are
+// built with -fmad=false (ops/_products.py::SWEEP_FLAGS), so nvcc fuses no
+// multiply and the add after it into one FMA: each operation rounds once,
+// as in the plain versions, and a launch's float64 partials equal the plain
+// versions' (_products.tile_partials) bit for bit.
 //
 // Each launch runs a library built for one instantiation: nvcc is given
-// LMM_K (libors), LMM_F (factors) and LMM_R (rows of the drift sweep a
-// chunk) by ops/_cuda_build.py, which the wrappers call with what
-// ops/_products.py::sweep_variant picks for the shape.
+// LMM_K (libors) and LMM_F (factors), and for the products kernels LMM_R
+// (rows of the drift sweep a chunk), by ops/_cuda_build.py, which the
+// wrappers call with what ops/_products.py::sweep_variant (products) or
+// ops/_swaption_paths.py::pricer_variant (the single-swaption pricers,
+// lmm_swaption_paths.cu) picks. The pricers use the helpers and the table
+// layout below, not the path reduction.
 
 #pragma once
 
@@ -22,8 +27,8 @@
 
 #include <cstdint>
 
-#if !defined(LMM_K) || !defined(LMM_F) || !defined(LMM_R)
-#error "build with -DLMM_K, -DLMM_F and -DLMM_R"
+#if !defined(LMM_K) || !defined(LMM_F)
+#error "build with -DLMM_K and -DLMM_F"
 #endif
 
 namespace lmm_sweep {
@@ -35,7 +40,9 @@ constexpr unsigned kFull = 0xffffffffu;
 
 static_assert(LMM_K >= 1 && LMM_K <= 128, "1 to 128 libors");
 static_assert(LMM_F >= 1 && LMM_F <= kMaxFactors, "1 to 8 factors");
+#ifdef LMM_R
 static_assert(LMM_R >= 1, "a chunk is at least one row");
+#endif
 
 // The libors padded to a whole float4 of per-libor constants.
 constexpr int kNP = (LMM_K + 3) / 4 * 4;

@@ -4,9 +4,10 @@ Each ``csrc/*.cu`` file has a plain C interface (``extern "C"`` launchers
 returning ``cudaError_t``), so it compiles with ``nvcc`` alone, in seconds,
 without PyTorch's headers. The shared library lands in ``_build/`` next to
 the package (listed in ``.gitignore``), named by a hash of the source, the
-shared headers (``csrc/*.cuh``), the flags and the preprocessor defines
-that pick one instantiation of a source (``defines``): an edited source
-or header builds anew, an unchanged one is reused.
+shared headers (``csrc/*.cuh``), the flags (``NVCC_FLAGS`` and the
+source's own ``flags``, such as ``-fmad=false``) and the preprocessor
+defines that pick one instantiation of a source (``defines``): an edited
+source or header, or other flags, build anew; an unchanged one is reused.
 ``nvcc``'s ``-Xptxas -v`` report (registers, shared memory, spills) is kept
 beside the library as ``<name>.log``.
 """
@@ -49,32 +50,35 @@ def _define_flags(defines) -> list:
     return [f"-D{name}={value}" for name, value in defines]
 
 
-def library_path(source: str, defines=()) -> Path:
+def _source_flags(defines, flags) -> list:
+    return [*NVCC_FLAGS, *flags, *_define_flags(defines)]
+
+
+def library_path(source: str, defines=(), flags=()) -> Path:
     """Where the library built from ``csrc/<source>`` with the
-    ``(name, value)`` pairs ``defines`` lives: named by a hash of the
-    source, of every header in ``csrc/`` (any of which it may include), of
-    the flags and of the defines."""
+    ``(name, value)`` pairs ``defines`` and the extra nvcc ``flags`` lives:
+    named by a hash of the source, of every header in ``csrc/`` (any of
+    which it may include), of the flags and of the defines."""
     src = CSRC_DIR / source
     digest = hashlib.sha256(src.read_bytes())
     for header in sorted(CSRC_DIR.glob("*.cuh")):
         digest.update(header.name.encode() + b"\0" + header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS + tuple(_define_flags(defines)))
-                  .encode())
+    digest.update(" ".join(_source_flags(defines, flags)).encode())
     tag = "".join(f"-{name[-1].lower()}{value}" for name, value in defines)
     return BUILD_DIR / f"{src.stem}{tag}-{digest.hexdigest()[:16]}.so"
 
 
-def build(source: str, defines=()) -> Path:
-    """Compile ``csrc/<source>`` with ``defines`` unless a library of this
-    exact source exists; returns the library's path. Raises with nvcc's
-    output on failure."""
-    out = library_path(source, defines)
+def build(source: str, defines=(), flags=()) -> Path:
+    """Compile ``csrc/<source>`` with ``defines`` and ``flags`` unless a
+    library of this exact source exists; returns the library's path.
+    Raises with nvcc's output on failure."""
+    out = library_path(source, defines, flags)
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     proc = subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, *_define_flags(defines), "-o", str(tmp),
+        [nvcc_path(), *_source_flags(defines, flags), "-o", str(tmp),
          str(CSRC_DIR / source)],
         capture_output=True, text=True, check=False)
     if proc.returncode != 0:
@@ -87,7 +91,7 @@ def build(source: str, defines=()) -> Path:
     return out
 
 
-def load(source: str, defines=()) -> ctypes.CDLL:
+def load(source: str, defines=(), flags=()) -> ctypes.CDLL:
     """Build (if needed) and load the library of ``csrc/<source>`` with
-    ``defines``."""
-    return ctypes.CDLL(str(build(source, defines)))
+    ``defines`` and ``flags``."""
+    return ctypes.CDLL(str(build(source, defines, flags)))

@@ -3,7 +3,8 @@
 the instantiation a launch runs (``sweep_variant``), the parameter sets
 packed as the kernels stage them (``pack_parameter_sets``), and the
 kernels' running sums in their own order of float32 additions, which the
-plain versions take (``running_sums``, ``bond_prefix``).
+plain versions take (``running_sums``, ``bond_prefix``), and their float64
+path reduction in its own order (``tile_partials``).
 
 A product is ``(exercise index, periods, strike)``; the products are
 grouped by ascending exercise index, the engine's order.
@@ -12,9 +13,10 @@ The kernels (``csrc/lmm_sweep.cuh``) carry one path a thread, its forward
 curve in registers, and take every running sum over the libors one
 addition after another from 0, in float32. ``torch.cumsum`` is not that
 order on the CPU, where it accumulates float32 in float64; the helpers here
-are. Where ``nvcc`` fuses a multiply and the add after it into one FMA the
-kernel rounds once and the plain version twice, so the two agree to
-rounding, not bit for bit.
+are. The kernels are built with ``-fmad=false`` (``SWEEP_FLAGS``), so
+``nvcc`` fuses no multiply and the add after it into one FMA: every float32
+operation rounds once, as in the plain versions, and a kernel's partials
+equal ``tile_partials`` of its plain version's path values bit for bit.
 """
 
 from __future__ import annotations
@@ -93,6 +95,10 @@ def product_tables(products: Tuple[Product, ...],
 
 MAX_LIBORS = 128              # LMM_K <= 128 in csrc/lmm_sweep.cuh
 THREADS = 256                 # threads (paths) a block (kThreads)
+WARP = 32
+#: the products kernels' extra nvcc flags: no FMA contraction, so that each
+#: float32 multiply and add rounds as in the plain versions
+SWEEP_FLAGS = ("-fmad=false",)
 
 
 def row_chunk(num_factors: int) -> int:
@@ -153,8 +159,9 @@ def pack_parameter_sets(volT_b, scal_b, columns: Sequence[torch.Tensor], *,
 def running_sums(c: torch.Tensor, first: int = 0) -> torch.Tensor:
     """Inclusive running sums of ``c`` ``[..., n, paths]`` along the
     libors, one addition after another in ``c``'s type from 0 at libor
-    ``first`` (the kernels' order); the libors before ``first`` (dead,
-    skipped by the kernels) come out 0."""
+    ``first`` (the kernels' order, each addition rounded on its own as the
+    kernels built without contraction round it); the libors before
+    ``first`` (dead, adding nothing in the kernels) come out 0."""
     out = torch.zeros_like(c)
     acc = torch.zeros_like(c[..., 0, :])
     for i in range(first, c.shape[-2]):
@@ -168,8 +175,8 @@ def bond_prefix(L: torch.Tensor, d: torch.Tensor, first: int, last: int):
     ``[..., n, paths]`` with period lengths ``d`` (``[n, 1]``, or
     broadcasting with ``L``), from period ``first`` on, one period after
     another as the kernels take them: ``cp = cp * (1 / (1 + d L))``, ``ann
-    = ann + cp * d``. Valid at the periods ``first .. last`` (1 and 0
-    elsewhere)."""
+    = ann + cp * d``, each operation rounded on its own (no FMA). Valid at
+    the periods ``first .. last`` (1 and 0 elsewhere)."""
     cp_out, ann_out = torch.ones_like(L), torch.zeros_like(L)
     cp = torch.ones_like(L[..., 0, :])
     ann = torch.zeros_like(cp)
@@ -179,3 +186,27 @@ def bond_prefix(L: torch.Tensor, d: torch.Tensor, first: int, last: int):
         ann = ann + cp * di
         cp_out[..., i, :], ann_out[..., i, :] = cp, ann
     return cp_out, ann_out
+
+
+def tile_partials(values: torch.Tensor) -> torch.Tensor:
+    """The float64 partials ``[B, tiles, R]`` that a products kernel writes
+    for the path values ``values`` ``[B, R, num_paths]`` (float64, a
+    dropped path 0.0), in the kernel's order of additions
+    (``csrc/lmm_sweep.cuh::warp_path_sum`` and the tile sum after it): per
+    warp of 32 paths the shuffle tree at offsets 16, 8, 4, 2, 1, lane ``i``
+    adding lane ``i + offset``; per tile of ``THREADS`` paths the warp sums
+    added one after another from warp 0. Paths past ``num_paths`` count as
+    0.0."""
+    B, R, paths = values.shape
+    tiles = -(-paths // THREADS)
+    v = nnf.pad(values, (0, tiles * THREADS - paths))
+    v = v.reshape(B, R, tiles, THREADS // WARP, WARP)
+    half = WARP // 2
+    while half >= 1:
+        v = v[..., :half] + v[..., half:2 * half]
+        half //= 2
+    warps = v[..., 0]                                   # [B, R, tiles, warps]
+    acc = warps[..., 0]
+    for w in range(1, warps.shape[-1]):
+        acc = acc + warps[..., w]
+    return acc.transpose(1, 2).contiguous()

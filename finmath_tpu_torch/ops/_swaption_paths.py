@@ -12,20 +12,43 @@ float32 vector of the scalars (``[dt, sqrt_dt, strike, 0]`` for the
 1-factor kernel, ``[dt, sqrt_dt, strike, blend, nu, rho, sqrt(1 - rho^2),
 0]`` for the stoch-vol one) on any device. Injected normals are ``[S * k,
 num_paths]`` float32, ``k = 1`` or ``F + 1`` rows a step.
+
+A launch sweeps the first ``swept_libors(...)`` libors, those that reach
+the payoff (the others reach neither the numeraire nor the payoff, so the
+payoffs equal the plain versions', which sweep every libor, bit for bit),
+a run-time argument. It runs the ``(K, F)`` instantiation of the source
+(``pricer_variant``: K libors of the curve and F factors at compile time;
+a few libraries a model, not one a swaption shape), built by ``nvcc`` at
+first use, on the table a block stages into shared memory
+(``pack_table``), the scalars passed as launch arguments
+(``PricerLaunch``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
 from . import _cuda_build
-from ._products import check_tensor
+from ._products import MAX_LIBORS, check_tensor, pack_parameter_sets
 
 SOURCE = "lmm_swaption_paths.cu"
+FLAGS = ()                    # extra nvcc flags: none (explicit rounding)
 MAX_FACTORS = 8               # the launchers refuse more (kMaxFactors)
+
+
+class PricerLaunch(NamedTuple):
+    """What a launcher takes besides the payoffs and the normals."""
+
+    table: torch.Tensor        # [W] float32, as a block stages it
+    variant: Tuple[int, ...]   # (K, F), the instantiation
+    scalars: Tuple[float, ...]  # dt, sqrt_dt, strike (, blend, nu, rho,
+                                # sqrt(1 - rho^2))
+    ints: Tuple[int, ...]      # (K, [F,] swept, S, exercise, periods)
+
 
 #: kernel launches since the last reset, per launcher (plain integers; a
 #: run resets them and reads them to show that its main path went through
@@ -35,15 +58,52 @@ LAUNCHES = {"lmm_swaption_paths": 0, "lmm_swaption_paths_normals": 0,
             "lmm_stochvol_swaption_paths_normals": 0}
 
 
+def swept_libors(num_steps: int, exercise: int, periods: int) -> int:
+    """The libors a launch sweeps: those up to the swap's last period and
+    the last step's fixing. Libor ``i`` evolves from libors ``j <= i``
+    alone, the payoff reads ``[exercise, exercise + periods)`` and the
+    numeraire the fixings ``0 .. num_steps - 1``: the libors above reach
+    neither."""
+    return max(int(exercise) + int(periods), int(num_steps))
+
+
+#: the stoch-vol kernels' curve length is the swept libors rounded up to
+#: a multiple of this
+CURVE_ROUND = 8
+
+
+def pricer_variant(num_libors: int, num_factors: int, swept=None):
+    """``(K, F)``: the instantiation of the pricer kernels that a launch
+    on a model of ``num_libors`` libors and ``F`` factors runs. The
+    1-factor kernels sweep a curve in shared memory and use K only for the
+    table's layout: ``K = num_libors`` (``swept`` None), one library a
+    model. The stoch-vol kernels keep the curve in registers, K of them,
+    and ``swept`` of them are swept: ``K = swept`` rounded up to a
+    multiple of ``CURVE_ROUND``, at most ``num_libors``, so a model has at
+    most ``ceil(num_libors / 8)`` libraries. On an H100 the registers of
+    10 unswept libors cost 12-18% (K = 40 against 30 for 30 swept libors,
+    ``PERF.md``)."""
+    n, F = int(num_libors), int(num_factors)
+    if swept is None:
+        return (n, F)
+    return (min(n, -(-int(swept) // CURVE_ROUND) * CURVE_ROUND), F)
+
+
+def pricer_defines(K: int, F: int):
+    """The ``nvcc`` defines of the ``(K, F)`` instantiation."""
+    return (("LMM_K", K), ("LMM_F", F))
+
+
 @functools.cache
-def _library() -> ctypes.CDLL:
-    lib = _cuda_build.load(SOURCE)
-    ptr, i32, f32, u64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                          ctypes.c_ulonglong)
-    # volT, l0, deltas, then the scalars, then n (F), S, exercise, periods
-    tail = {"lmm_swaption_paths": [ptr] * 3 + [f32] * 3 + [i32] * 4 + [ptr],
+def _library(K: int, F: int) -> ctypes.CDLL:
+    lib = _cuda_build.load(SOURCE, pricer_defines(K, F), FLAGS)
+    ptr, i32, u64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong,
+                          ctypes.c_float)
+    # packed, width, the scalars, then n (F), swept, S, exercise, periods,
+    # stream
+    tail = {"lmm_swaption_paths": [ptr, i32] + [f32] * 3 + [i32] * 5 + [ptr],
             "lmm_stochvol_swaption_paths":
-                [ptr] * 3 + [f32] * 7 + [i32] * 5 + [ptr]}
+                [ptr, i32] + [f32] * 7 + [i32] * 6 + [ptr]}
     for name, args in tail.items():
         getattr(lib, f"{name}_launch").argtypes = [ptr, i32, u64] + args
         getattr(lib, f"{name}_normals_launch").argtypes = [ptr, ptr, i32] + args
@@ -51,12 +111,38 @@ def _library() -> ctypes.CDLL:
         getattr(lib, f"{name}_normals_launch").restype = i32
     lib.lmm_swaption_paths_error_string.argtypes = [i32]
     lib.lmm_swaption_paths_error_string.restype = ctypes.c_char_p
+    lib.lmm_swaption_paths_variant.argtypes = [i32]
+    lib.lmm_swaption_paths_variant.restype = i32
+    if [lib.lmm_swaption_paths_variant(j) for j in range(2)] != [K, F]:
+        raise RuntimeError(f"{SOURCE}: the library is not the instantiation "
+                           f"K={K}, F={F}")
     return lib
 
 
-def load_kernel() -> None:
-    """Build and load the kernels' library (first use only)."""
-    _library()
+def load_kernel(*variants) -> None:
+    """Build and load the kernels' library for each ``(K, F)`` of
+    ``variants`` (``pricer_variant``; first use only)."""
+    for v in variants:
+        _library(*v)
+
+
+def pack_table(volT, l0, deltas, *, num_factors: int, libors: int,
+               blend=None) -> torch.Tensor:
+    """``[W]`` float32 on ``volT``'s device, the table a kernel block
+    stages for a curve of the first ``libors`` libors
+    (``_products.pack_parameter_sets`` of one set, without its scalars):
+    per libor ``(L0, delta)`` (one factor) or, given the stoch-vol
+    ``blend``, ``(L0, delta, blend * L0, 0)`` (the product rounded to
+    float32, as the kernel's first design rounded it), the libors padded to
+    a multiple of 4, then the loadings step-major ``[S][C][NP][V]``. A
+    fresh contiguous tensor: 16-byte aligned, ``W`` a multiple of 4."""
+    F, n, K = num_factors, l0.shape[0], libors
+    vol = volT.view(F, n, -1)[:, :K].reshape(1, F * K, -1)
+    columns = (l0[:K], deltas[:K])
+    if blend is not None:
+        columns += (l0[:K] * blend, torch.zeros_like(l0[:K]))
+    return pack_parameter_sets(vol, vol.new_empty((1, 0)), columns,
+                               num_factors=F)[0]
 
 
 def as_f32(x, device) -> torch.Tensor:
@@ -98,17 +184,20 @@ def check_paths(num_paths: int) -> int:
     return num_paths
 
 
-def _launch(key: str, payoff: torch.Tensor, head, volT, l0, deltas, scal,
-            ints) -> torch.Tensor:
-    """Launch ``<key>_launch`` with the arguments ``head`` after ``payoff``
-    on the current stream of ``payoff``'s device; raises if it fails."""
-    lib = _library()
+def _launch(key: str, payoff: torch.Tensor, head,
+            launch: PricerLaunch) -> torch.Tensor:
+    """Launch ``<key>_launch`` of the ``launch.variant`` instantiation with
+    the arguments ``head`` after ``payoff``, then the table, scalars and
+    shape of ``launch``, on the current stream of ``payoff``'s device;
+    raises if it fails (a table that the bulk copies cannot stage, or a
+    shape that is not the instantiation's, fails here too)."""
+    lib = _library(*launch.variant)
     device = payoff.device
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, f"{key}_launch")(
-            payoff.data_ptr(), *head, volT.data_ptr(), l0.data_ptr(),
-            deltas.data_ptr(), *scal, *ints, stream)
+            payoff.data_ptr(), *head, launch.table.data_ptr(),
+            launch.table.shape[0], *launch.scalars, *launch.ints, stream)
     if err != 0:
         msg = lib.lmm_swaption_paths_error_string(err).decode()
         raise RuntimeError(f"{key} launch failed: {msg} ({err})")
@@ -116,20 +205,33 @@ def _launch(key: str, payoff: torch.Tensor, head, volT, l0, deltas, scal,
     return payoff
 
 
-def launch_prng(name: str, payoff: torch.Tensor, seed: int, volT, l0, deltas,
-                scal, ints) -> torch.Tensor:
+def launch_prng(name: str, payoff: torch.Tensor, seed: int,
+                launch: PricerLaunch) -> torch.Tensor:
     """Launch the kernel ``name`` drawing its own normals from ``seed``, one
     path per element of ``payoff``."""
-    return _launch(name, payoff, (payoff.shape[0], seed), volT, l0, deltas,
-                   scal, ints)
+    return _launch(name, payoff, (payoff.shape[0], seed), launch)
 
 
-def launch_injected(name: str, payoff: torch.Tensor, z: torch.Tensor, volT,
-                    l0, deltas, scal, ints) -> torch.Tensor:
+def launch_injected(name: str, payoff: torch.Tensor, z: torch.Tensor,
+                    launch: PricerLaunch) -> torch.Tensor:
     """Launch the kernel ``name`` on the normals ``z`` ``[rows,
     payoff.shape[0]]``."""
-    return _launch(f"{name}_normals", payoff, (z.data_ptr(), payoff.shape[0]),
-                   volT, l0, deltas, scal, ints)
+    return _launch(f"{name}_normals", payoff,
+                   (z.data_ptr(), payoff.shape[0]), launch)
+
+
+def check_device(device: torch.device) -> None:
+    """Raise unless the kernels can run on ``device`` (a CUDA device)."""
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+
+
+def check_kernel_shape(n: int, F: int) -> None:
+    """Raise if the kernels cannot sweep ``n`` libors of ``F`` factors."""
+    if not 1 <= F <= MAX_FACTORS or n > MAX_LIBORS:
+        raise ValueError(f"num_factors={F}, num_libors={n} outside the "
+                         f"kernels' 1..{MAX_FACTORS} factors and "
+                         f"{MAX_LIBORS} libors")
 
 
 def running_sum(c: torch.Tensor) -> torch.Tensor:
@@ -137,7 +239,7 @@ def running_sum(c: torch.Tensor) -> torch.Tensor:
     addition after another from 0 (the kernels' order; ``torch.cumsum``
     on the CPU accumulates float32 in float64)."""
     out = torch.empty_like(c)
-    acc = torch.zeros_like(c[0])
+    acc = torch.zeros(c.shape[1:], dtype=c.dtype, device=c.device)
     for k in range(c.shape[0]):
         acc = acc + c[k]
         out[k] = acc

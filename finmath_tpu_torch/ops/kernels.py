@@ -46,6 +46,7 @@ from ..utils.config import select_device
 from . import _cuda_build
 
 SOURCE = "mc_paths.cu"
+FLAGS = ()                    # extra nvcc flags: none (explicit rounding)
 
 #: kernel launches since the last reset, per kernel (plain integers; a run
 #: resets them and reads them to show that its main path went through the

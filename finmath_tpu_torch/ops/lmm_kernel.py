@@ -30,8 +30,12 @@ Inputs keep the engine's layout:
 A launch carries one path a thread; the wrapper packs the parameter sets
 as a block stages them (``_packed``) and launches the ``(K, F, R)``
 instantiation of the source for the shape, built by ``nvcc`` at first use
-(``_products.sweep_variant``). The plain version takes the kernel's running
-sums in its order (``_products.running_sums``, ``bond_prefix``).
+(``_products.sweep_variant``), without FMA contraction
+(``_products.SWEEP_FLAGS``). The plain version takes the kernel's running
+sums in its order (``_products.running_sums``, ``bond_prefix``), so the
+two agree bit for bit on the card; ``lmm_atm_swaptions_partials_reference``
+gives the partials ``[B, tiles, P + E]`` a launch writes, in the kernel's
+order of float64 additions (``_products.tile_partials``).
 
 The single-swaption pricer of the same model at one factor, counterpart of
 ``lmm_swaption_kernel`` and ``lmm_swaption_kernel_with_normals`` (the
@@ -57,13 +61,14 @@ import torch
 from ..utils.config import select_device
 from . import _cuda_build
 from . import _swaption_paths as sp
-from ._products import (MAX_LIBORS, THREADS, Product, bond_prefix,
-                        check_products, check_tensor, pack_parameter_sets,
-                        product_tables, running_sums, sweep_defines,
-                        sweep_variant)
+from ._products import (MAX_LIBORS, SWEEP_FLAGS, THREADS, Product,
+                        bond_prefix, check_products, check_tensor,
+                        pack_parameter_sets, product_tables, running_sums,
+                        sweep_defines, sweep_variant, tile_partials)
 from .kernels import _check_seed, normal_pairs
 
 SOURCE = "lmm_atm_products.cu"
+FLAGS = SWEEP_FLAGS
 MAX_FACTORS = 8               # kMaxFactors in csrc/lmm_sweep.cuh
 
 #: kernel launches since the last reset (plain integer; a run resets it
@@ -73,7 +78,7 @@ LAUNCHES = 0
 
 @functools.cache
 def _library(K: int, F: int, R: int) -> ctypes.CDLL:
-    lib = _cuda_build.load(SOURCE, sweep_defines(K, F, R))
+    lib = _cuda_build.load(SOURCE, sweep_defines(K, F, R), FLAGS)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.lmm_atm_products_launch.argtypes = (
         [ptr, ctypes.c_longlong, ptr, i32] + [ptr] * 6 + [i32] * 7 + [ptr])
@@ -224,6 +229,34 @@ def lmm_atm_swaptions_batch_reference(z, volT_b, scal_b, initial_forwards,
     steps, vectorised over ``[B, libors, paths]``, with the kernel's float32
     arithmetic and its order of additions (``running_sums``,
     ``bond_prefix``) and a float64 path sum."""
+    return _path_values(z, volT_b, scal_b, initial_forwards, deltas,
+                        num_libors=num_libors, num_factors=num_factors,
+                        products=products, events=events,
+                        displaced=displaced, num_paths=num_paths).sum(dim=-1)
+
+
+def lmm_atm_swaptions_partials_reference(z, volT_b, scal_b,
+                                         initial_forwards, deltas, *,
+                                         num_libors: int, num_factors: int,
+                                         products: Sequence[Product],
+                                         events: Sequence[int],
+                                         displaced: bool,
+                                         num_paths: int) -> torch.Tensor:
+    """The float64 partials ``[B, tiles, P + E]`` of one launch (what
+    ``prepare``'s ``go()`` writes), from the plain version's path values in
+    the kernel's order of additions (``_products.tile_partials``)."""
+    return tile_partials(_path_values(
+        z, volT_b, scal_b, initial_forwards, deltas, num_libors=num_libors,
+        num_factors=num_factors, products=products, events=events,
+        displaced=displaced, num_paths=num_paths))
+
+
+def _path_values(z, volT_b, scal_b, initial_forwards, deltas, *,
+                 num_libors: int, num_factors: int,
+                 products: Sequence[Product], events: Sequence[int],
+                 displaced: bool, num_paths: int) -> torch.Tensor:
+    """The plain version's float64 value of every row and path, ``[B, P +
+    E, num_paths]``."""
     n, F = int(num_libors), int(num_factors)
     products = tuple((int(e), int(m), float(k)) for e, m, k in products)
     events = tuple(int(e) for e in events)
@@ -270,8 +303,7 @@ def lmm_atm_swaptions_batch_reference(z, volT_b, scal_b, initial_forwards,
             diffusion = diffusion + lam * (sqrt_dt * z[s * F + f])
         L = torch.where(alive, torch.clamp(L + mu * dt + diffusion, -1e3, 1e3),
                         L)
-    sums = torch.stack(rows, dim=1).to(torch.float64)           # [B, R, paths]
-    return sums.sum(dim=-1)
+    return torch.stack(rows, dim=1).to(torch.float64)           # [B, R, paths]
 
 
 # ---------------------------------------------------------------------------
@@ -333,8 +365,37 @@ def _pricer(volT, l0, deltas, scal, exercise, periods):
     n, S, device = sp.check_inputs(volT, l0, deltas, scal, num_factors=1,
                                    exercise=exercise, periods=periods,
                                    scal_size=4)
-    return device, [float(v) for v in scal[:3].tolist()], (n, S, exercise,
-                                                           periods)
+    return device, S
+
+
+def lmm_swaption_packed(volT, l0, deltas, scal, *, exercise: int,
+                       periods: int) -> sp.PricerLaunch:
+    """What a launch takes (``_swaption_paths.PricerLaunch``): the table a
+    kernel block stages, on ``volT``'s device (``pack_table``), the
+    kernels' instantiation for the model (``pricer_variant``), the scalars
+    ``dt, sqrt_dt, strike`` and the shape ``(n, swept, S, exercise,
+    periods)``, ``swept`` the libors that reach the payoff
+    (``swept_libors``)."""
+    n, S = l0.shape[0], volT.shape[1]
+    sp.check_kernel_shape(n, 1)
+    return sp.PricerLaunch(
+        sp.pack_table(volT, l0, deltas, num_factors=1, libors=n),
+        sp.pricer_variant(n, 1), tuple(float(v) for v in scal[:3].tolist()),
+        (n, sp.swept_libors(S, exercise, periods), S, exercise, periods))
+
+
+def _kernel_payoffs(seed, z, num_paths: int, volT, l0, deltas, scal, *,
+                    exercise: int, periods: int, device) -> torch.Tensor:
+    """One launch on the CUDA ``device``: the table packed where the inputs
+    lie and moved to ``device`` (one copy, for inputs on the CPU), then the
+    PRNG launcher with ``seed`` (``z`` None) or the injected one on ``z``."""
+    launch = lmm_swaption_packed(volT, l0, deltas, scal, exercise=exercise,
+                                periods=periods)
+    launch = launch._replace(table=launch.table.to(device))
+    out = torch.empty(num_paths, dtype=torch.float32, device=device)
+    if z is None:
+        return sp.launch_prng("lmm_swaption_paths", out, seed, launch)
+    return sp.launch_injected("lmm_swaption_paths", out, z, launch)
 
 
 def lmm_swaption_payoffs(seed: int, num_paths: int, volT, l0, deltas, scal,
@@ -343,14 +404,13 @@ def lmm_swaption_payoffs(seed: int, num_paths: int, volT, l0, deltas, scal,
     each path drawing its own normals: the kernel on a CUDA device (one
     launch), ``lmm_swaption_paths_reference`` on the CPU."""
     seed, num_paths = _check_seed(seed), sp.check_paths(num_paths)
-    device, floats, ints = _pricer(volT, l0, deltas, scal, exercise, periods)
+    device, _ = _pricer(volT, l0, deltas, scal, exercise, periods)
     if device.type == "cpu":
         return lmm_swaption_paths_reference(seed, num_paths, volT, l0, deltas,
                                             scal, exercise=exercise,
                                             periods=periods)
-    out = torch.empty(num_paths, dtype=torch.float32, device=device)
-    return sp.launch_prng("lmm_swaption_paths", out, seed, volT, l0, deltas,
-                          floats, ints)
+    return _kernel_payoffs(seed, None, num_paths, volT, l0, deltas, scal,
+                           exercise=exercise, periods=periods, device=device)
 
 
 def lmm_swaption_payoffs_injected(z, volT, l0, deltas, scal, *,
@@ -359,17 +419,15 @@ def lmm_swaption_payoffs_injected(z, volT, l0, deltas, scal, *,
     """payoff / N of each path on the normals ``z`` ``[S, num_paths]``
     float32: the kernel on a CUDA device, ``lmm_swaption_payoffs_with_normals``
     on the CPU."""
-    device, floats, ints = _pricer(volT, l0, deltas, scal, exercise, periods)
-    S = ints[1]
+    device, S = _pricer(volT, l0, deltas, scal, exercise, periods)
     num_paths = sp.check_paths(z.shape[1] if z.dim() == 2 else 0)
     check_tensor("normals", z, (S, num_paths), torch.float32, device)
     if device.type == "cpu":
         return lmm_swaption_payoffs_with_normals(z, volT, l0, deltas, scal,
                                                  exercise=exercise,
                                                  periods=periods)
-    out = torch.empty(num_paths, dtype=torch.float32, device=device)
-    return sp.launch_injected("lmm_swaption_paths", out, z, volT, l0, deltas,
-                              floats, ints)
+    return _kernel_payoffs(0, z, num_paths, volT, l0, deltas, scal,
+                           exercise=exercise, periods=periods, device=device)
 
 
 def _check_libors(num_libors: int, l0: torch.Tensor) -> None:
@@ -387,14 +445,20 @@ def lmm_swaption_kernel(seed: int, num_paths: int, num_libors: int,
     the float64 mean as a 0-d tensor on ``device`` (default
     ``select_device()``). ``vol_table`` ``[>= num_steps, n]`` holds
     ``sigma_i(t_s) * R[i, 0]``; ``num_steps`` should be the exercise step
-    (simulating past it is wasted work)."""
+    (simulating past it is wasted work). The inputs are packed on the host
+    and reach the card as one table."""
     device = torch.device(device) if device is not None else select_device()
-    volT, l0, dl, scal = lmm_swaption_inputs(vol_table, initial_forwards,
-                                             deltas, num_steps, dt, strike,
-                                             device)
-    _check_libors(num_libors, l0)
-    return sp.mean(lmm_swaption_payoffs(seed, num_paths, volT, l0, dl, scal,
-                                        exercise=exercise, periods=periods))
+    args = lmm_swaption_inputs(vol_table, initial_forwards, deltas,
+                               num_steps, dt, strike, "cpu")
+    _check_libors(num_libors, args[1])
+    swap = dict(exercise=exercise, periods=periods)
+    if device.type == "cpu":
+        return sp.mean(lmm_swaption_payoffs(seed, num_paths, *args, **swap))
+    sp.check_device(device)
+    seed, num_paths = _check_seed(seed), sp.check_paths(num_paths)
+    _pricer(*args, exercise, periods)
+    return sp.mean(_kernel_payoffs(seed, None, num_paths, *args, **swap,
+                                   device=device))
 
 
 def lmm_swaption_kernel_with_normals(normals, num_libors: int, exercise: int,
@@ -403,7 +467,8 @@ def lmm_swaption_kernel_with_normals(normals, num_libors: int, exercise: int,
                                      device=None) -> torch.Tensor:
     """The same price on given standard normals ``[num_steps, num_paths]``
     (step ``s`` uses row ``s``), on the device of ``normals`` if it is a
-    tensor, else on ``device`` (default ``select_device()``)."""
+    tensor, else on ``device`` (default ``select_device()``). The other
+    inputs are packed on the host and reach the card as one table."""
     if device is None:
         device = normals.device if isinstance(normals, torch.Tensor) \
             else select_device()
@@ -411,9 +476,14 @@ def lmm_swaption_kernel_with_normals(normals, num_libors: int, exercise: int,
     z = sp.as_f32(normals, device)
     if z.dim() != 2:
         raise ValueError("normals must be [num_steps, num_paths]")
-    volT, l0, dl, scal = lmm_swaption_inputs(vol_table, initial_forwards,
-                                             deltas, z.shape[0], dt, strike,
-                                             device)
-    _check_libors(num_libors, l0)
-    return sp.mean(lmm_swaption_payoffs_injected(
-        z, volT, l0, dl, scal, exercise=exercise, periods=periods))
+    args = lmm_swaption_inputs(vol_table, initial_forwards, deltas,
+                               z.shape[0], dt, strike, "cpu")
+    _check_libors(num_libors, args[1])
+    swap = dict(exercise=exercise, periods=periods)
+    if device.type == "cpu":
+        return sp.mean(lmm_swaption_payoffs_injected(z, *args, **swap))
+    sp.check_device(device)
+    num_paths = sp.check_paths(z.shape[1])
+    _pricer(*args, exercise, periods)
+    return sp.mean(_kernel_payoffs(0, z, num_paths, *args, **swap,
+                                   device=device))

@@ -31,8 +31,13 @@ Inputs keep the engine's layout:
 A launch carries one path a thread; the wrapper packs the parameter sets
 as a block stages them (``_packed``) and launches the ``(K, F, R)``
 instantiation of the source for the shape, built by ``nvcc`` at first use
-(``_products.sweep_variant``). The plain version takes the kernel's running
-sums in its order (``_products.running_sums``, ``bond_prefix``).
+(``_products.sweep_variant``), without FMA contraction
+(``_products.SWEEP_FLAGS``). The plain version takes the kernel's running
+sums in its order (``_products.running_sums``, ``bond_prefix``), so the
+two agree bit for bit on the card;
+``lmm_stochvol_swaptions_partials_reference`` gives the partials ``[B,
+tiles, P]`` a launch writes, in the kernel's order of float64 additions
+(``_products.tile_partials``).
 
 The single-swaption pricer of the same model family, counterpart of
 ``lmm_stochvol_swaption_kernel`` and ``..._with_normals`` (the Pallas
@@ -58,13 +63,14 @@ import torch
 from ..utils.config import select_device
 from . import _cuda_build
 from . import _swaption_paths as sp
-from ._products import (MAX_LIBORS, THREADS, Product, bond_prefix,
-                        check_products, check_tensor, pack_parameter_sets,
-                        product_tables, running_sums, sweep_defines,
-                        sweep_variant)
+from ._products import (MAX_LIBORS, SWEEP_FLAGS, THREADS, Product,
+                        bond_prefix, check_products, check_tensor,
+                        pack_parameter_sets, product_tables, running_sums,
+                        sweep_defines, sweep_variant, tile_partials)
 from .kernels import _check_seed, normal_pairs
 
 SOURCE = "lmm_stochvol_products.cu"
+FLAGS = SWEEP_FLAGS
 MAX_FACTORS = 8               # kMaxFactors in csrc/lmm_sweep.cuh
 LOG_V_CAP = 13.815511         # log(1e6), the engine's cap of V
 
@@ -75,7 +81,7 @@ LAUNCHES = 0
 
 @functools.cache
 def _library(K: int, F: int, R: int) -> ctypes.CDLL:
-    lib = _cuda_build.load(SOURCE, sweep_defines(K, F, R))
+    lib = _cuda_build.load(SOURCE, sweep_defines(K, F, R), FLAGS)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.lmm_stochvol_products_launch.argtypes = (
         [ptr, ctypes.c_longlong, ptr, i32] + [ptr] * 5 + [i32] * 5 + [ptr])
@@ -201,6 +207,29 @@ def lmm_stochvol_swaptions_batch_reference(z, volT_b, scal_b,
     steps, vectorised over ``[B, libors, paths]``, with the kernel's float32
     arithmetic and its order of additions (``running_sums``,
     ``bond_prefix``) and a finite-masked float64 path sum."""
+    return _path_values(z, volT_b, scal_b, initial_forwards, deltas,
+                        num_libors=num_libors, num_factors=num_factors,
+                        products=products, num_paths=num_paths).sum(dim=-1)
+
+
+def lmm_stochvol_swaptions_partials_reference(
+        z, volT_b, scal_b, initial_forwards, deltas, *, num_libors: int,
+        num_factors: int, products: Sequence[Product],
+        num_paths: int) -> torch.Tensor:
+    """The float64 partials ``[B, tiles, P]`` of one launch (what
+    ``prepare``'s ``go()`` writes), from the plain version's path values in
+    the kernel's order of additions (``_products.tile_partials``)."""
+    return tile_partials(_path_values(
+        z, volT_b, scal_b, initial_forwards, deltas, num_libors=num_libors,
+        num_factors=num_factors, products=products, num_paths=num_paths))
+
+
+def _path_values(z, volT_b, scal_b, initial_forwards, deltas, *,
+                 num_libors: int, num_factors: int,
+                 products: Sequence[Product],
+                 num_paths: int) -> torch.Tensor:
+    """The plain version's float64 discounted payoff of every product and
+    path, ``[B, P, num_paths]``, a non-finite value 0.0."""
     n, F = int(num_libors), int(num_factors)
     products = tuple((int(e), int(m), float(k)) for e, m, k in products)
     S = check_products(products, n)
@@ -250,8 +279,7 @@ def lmm_stochvol_swaptions_batch_reference(z, volT_b, scal_b,
         logV = torch.clamp_max(logV + nu * dw_v - 0.5 * nu * nu * dt,
                                LOG_V_CAP)
     paid = torch.stack(rows, dim=1)                             # [B, P, paths]
-    paid = torch.where(torch.isfinite(paid), paid, 0.0).to(torch.float64)
-    return paid.sum(dim=-1)
+    return torch.where(torch.isfinite(paid), paid, 0.0).to(torch.float64)
 
 
 # ---------------------------------------------------------------------------
@@ -360,8 +388,43 @@ def _pricer(volT, l0, deltas, scal, exercise, periods):
     n, S, device = sp.check_inputs(volT, l0, deltas, scal, num_factors=F,
                                    exercise=exercise, periods=periods,
                                    scal_size=8)
-    return device, F, [float(v) for v in scal[:7].tolist()], \
-        (n, F, S, exercise, periods)
+    return device, F, S
+
+
+def lmm_stochvol_swaption_packed(volT, l0, deltas, scal, *, exercise: int,
+                                periods: int) -> sp.PricerLaunch:
+    """What a launch takes (``_swaption_paths.PricerLaunch``): the kernels'
+    instantiation ``(K, F)`` for the libors that reach the payoff
+    (``swept_libors``, ``pricer_variant``), the table a kernel block stages
+    for the first K libors, on ``volT``'s device (``pack_table``), the
+    scalars ``dt, sqrt_dt, strike, blend, nu, rho, sqrt(1 - rho^2)`` and
+    the shape ``(K, F, swept, S, exercise, periods)``."""
+    n, S = l0.shape[0], volT.shape[1]
+    F = volT.shape[0] // n
+    sp.check_kernel_shape(n, F)
+    swept = sp.swept_libors(S, exercise, periods)
+    variant = sp.pricer_variant(n, F, swept)
+    K = variant[0]
+    scalars = tuple(float(v) for v in scal[:7].tolist())
+    return sp.PricerLaunch(
+        sp.pack_table(volT, l0, deltas, num_factors=F, libors=K,
+                      blend=scalars[3]),
+        variant, scalars, (K, F, swept, S, exercise, periods))
+
+
+def _kernel_payoffs(seed, z, num_paths: int, volT, l0, deltas, scal, *,
+                    exercise: int, periods: int, device) -> torch.Tensor:
+    """One launch on the CUDA ``device``: the table packed where the inputs
+    lie and moved to ``device`` (one copy, for inputs on the CPU), then the
+    PRNG launcher with ``seed`` (``z`` None) or the injected one on ``z``."""
+    launch = lmm_stochvol_swaption_packed(volT, l0, deltas, scal,
+                                         exercise=exercise, periods=periods)
+    launch = launch._replace(table=launch.table.to(device))
+    out = torch.empty(num_paths, dtype=torch.float32, device=device)
+    if z is None:
+        return sp.launch_prng("lmm_stochvol_swaption_paths", out, seed,
+                              launch)
+    return sp.launch_injected("lmm_stochvol_swaption_paths", out, z, launch)
 
 
 def lmm_stochvol_swaption_payoffs(seed: int, num_paths: int, volT, l0,
@@ -371,15 +434,13 @@ def lmm_stochvol_swaption_payoffs(seed: int, num_paths: int, volT, l0,
     each path drawing its own normals: the kernel on a CUDA device (one
     launch), ``lmm_stochvol_swaption_paths_reference`` on the CPU."""
     seed, num_paths = _check_seed(seed), sp.check_paths(num_paths)
-    device, _, floats, ints = _pricer(volT, l0, deltas, scal, exercise,
-                                      periods)
+    device, _, _ = _pricer(volT, l0, deltas, scal, exercise, periods)
     if device.type == "cpu":
         return lmm_stochvol_swaption_paths_reference(
             seed, num_paths, volT, l0, deltas, scal, exercise=exercise,
             periods=periods)
-    out = torch.empty(num_paths, dtype=torch.float32, device=device)
-    return sp.launch_prng("lmm_stochvol_swaption_paths", out, seed, volT, l0,
-                          deltas, floats, ints)
+    return _kernel_payoffs(seed, None, num_paths, volT, l0, deltas, scal,
+                           exercise=exercise, periods=periods, device=device)
 
 
 def lmm_stochvol_swaption_payoffs_injected(z, volT, l0, deltas, scal, *,
@@ -388,17 +449,15 @@ def lmm_stochvol_swaption_payoffs_injected(z, volT, l0, deltas, scal, *,
     """payoff / N of each path on the normals ``z`` ``[S * (F + 1),
     num_paths]`` float32: the kernel on a CUDA device,
     ``lmm_stochvol_swaption_payoffs_with_normals`` on the CPU."""
-    device, F, floats, ints = _pricer(volT, l0, deltas, scal, exercise,
-                                      periods)
-    rows = ints[2] * (F + 1)
+    device, F, S = _pricer(volT, l0, deltas, scal, exercise, periods)
+    rows = S * (F + 1)
     num_paths = sp.check_paths(z.shape[1] if z.dim() == 2 else 0)
     check_tensor("normals", z, (rows, num_paths), torch.float32, device)
     if device.type == "cpu":
         return lmm_stochvol_swaption_payoffs_with_normals(
             z, volT, l0, deltas, scal, exercise=exercise, periods=periods)
-    out = torch.empty(num_paths, dtype=torch.float32, device=device)
-    return sp.launch_injected("lmm_stochvol_swaption_paths", out, z, volT,
-                              l0, deltas, floats, ints)
+    return _kernel_payoffs(0, z, num_paths, volT, l0, deltas, scal,
+                           exercise=exercise, periods=periods, device=device)
 
 
 def _check_shape(num_libors: int, num_factors: int, volT, l0) -> None:
@@ -418,15 +477,22 @@ def lmm_stochvol_swaption_kernel(seed: int, num_paths: int, num_libors: int,
     """Monte-Carlo E[payoff / N(T_e)] of a payer swaption under the
     stoch-vol benchmark LMM, every path in one kernel launch: the float64
     mean as a 0-d tensor on ``device`` (default ``select_device()``).
-    ``vol_table`` ``[>= num_steps, n]``, ``factor_matrix`` ``[n, F]``."""
+    ``vol_table`` ``[>= num_steps, n]``, ``factor_matrix`` ``[n, F]``. The
+    inputs are packed on the host and reach the card as one table."""
     device = torch.device(device) if device is not None else select_device()
-    volT, l0, dl, scal = lmm_stochvol_swaption_inputs(
+    args = lmm_stochvol_swaption_inputs(
         vol_table, factor_matrix, initial_forwards, deltas, num_steps, dt,
-        strike, blend, nu, rho, device)
-    _check_shape(num_libors, num_factors, volT, l0)
-    return sp.mean(lmm_stochvol_swaption_payoffs(
-        seed, num_paths, volT, l0, dl, scal, exercise=exercise,
-        periods=periods))
+        strike, blend, nu, rho, "cpu")
+    _check_shape(num_libors, num_factors, args[0], args[1])
+    swap = dict(exercise=exercise, periods=periods)
+    if device.type == "cpu":
+        return sp.mean(lmm_stochvol_swaption_payoffs(seed, num_paths, *args,
+                                                     **swap))
+    sp.check_device(device)
+    seed, num_paths = _check_seed(seed), sp.check_paths(num_paths)
+    _pricer(*args, exercise, periods)
+    return sp.mean(_kernel_payoffs(seed, None, num_paths, *args, **swap,
+                                   device=device))
 
 
 def lmm_stochvol_swaption_kernel_with_normals(
@@ -436,7 +502,8 @@ def lmm_stochvol_swaption_kernel_with_normals(
     """The same price on given standard normals ``[num_steps * (num_factors
     + 1), num_paths]`` (rows step-major: factors 0..F-1, then the normal of
     V), on the device of ``normals`` if it is a tensor, else on ``device``
-    (default ``select_device()``)."""
+    (default ``select_device()``). The other inputs are packed on the host
+    and reach the card as one table."""
     rows, _ = normals.shape
     num_steps = rows // (num_factors + 1)
     if num_steps * (num_factors + 1) != rows:
@@ -446,9 +513,15 @@ def lmm_stochvol_swaption_kernel_with_normals(
             else select_device()
     device = torch.device(device)
     z = sp.as_f32(normals, device)
-    volT, l0, dl, scal = lmm_stochvol_swaption_inputs(
+    args = lmm_stochvol_swaption_inputs(
         vol_table, factor_matrix, initial_forwards, deltas, num_steps, dt,
-        strike, blend, nu, rho, device)
-    _check_shape(num_libors, num_factors, volT, l0)
-    return sp.mean(lmm_stochvol_swaption_payoffs_injected(
-        z, volT, l0, dl, scal, exercise=exercise, periods=periods))
+        strike, blend, nu, rho, "cpu")
+    _check_shape(num_libors, num_factors, args[0], args[1])
+    swap = dict(exercise=exercise, periods=periods)
+    if device.type == "cpu":
+        return sp.mean(lmm_stochvol_swaption_payoffs_injected(z, *args,
+                                                              **swap))
+    sp.check_device(device)
+    _pricer(*args, exercise, periods)
+    return sp.mean(_kernel_payoffs(0, z, sp.check_paths(z.shape[1]), *args,
+                                   **swap, device=device))

@@ -172,12 +172,34 @@ def test_plain_version_matches_cumsum_order(F, displaced):
     np.testing.assert_allclose(got, ref, rtol=RTOL, atol=1e-7 * ODD_PATHS)
 
 
+@pytest.mark.parametrize("F,displaced", [(1, False), (2, True)])
+def test_partials_reference_sums_to_reference(F, displaced):
+    """The plain partials (the kernel's order of float64 additions) sum
+    over the tiles to the plain path sums within 1e-12 relative."""
+    args, kw = _odd_inputs(F, displaced)
+    partials = lmm_kernel.lmm_atm_swaptions_partials_reference(*args, **kw)
+    ref = lmm_kernel.lmm_atm_swaptions_batch_reference(*args, **kw)
+    assert partials.dtype == torch.float64
+    assert tuple(partials.shape) == (B, 1, len(ODD_PRODUCTS)
+                                     + len(ODD_EVENTS))
+    np.testing.assert_allclose(partials.sum(dim=1).numpy(), ref.numpy(),
+                               rtol=1e-12)
+
+
+def _launch_partials(args, kw):
+    """The partials ``[B, tiles, P + E]`` of one kernel launch."""
+    go, partials = lmm_kernel.prepare(*args, **kw)
+    go()
+    return partials
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("displaced", [False, True])
 def test_cuda_kernel_matches_plain_version(displaced):
     """Through the wrapper, and at 13 libors (a partial row chunk) at B = 3
     and at the FD batch B = 87, each against the plain version; a second
-    launch is bitwise equal."""
+    launch is bitwise equal, and a launch's partials equal the plain
+    partials bit for bit (no FMA contraction)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     cuda = [torch.from_numpy(a).cuda() for a in _inputs(displaced)]
@@ -191,9 +213,16 @@ def test_cuda_kernel_matches_plain_version(displaced):
                                                        **_kw(displaced))
     np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
                                rtol=RTOL, atol=ATOL)
+    assert torch.equal(
+        _launch_partials(cuda, _kw(displaced)),
+        lmm_kernel.lmm_atm_swaptions_partials_reference(*cuda,
+                                                        **_kw(displaced)))
     for batch in (B, 87):
         args, kw = _odd_inputs(1 if displaced else 2, displaced, B_=batch)
         args = [a.cuda() for a in args]
+        assert torch.equal(
+            _launch_partials(args, kw),
+            lmm_kernel.lmm_atm_swaptions_partials_reference(*args, **kw))
         got = lmm_kernel.lmm_atm_swaptions_batch(*args, **kw)
         assert torch.equal(got, lmm_kernel.lmm_atm_swaptions_batch(*args,
                                                                    **kw))

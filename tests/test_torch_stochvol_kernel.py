@@ -179,11 +179,32 @@ def test_plain_version_matches_cumsum_order(F):
     np.testing.assert_allclose(got, ref, rtol=RTOL, atol=1e-7 * ODD_PATHS)
 
 
+@pytest.mark.parametrize("F", [1, 5])
+def test_partials_reference_sums_to_reference(F):
+    """The plain partials (the kernel's order of float64 additions) sum
+    over the tiles to the plain path sums within 1e-12 relative."""
+    args, kw = _odd_inputs(F)
+    partials = svk.lmm_stochvol_swaptions_partials_reference(*args, **kw)
+    ref = svk.lmm_stochvol_swaptions_batch_reference(*args, **kw)
+    assert partials.dtype == torch.float64
+    assert tuple(partials.shape) == (B, 1, len(ODD_PRODUCTS))
+    np.testing.assert_allclose(partials.sum(dim=1).numpy(), ref.numpy(),
+                               rtol=1e-12)
+
+
+def _launch_partials(args, kw):
+    """The partials ``[B, tiles, P]`` of one kernel launch."""
+    go, partials = svk.prepare(*args, **kw)
+    go()
+    return partials
+
+
 @pytest.mark.gpu
 def test_cuda_kernel_matches_plain_version():
     """Through the wrapper, and at 11 libors (a partial row chunk) with
     F = 1 and 5 at B = 3 and the FD batch B = 17, each against the plain
-    version; a second launch is bitwise equal."""
+    version; a second launch is bitwise equal, and a launch's partials
+    equal the plain partials bit for bit (no FMA contraction)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     cuda = [torch.from_numpy(a).cuda() for a in _inputs()]
@@ -196,9 +217,15 @@ def test_cuda_kernel_matches_plain_version():
     ref = svk.lmm_stochvol_swaptions_batch_reference(*cuda, **KW)
     np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
                                rtol=RTOL, atol=ATOL)
+    assert torch.equal(_launch_partials(cuda, KW),
+                       svk.lmm_stochvol_swaptions_partials_reference(*cuda,
+                                                                     **KW))
     for F, batch in ((1, B), (5, B), (5, 17)):
         args, kw = _odd_inputs(F, B_=batch)
         args = [a.cuda() for a in args]
+        assert torch.equal(
+            _launch_partials(args, kw),
+            svk.lmm_stochvol_swaptions_partials_reference(*args, **kw))
         got = svk.lmm_stochvol_swaptions_batch(*args, **kw)
         assert torch.equal(got, svk.lmm_stochvol_swaptions_batch(*args, **kw))
         ref = svk.lmm_stochvol_swaptions_batch_reference(*args, **kw)

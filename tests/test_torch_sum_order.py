@@ -10,7 +10,10 @@ columns). The tests here hold the plain versions' helpers to them, and to
 NumPy's float32 ``cumsum``, bit for bit on random inputs; ``recording`` and
 ``assert_kernel_order`` let the kernel test files do the same for every
 running sum of a whole plain sweep. The packing tests hold the parameter
-table a kernel block stages to the layout the kernels read."""
+table a kernel block stages to the layout the kernels read. The partials
+tests hold ``_products.tile_partials`` to the kernels' float64 path
+reduction (a warp's ``__shfl_down_sync`` tree, then the warps of a tile
+one after another), emulated lane by lane in NumPy."""
 
 import contextlib
 
@@ -19,7 +22,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from finmath_tpu_torch.ops import _products  # noqa: E402
+from finmath_tpu_torch.ops import _cuda_build, _products  # noqa: E402
 
 
 def ordered_running_sums(c, first):
@@ -212,3 +215,69 @@ def test_sweep_variant():
     assert _products.sweep_defines(40, 5, 4) == (
         ("LMM_K", 40), ("LMM_F", 5), ("LMM_R", 4))
     assert _products.MAX_LIBORS == 128 and _products.THREADS == 256
+
+
+def emulated_tile_partials(values):
+    """The products kernels' reduction of ``values`` float64 ``[B, R,
+    paths]``, lane by lane: each warp's ``__shfl_down_sync`` tree (lane
+    ``i`` adds lane ``i + offset``, a lane past 31 reading its own value),
+    lane 0's sum per warp, then ``acc = warp 0; acc += warp 1 .. 7`` per
+    tile; paths past the end are 0.0. Returns ``[B, tiles, R]``."""
+    B, R, paths = values.shape
+    threads, warp = _products.THREADS, 32
+    tiles = -(-paths // threads)
+    v = np.zeros((B, R, tiles * threads))
+    v[..., :paths] = values
+    out = np.zeros((B, tiles, R))
+    for t in range(tiles):
+        acc = None
+        for w in range(threads // warp):
+            lanes = v[..., t * threads + w * warp:
+                      t * threads + (w + 1) * warp].copy()
+            for off in (16, 8, 4, 2, 1):
+                other = lanes.copy()
+                other[..., :warp - off] = lanes[..., off:]
+                lanes = lanes + other
+            acc = lanes[..., 0] if acc is None else acc + lanes[..., 0]
+        out[:, t] = acc
+    return out
+
+
+@pytest.mark.parametrize("paths", [1, 255, 256, 600])
+def test_tile_partials_follow_kernel_order(paths):
+    """``tile_partials`` is the kernels' reduction bit for bit; its tiles
+    sum to the float64 path sum within 1e-12 relative, and the tail past
+    the last path adds nothing."""
+    rng = np.random.default_rng(paths)
+    values = rng.standard_normal((2, 3, paths)) * 10.0 ** rng.integers(
+        -3, 4, (2, 3, paths))
+    got = _products.tile_partials(torch.from_numpy(values))
+    tiles = -(-paths // _products.THREADS)
+    assert got.dtype == torch.float64 and tuple(got.shape) == (2, tiles, 3)
+    want = emulated_tile_partials(values)
+    assert np.array_equal(got.numpy().view(np.uint64), want.view(np.uint64))
+    np.testing.assert_allclose(got.numpy().sum(axis=1), values.sum(axis=-1),
+                               rtol=1e-12, atol=1e-12 * np.abs(values).sum())
+    padded = np.concatenate([values, np.zeros((2, 3, 7))], axis=-1)
+    assert torch.equal(_products.tile_partials(torch.from_numpy(padded))[
+        :, :tiles], got)
+
+
+def test_products_build_without_contraction():
+    """The two products sources build with ``-fmad=false``, which names
+    another library than the same source without it; the path and pricer
+    sources keep the default flags (they round explicitly)."""
+    from finmath_tpu_torch.ops import (_swaption_paths, kernels, lmm_kernel,
+                                       lmm_stochvol_kernel)
+
+    assert _products.SWEEP_FLAGS == ("-fmad=false",)
+    assert lmm_kernel.FLAGS == lmm_stochvol_kernel.FLAGS == \
+        _products.SWEEP_FLAGS
+    assert kernels.FLAGS == _swaption_paths.FLAGS == ()
+    defines = _products.sweep_defines(80, 1, 8)
+    plain = _cuda_build.library_path(lmm_kernel.SOURCE, defines)
+    no_fma = _cuda_build.library_path(lmm_kernel.SOURCE, defines,
+                                      lmm_kernel.FLAGS)
+    assert plain != no_fma and plain.parent == no_fma.parent
+    assert no_fma == _cuda_build.library_path(lmm_kernel.SOURCE, defines,
+                                              ("-fmad=false",))

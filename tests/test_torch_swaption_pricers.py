@@ -19,7 +19,12 @@ The port fixes the sign of each eigen-reduced factor; where the benchmark
 setup crosses the packages, the loaded JAX module is given the port's
 signs (a patch of the loaded module only), so that both price one model.
 
-The ``gpu`` tests need a card and no JAX; on a machine with the card:
+The table a kernel block stages is held to the inputs it packs; the
+``gpu`` tests hold each launcher to its plain version bit for bit (also on a
+cut and on a whole curve at 1,003 paths, a ragged last block); the
+pricers sweep the libors that reach the payoff alone, and a
+test holds the plain payoffs on those libors to the whole curve's. The
+``gpu`` tests need a card and no JAX; on a machine with the card:
 ``python -m pytest tests/test_torch_swaption_pricers.py -m gpu --noconftest``."""
 
 import shutil
@@ -348,6 +353,110 @@ def test_library_name_follows_the_shared_headers(tmp_path, monkeypatch):
     assert _cuda_build.library_path("mc_paths.cu") != after["mc_paths.cu"]
 
 
+# -- the kernels' instantiations and staged tables ---------------------------
+
+def test_pricer_variant():
+    """The 1-factor kernels: one instantiation a model (libors, factors);
+    the stoch-vol ones: a curve of the swept libors rounded up to 8, at
+    most the model's; a launch sweeps the libors up to the swap's end and
+    the last step's fixing; the kernels refuse more than 128 libors or 8
+    factors."""
+    assert sp.pricer_variant(80, 1) == (80, 1)
+    assert sp.pricer_variant(40, 5, 30) == (32, 5)
+    assert sp.pricer_variant(40, 5, 21) == (24, 5)
+    assert sp.pricer_variant(40, 5, 40) == (40, 5)
+    assert sp.pricer_variant(37, 3, 37) == (37, 3)
+    assert sp.pricer_variant(40, 1, 16) == (16, 1)
+    assert sp.pricer_defines(40, 5) == (("LMM_K", 40), ("LMM_F", 5))
+    assert sp.swept_libors(10, 10, 20) == 30          # the main path
+    assert sp.swept_libors(1, 1, 20) == 21
+    assert sp.swept_libors(35, 10, 20) == 35          # steps past the swap
+    sp.check_kernel_shape(128, 8)
+    for n, F in ((129, 1), (40, 9), (40, 0)):
+        with pytest.raises(ValueError):
+            sp.check_kernel_shape(n, F)
+
+
+@pytest.mark.parametrize("kind,n,F,e,m", [("one_factor", 8, 1, 2, 4),
+                                          ("one_factor", 37, 1, 6, 20),
+                                          ("stochvol", 13, 3, 3, 5),
+                                          ("stochvol", 40, 5, 10, 20)])
+def test_pricer_table_packing(kind, n, F, e, m):
+    """The table a block stages: per libor (L0, delta) or (L0, delta,
+    blend L0, 0), the libors padded to a multiple of 4, the loadings
+    step-major [S][C][NP][V] with F padded to 1, 2, 4 or 8, padding zero;
+    16-byte aligned, a whole number of 16-byte chunks; the values read back
+    equal the pricer's inputs, and the scalars and the swept libors go as
+    launch arguments."""
+    from finmath_tpu_torch.ops._products import loading_layout
+
+    rng = np.random.default_rng(n + F)
+    S_ = 6
+    l0 = 0.02 + 0.002 * np.sin(np.arange(n))
+    deltas = np.where(np.arange(n) % 2 == 0, 0.4, 0.6)
+    vol_table = (0.01 + 0.2 * rng.random((S_, n))).astype(np.float32)
+    if kind == "one_factor":
+        volT, l0_t, d_t, scal = k1.lmm_swaption_inputs(
+            vol_table, l0, deltas, S_, DT, STRIKE, "cpu")
+        launch = k1.lmm_swaption_packed(volT, l0_t, d_t, scal, exercise=e,
+                                       periods=m)
+        Q = 2
+    else:
+        A = rng.standard_normal((n, F))
+        R = (A / np.linalg.norm(A, axis=1, keepdims=True)).astype(np.float32)
+        volT, l0_t, d_t, scal = ksv.lmm_stochvol_swaption_inputs(
+            vol_table, R, l0, deltas, S_, DT, STRIKE, BLEND, NU, RHO, "cpu")
+        launch = ksv.lmm_stochvol_swaption_packed(volT, l0_t, d_t, scal,
+                                                 exercise=e, periods=m)
+        Q = 4
+    swept = max(e + m, S_)
+    K = n if Q == 2 else min(n, -(-swept // 8) * 8)   # the curve's libors
+    table = launch.table
+    assert launch.variant == ((K, F) if Q == 2
+                              else sp.pricer_variant(n, F, swept))
+    assert launch.ints == ((K, swept, S_, e, m) if Q == 2
+                           else (K, F, swept, S_, e, m))
+    assert launch.scalars == tuple(float(v) for v in
+                                   scal[:3 if Q == 2 else 7].tolist())
+    NP = -(-K // 4) * 4
+    C, V = loading_layout(F)
+    assert table.dtype == torch.float32 and table.is_contiguous()
+    assert tuple(table.shape) == (Q * NP + S_ * C * NP * V,)
+    assert table.shape[0] % 4 == 0 and table.data_ptr() % 16 == 0
+    cols = table[:Q * NP].view(NP, Q)
+    assert torch.equal(cols[:K, 0], l0_t[:K])
+    assert torch.equal(cols[:K, 1], d_t[:K]) and not cols[K:].any()
+    if Q == 4:
+        assert torch.equal(cols[:K, 2], scal[3] * l0_t[:K])
+        assert not cols[:, 3].any()
+    tab = table[Q * NP:].view(S_, C, NP, V)
+    vol = volT.view(F, n, S_)
+    for f in range(F):
+        assert torch.equal(tab[:, f // V, :K, f % V], vol[f, :K].T)
+    loadings = tab.permute(0, 2, 1, 3).reshape(S_, NP, C * V)
+    assert not loadings[..., F:].any() and not loadings[:, K:].any()
+
+
+@pytest.mark.parametrize("kind", sorted(PRICERS))
+def test_swept_libors_give_the_same_payoffs(kind):
+    """The libors above the swap's end and the last fixing reach neither
+    the numeraire nor the payoff: the plain pricer on the swept libors
+    alone gives every path's payoff bit for bit."""
+    (volT, l0, deltas, scal), k = _packed(kind, uniform=False)
+    swap = dict(exercise=1, periods=3)
+    K = sp.swept_libors(STEPS, **swap)
+    assert K < N_LIBORS
+    F = volT.shape[0] // N_LIBORS
+    cut = (volT.view(F, N_LIBORS, STEPS)[:, :K].reshape(F * K, STEPS),
+           l0[:K], deltas[:K], scal)
+    z = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (STEPS * k, PATHS)).astype(np.float32))
+    injected = PRICERS[kind][1]
+    full = injected(z, volT, l0, deltas, scal, **swap)
+    assert bool(torch.isfinite(full).all()) and float(full.max()) > 0
+    assert torch.equal(injected(z, *cut, **swap), full)
+
+
 # -- the CUDA kernels on a card ------------------------------------------------
 
 @pytest.mark.gpu
@@ -371,9 +480,52 @@ def test_cuda_kernels_match_plain_versions(kind):
     torch.cuda.synchronize()
     assert sum(sp.LAUNCHES.values()) == sum(launches.values()) + 2
     assert torch.equal(got, got_z)
-    for kernel, plain in ((got, plain_prng(11, PATHS, volT, l0, deltas, scal,
-                                           **SWAP)),
-                          (got_z, plain_injected(z, volT, l0, deltas, scal,
-                                                 **SWAP))):
-        np.testing.assert_allclose(kernel.cpu().numpy(), plain.cpu().numpy(),
-                                   rtol=1e-5, atol=1e-7)
+    assert torch.equal(got, plain_prng(11, PATHS, volT, l0, deltas, scal,
+                                       **SWAP))
+    assert torch.equal(got_z, plain_injected(z, volT, l0, deltas, scal,
+                                             **SWAP))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exercise", [6, 17])
+@pytest.mark.parametrize("kind", sorted(PRICERS))
+def test_cuda_kernels_equal_plain_versions_on_a_cut_curve(kind, exercise):
+    """At 37 libors, 1,003 paths (a ragged last block) and 6 steps, a
+    20-period swap from libor 6 (26 libors swept, the curve cut) or from
+    libor 17 (ending on the last libor, every libor swept): each of the
+    two launchers of the kind equals its plain version bit for bit, and
+    the PRNG launch the injected one on its own stream."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    n, paths, steps, F = 37, 1003, 6, 3
+    swap = dict(exercise=exercise, periods=20)
+    rng = np.random.default_rng(37)
+    l0 = 0.02 + 0.002 * np.sin(np.arange(n))
+    deltas = np.where(np.arange(n) % 2 == 0, 0.4, 0.6)
+    if kind == "one_factor":
+        vol_table = (0.008 + 0.004 * rng.random((steps, n))).astype(
+            np.float32)
+        args = k1.lmm_swaption_inputs(vol_table, l0, deltas, steps, DT,
+                                      STRIKE, "cuda")
+        rows = steps
+        plain_prng = k1.lmm_swaption_paths_reference
+        plain_injected = k1.lmm_swaption_payoffs_with_normals
+    else:
+        vol_table = (0.1 + 0.2 * rng.random((steps, n))).astype(np.float32)
+        A = rng.standard_normal((n, F))
+        R = (A / np.linalg.norm(A, axis=1, keepdims=True)).astype(np.float32)
+        args = ksv.lmm_stochvol_swaption_inputs(
+            vol_table, R, l0, deltas, steps, DT, STRIKE, BLEND, NU, RHO,
+            "cuda")
+        rows = steps * (F + 1)
+        plain_prng = ksv.lmm_stochvol_swaption_paths_reference
+        plain_injected = ksv.lmm_stochvol_swaption_payoffs_with_normals
+    prng, injected = PRICERS[kind]
+    z = normal_pairs(5, paths, -(-rows // 4), "cuda")[:rows].contiguous()
+    got = prng(5, paths, *args, **swap)
+    got_z = injected(z, *args, **swap)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all()) and float(got.max()) > 0
+    assert torch.equal(got, got_z)
+    assert torch.equal(got, plain_prng(5, paths, *args, **swap))
+    assert torch.equal(got_z, plain_injected(z, *args, **swap))
