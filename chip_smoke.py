@@ -57,12 +57,16 @@ Phases, one line of output each (more for the kernel builds), in order:
    the launch alone, the wrapper and the plain version (median of 5, CUDA
    events);
 10. the path kernels' device generator: ``philox_normals`` bit for bit
-    against the plain Philox on the card (1M normals), and the moments of
-    20M normals within 5 standard errors of N(0, 1)'s;
+    against the plain Philox on the card (1M normals); the Box-Muller
+    radius and angle of all 2^24 values of a word's top 24 bits
+    (``box_muller_parts``, the kernels' device functions) bit for bit
+    against torch's ``log``, ``sqrt``, ``cos`` and ``sin`` on the card,
+    which with the final product proves every normal the kernels can draw
+    equal to the plain version's; and the moments of 20M normals within 5
+    standard errors of N(0, 1)'s;
 11. the European and Asian path kernels against their plain versions on
     the card at 1,000,000 x 100, 1,000,003 x 99 (ragged tail, odd step)
-    and 8,192 x 1: per path within rtol 1e-6, atol 1e-7, the float64 price
-    within 1e-9 relative, a second launch bitwise equal;
+    and 8,192 x 1: every path bit for bit, a second launch too;
 12. slice C's main path, the reference's MonteCarloBlackScholesModelTest
     at its full size (1M paths, 100 steps, S0 1, r 0.05, sigma 0.3, T 1,
     K 1.05): (a) the object API on the port's torch stream, (b) the same
@@ -213,20 +217,35 @@ def _bound(args, out, operations):
             "operations" if by_ops >= by_bytes else "bytes")
 
 
+#: operations of one draw of four normals (``csrc/philox.cuh``):
+#: Philox4x32-10's 10 rounds of two 32-bit multiply-highs, two
+#: multiply-lows and four XORs (80; the key schedule is formed once a
+#: launch, not a draw), and two Box-Muller pairs at about 37 float
+#: operations a normal with the accurate logf, sqrtf, sinf and cosf (148)
+DRAW_OPERATIONS = 80 + 148
+
+
 def _mc_path_operations(paths, steps, asian):
     """Operations of one Monte-Carlo path kernel launch, counted from the
     shapes as ``csrc/mc_paths.cu`` does the work: per draw of four normals
-    (ceil(steps / 4) a path) Philox4x32-10's 10 rounds of two 32-bit
-    multiply-highs, two multiply-lows, four XORs and two key additions
-    (100), and two Box-Muller pairs at about 37 float operations a normal
-    with the accurate logf, sqrtf, sinf and cosf (148); per step the path
-    update (2 for the European kernel's paired steps, 3 plus an expf of
-    about 20 and the running sum's add for the Asian one); per path the
-    payoff (expf, subtract, max: 22; the Asian divide and max: 3)."""
+    (ceil(steps / 4) a path) ``DRAW_OPERATIONS``; per step the path update
+    (2 for the European kernel's paired steps, 3 plus an expf of about 20
+    and the running sum's add for the Asian one); per path the payoff
+    (expf, subtract, max: 22; the Asian divide and max: 3)."""
     draws = -(-steps // 4)
-    per_path = draws * (100 + 148)
+    per_path = draws * DRAW_OPERATIONS
     per_path += steps * (24 if asian else 2) + (3 if asian else 22)
     return per_path * paths
+
+
+def _mc_bound(paths, steps, asian):
+    """(bound_ms, bound_by) of one Monte-Carlo path kernel launch: its
+    operations (``_mc_path_operations``) over the float32 peak against its
+    float32 payoffs over the memory rate."""
+    by_ops = _mc_path_operations(paths, steps, asian) / PEAK_F32_FLOPS
+    by_bytes = 4 * paths / PEAK_BYTES_PER_S
+    return (max(by_ops, by_bytes) * 1e3,
+            "operations" if by_ops >= by_bytes else "bytes")
 
 
 def _sweep_variants(products, lmm_kernel, lmm_stochvol_kernel,
@@ -450,6 +469,16 @@ def _slice_c(torch, smi):
     bitwise = bool(torch.equal(z, kernels.normal_pairs(BS_SEED, 250_000, 1,
                                                        "cuda")))
     n_bitwise = z.numel()
+    # every input of Box-Muller: the radius and the angle of each of the
+    # 2^24 values of w >> 8, the kernels' device functions against torch's
+    # logf, sqrtf, cosf and sinf on the card, bit for bit
+    parts = kernels.box_muller_parts(device="cuda")
+    torch.cuda.synchronize()
+    plain_parts = kernels.box_muller_parts_reference(device="cuda")
+    parts_differ = [int((parts[r].view(torch.int32)
+                         != plain_parts[r].view(torch.int32)).sum())
+                    for r in range(3)]
+    del parts, plain_parts
     big = kernels.philox_normals(BS_SEED + 1, 5_000_000, 1,
                                  "cuda").reshape(-1).double()
     n = big.numel()
@@ -460,12 +489,15 @@ def _slice_c(torch, smi):
                "|var - 1|": (abs(var - 1), 5 * np.sqrt(2 / n)),
                "|E z^4 - 3|": (abs(m4 - 3), 5 * np.sqrt(96 / n))}
     print(f"phase 10 generator: {n_bitwise:,} normals bitwise equal to the "
-          f"plain Philox: {bitwise}; {n:,} normals: mean={m1:.3e} "
+          f"plain Philox: {bitwise}; Box-Muller on all 2^24 inputs, "
+          f"elements differing in a bit (radius, cos, sin): {parts_differ}; "
+          f"{n:,} normals: mean={m1:.3e} "
           f"var={var:.6f} E[z^4]={m4:.5f}; "
           + ", ".join(f"{k} {v:.3e} < {b:.3e}" for k, (v, b) in
                       moments.items()), flush=True)
     del z, big
-    if not (bitwise and all(v < b for v, b in moments.values())):
+    if not (bitwise and not any(parts_differ)
+            and all(v < b for v, b in moments.values())):
         raise SystemExit("chip_smoke: phase 10: the device generator "
                          "disagrees with the plain one or its moments")
 
@@ -482,20 +514,14 @@ def _slice_c(torch, smi):
             torch.cuda.synchronize()
             ref = plain(BS_SEED, paths, steps, params, "cuda")
             err = (got - ref).abs()
-            within = bool((err <= 1e-6 * ref.abs() + 1e-7).all())
-            max_rel = float((err / ref.abs().clamp_min(1e-30)).max())
-            p_got = float(got.sum(dtype=torch.float64)) / paths
-            p_ref = float(ref.sum(dtype=torch.float64)) / paths
-            price_rel = abs(p_got - p_ref) / abs(p_ref)
+            equal = bool(torch.equal(got.view(torch.int32),
+                                     ref.view(torch.int32)))
             repeatable = bool(torch.equal(got, again))
-            ok = (bool(torch.isfinite(got).all()) and within
-                  and price_rel < 1e-9 and repeatable)
+            ok = bool(torch.isfinite(got).all()) and equal and repeatable
             max_abs[name] = max(max_abs[name], float(err.max()))
             print(f"phase 11 {name} vs plain: paths={paths} steps={steps} "
-                  f"max_abs_err={float(err.max()):.3e} max_rel={max_rel:.3e} "
-                  f"price_rel={price_rel:.3e} bitwise repeatable="
-                  f"{repeatable} within rtol 1e-6, atol 1e-7: {ok}",
-                  flush=True)
+                  f"max_abs_err={float(err.max()):.3e} bit for bit: {equal}; "
+                  f"bitwise repeatable={repeatable}", flush=True)
             if not ok:
                 raise SystemExit(f"chip_smoke: phase 11: {name} disagrees "
                                  "with its plain version")
@@ -556,7 +582,8 @@ def _slice_c(torch, smi):
             asian_gap < 4 * np.sqrt(2) * se["asian_paths"],
         "0 < Asian < European": 0 < asian_k < euro,
         "one launch per kernel call": launches == {
-            "bs_paths": 1, "asian_paths": 1, "philox_normals": 0},
+            "bs_paths": 1, "asian_paths": 1, "philox_normals": 0,
+            "box_muller_parts": 0},
     }
     print(f"phase 12 main path ({BS_PATHS:,} paths x {BS_STEPS} steps, "
           f"S0 {S0}, r {R}, sigma {SIGMA}, T {T}, K {K}; analytic "
@@ -635,11 +662,8 @@ def _slice_c(torch, smi):
                                                  params, "cuda"))
         plain_ms = _time_ms(torch, lambda: plain(BS_SEED, BS_PATHS, BS_STEPS,
                                                  params, "cuda"))
-        by_ops = _mc_path_operations(BS_PATHS, BS_STEPS,
-                                     name == "asian_paths") / PEAK_F32_FLOPS
-        by_bytes = 4 * BS_PATHS / PEAK_BYTES_PER_S
-        bound_ms = max(by_ops, by_bytes) * 1e3
-        bound_by = "operations" if by_ops >= by_bytes else "bytes"
+        bound_ms, bound_by = _mc_bound(BS_PATHS, BS_STEPS,
+                                       name == "asian_paths")
         print(f"phase 14 timing (median of 5, CUDA events; {smi}): {name} "
               f"paths={BS_PATHS} steps={BS_STEPS} kernel_ms={ms:.4f} "
               f"wrapper_ms={wrapper_ms:.4f} plain_ms={plain_ms:.4f} "
@@ -924,8 +948,9 @@ def _slice_d1(torch, smi):
             wrapper_ms = _time_ms(torch, lambda: run(*head, *args, **swap))
             plain_ms = _time_ms(torch, lambda: plain(*head, *args, **swap))
             # the PRNG launchers also draw their normals: Philox and two
-            # Box-Muller pairs per four (_mc_path_operations)
-            work = ops + (-(-rows // 4) * 248 * P if j == 0 else 0)
+            # Box-Muller pairs per four (DRAW_OPERATIONS)
+            work = ops + (-(-rows // 4) * DRAW_OPERATIONS * P if j == 0
+                          else 0)
             bound_ms, bound_by = _bound(
                 list(args[:3]) + ([z] if j else []), out, work)
             print(f"phase 17 timing (median of 5, CUDA events; {smi}): "

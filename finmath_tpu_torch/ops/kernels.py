@@ -30,7 +30,11 @@ the wrappers take the float64 mean and discount in float64.
 
 On a CUDA device the wrappers launch the kernels (and raise if a launch
 fails); on the CPU they run the plain versions. ``LAUNCHES`` counts kernel
-launches per kernel.
+launches per kernel. Two check-only wrappers, which no pricing path calls,
+hold the kernels' generator against the plain one: ``philox_normals`` (the
+normals of given paths and draws) and ``box_muller_parts`` (the Box-Muller
+radius and angle of each of the 2^24 values of ``w >> 8``, so every
+normal the kernels can draw).
 """
 
 from __future__ import annotations
@@ -51,7 +55,8 @@ FLAGS = ()                    # extra nvcc flags: none (explicit rounding)
 #: kernel launches since the last reset, per kernel (plain integers; a run
 #: resets them and reads them to show that its main path went through the
 #: kernels)
-LAUNCHES = {"bs_paths": 0, "asian_paths": 0, "philox_normals": 0}
+LAUNCHES = {"bs_paths": 0, "asian_paths": 0, "philox_normals": 0,
+            "box_muller_parts": 0}
 
 # Philox4x32-10 constants (Salmon et al., Random123)
 PHILOX_M0, PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
@@ -72,6 +77,8 @@ def _library() -> ctypes.CDLL:
     lib.mc_philox_normals_launch.argtypes = [ptr, i32, i32,
                                              ctypes.c_ulonglong, ptr]
     lib.mc_philox_normals_launch.restype = i32
+    lib.mc_box_muller_parts_launch.argtypes = [ptr, i32, i32, ptr]
+    lib.mc_box_muller_parts_launch.restype = i32
     lib.mc_paths_error_string.argtypes = [i32]
     lib.mc_paths_error_string.restype = ctypes.c_char_p
     return lib
@@ -117,19 +124,46 @@ def philox4x32_10(counter, key) -> torch.Tensor:
     return torch.stack([c0, c1, c2, c3])
 
 
+def _f32(value: float, device) -> torch.Tensor:
+    return torch.tensor(value, dtype=torch.float32, device=device)
+
+
+def box_muller_radius(w1: torch.Tensor) -> torch.Tensor:
+    """Box-Muller's radius ``sqrt(-2 log u1)`` of 32-bit words (int64), in
+    float32 with the kernels' operation order."""
+    dev = w1.device
+    u1 = (w1 >> 8).to(torch.float32) * _f32(2.0 ** -24, dev) \
+        + _f32(2.0 ** -25, dev)
+    return torch.sqrt(_f32(-2.0, dev) * torch.log(u1))
+
+
+def box_muller_angle(w2: torch.Tensor):
+    """Box-Muller's ``(cos theta, sin theta)``, ``theta = 2 pi u2``, of
+    32-bit words (int64), in float32 with the kernels' operation order."""
+    dev = w2.device
+    u2 = (w2 >> 8).to(torch.float32) * _f32(2.0 ** -24, dev)
+    theta = _f32(TWO_PI_F32, dev) * u2
+    return torch.cos(theta), torch.sin(theta)
+
+
 def box_muller(w1: torch.Tensor, w2: torch.Tensor):
     """Two standard normals (cos, sin) from two 32-bit words per element
-    (int64), in float32 with the kernels' operation order."""
-    dev = w1.device
-    scale = torch.tensor(2.0 ** -24, dtype=torch.float32, device=dev)
-    half = torch.tensor(2.0 ** -25, dtype=torch.float32, device=dev)
-    two_pi = torch.tensor(TWO_PI_F32, dtype=torch.float32, device=dev)
-    minus_two = torch.tensor(-2.0, dtype=torch.float32, device=dev)
-    u1 = (w1 >> 8).to(torch.float32) * scale + half
-    u2 = (w2 >> 8).to(torch.float32) * scale
-    r = torch.sqrt(minus_two * torch.log(u1))
-    theta = two_pi * u2
-    return r * torch.cos(theta), r * torch.sin(theta)
+    (int64): the radius of ``w1`` times the angle's cosine and sine of
+    ``w2``."""
+    r = box_muller_radius(w1)
+    c, s = box_muller_angle(w2)
+    return r * c, r * s
+
+
+def box_muller_parts_reference(count: int = 2 ** 24, stride: int = 1,
+                               device="cpu") -> torch.Tensor:
+    """Plain version of the check launcher: ``[3, count]`` float32, row 0
+    the radius, rows 1-2 the cosine and sine of the angle, of the words
+    ``m << 8`` for ``m = i * stride``; at ``stride`` 1 and ``count`` 2^24
+    every value of ``w >> 8`` that a draw can see."""
+    count, stride = _check_parts(count, stride)
+    w = torch.arange(count, dtype=torch.int64, device=device) * stride << 8
+    return torch.stack([box_muller_radius(w), *box_muller_angle(w)])
 
 
 def normal_pairs(seed: int, num_paths: int, draws: int,
@@ -229,6 +263,14 @@ def _check_sizes(num_paths: int, num_steps: int):
     return num_paths, num_steps
 
 
+def _check_parts(count: int, stride: int):
+    count, stride = int(count), int(stride)
+    if count < 1 or stride < 1 or (count - 1) * stride >= 2 ** 24:
+        raise ValueError(f"count={count}, stride={stride}: the words m << 8 "
+                         "need 0 <= m = i * stride < 2^24")
+    return count, stride
+
+
 def _check_params(params) -> torch.Tensor:
     if not isinstance(params, torch.Tensor):
         raise TypeError("params must be a torch.Tensor")
@@ -298,6 +340,25 @@ def philox_normals(seed: int, num_paths: int, draws: int,
                       device=device)
     _launch("philox_normals", "mc_philox_normals_launch", out.data_ptr(),
             num_paths, draws, seed, device=device)
+    return out
+
+
+def box_muller_parts(count: int = 2 ** 24, stride: int = 1,
+                     device=None) -> torch.Tensor:
+    """The Box-Muller radius and angle of the words ``m << 8``, ``m = i *
+    stride`` (``box_muller_parts_reference``), written by the kernels' own
+    device functions on a CUDA device. At the defaults every input a draw
+    can see: with the final multiply, every normal the kernels can draw.
+    For checking; no pricing path calls it."""
+    count, stride = _check_parts(count, stride)
+    device = torch.device(device) if device is not None else select_device()
+    if device.type == "cpu":
+        return box_muller_parts_reference(count, stride, device)
+    if device.type != "cuda":
+        raise ValueError(f"box_muller_parts: unsupported device {device}")
+    out = torch.empty((3, count), dtype=torch.float32, device=device)
+    _launch("box_muller_parts", "mc_box_muller_parts_launch", out.data_ptr(),
+            count, stride, device=device)
     return out
 
 

@@ -4,6 +4,12 @@
 On the CPU:
 * the plain Philox4x32-10 against Random123's published known-answer
   vectors and against a NumPy uint64 Philox on random counters (exact);
+* the plain side of the exhaustive Box-Muller check (``box_muller_parts``:
+  the radius and the angle of the words ``m << 8``) against NumPy float64
+  on 4,096 values of m up to 2^24 - 1, from the same float32 u1 and theta
+  (the radius within 4 float32 ulps, the cosine and sine within 2e-7),
+  the radius of the largest word -0 (u1 rounds to 1), and its wrapper's
+  checks;
 * the normals' moments at 1M samples (5-sigma bounds from the sample size);
 * ``bs_payoffs_with_normals`` / ``asian_payoffs_with_normals`` against a
   float64 NumPy recurrence of the Pallas kernels' path arithmetic
@@ -19,6 +25,10 @@ On the CPU:
 The Pallas kernels are not run: under the interpreter they do not honour
 the seed (tests/test_pallas_kernels.py:1-10), and the TPU's random bits
 cannot be reproduced anyway.
+
+On a card (the ``gpu`` tests): the generator, the Box-Muller parts on a
+strided subset of the 2^24 inputs and both path kernels, each bit for bit
+against its plain version.
 
 The ``gpu`` tests need a card and no JAX; on a machine with the card:
 ``python -m pytest tests/test_torch_bs_kernel.py -m gpu --noconftest``."""
@@ -108,6 +118,48 @@ def test_normals_layout_and_box_muller():
                                atol=2e-6)
     with pytest.raises(ValueError):
         kernels.normal_pairs(-1, 10, 1, CPU)
+
+
+# m = 4097 i for i < 4096: 4,096 values spread over [0, 2^24), the last
+# one 2^24 - 1, whose u1 rounds to 1
+PARTS_COUNT, PARTS_STRIDE = 4096, 4097
+
+
+def test_box_muller_parts_reference_against_numpy():
+    parts = kernels.box_muller_parts_reference(PARTS_COUNT, PARTS_STRIDE,
+                                               CPU)
+    assert tuple(parts.shape) == (3, PARTS_COUNT)
+    assert parts.dtype == torch.float32
+    m = np.arange(PARTS_COUNT, dtype=np.int64) * PARTS_STRIDE
+    assert m[-1] == 2 ** 24 - 1
+    u1 = (m * 2.0 ** -24 + 2.0 ** -25).astype(np.float32).astype(np.float64)
+    theta = (np.float32(2 * np.pi) * (m * 2.0 ** -24).astype(np.float32))
+    theta = theta.astype(np.float64)
+    radius = np.sqrt(-2.0 * np.log(u1))
+    ulp = np.spacing(radius.astype(np.float32)).astype(np.float64)
+    assert np.all(np.abs(parts[0].numpy() - radius) <= 4 * ulp)
+    np.testing.assert_allclose(parts[1].numpy(), np.cos(theta), rtol=0,
+                               atol=2e-7)
+    np.testing.assert_allclose(parts[2].numpy(), np.sin(theta), rtol=0,
+                               atol=2e-7)
+    # the largest word: u1 = 1, radius -0, so both normals are zeros
+    assert u1[-1] == 1.0 and math.copysign(1.0, float(parts[0, -1])) == -1.0
+    # the normals are the radius times the angle, as the kernels form them
+    w = torch.from_numpy(m << 8)
+    z_cos, z_sin = kernels.box_muller(w, w)
+    assert torch.equal(z_cos, parts[0] * parts[1])
+    assert torch.equal(z_sin, parts[0] * parts[2])
+
+
+@pytest.mark.parametrize("count,stride", [(0, 1), (1, 0), (2 ** 24 + 1, 1),
+                                          (4097, 4096)])
+def test_box_muller_parts_checks(count, stride):
+    launches = dict(kernels.LAUNCHES)
+    assert torch.equal(kernels.box_muller_parts(8, 3, CPU),
+                       kernels.box_muller_parts_reference(8, 3, CPU))
+    assert kernels.LAUNCHES == launches       # CPU: the plain version
+    with pytest.raises(ValueError):
+        kernels.box_muller_parts(count, stride, CPU)
 
 
 def test_normals_moments():
@@ -243,4 +295,17 @@ def test_cuda_kernel_matches_plain_version(steps, asian):
     assert kernels.LAUNCHES[name] == launches + 2
     assert torch.equal(got, again)
     ref = plain(11, 5003, steps, params, "cuda")
-    torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-7)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stride", [97, PARTS_STRIDE])
+def test_cuda_box_muller_parts_equal_plain_version(stride):
+    _needs_card()
+    count = (2 ** 24 - 1) // stride + 1
+    launches = kernels.LAUNCHES["box_muller_parts"]
+    got = kernels.box_muller_parts(count, stride, "cuda")
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["box_muller_parts"] == launches + 1
+    ref = kernels.box_muller_parts_reference(count, stride, "cuda")
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))

@@ -64,21 +64,24 @@ EVERY_LIBOR = "every libor"
 
 
 def _ptxas_by_kernel(log: str):
-    """{mangled entry: {"registers", "spill_bytes"}} from nvcc's -Xptxas -v
-    report."""
+    """{mangled entry: {"registers", "stack_bytes", "spill_bytes"}} from
+    nvcc's -Xptxas -v report."""
     out, entry, props = {}, None, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
             entry = m.group(1)
-            out[entry] = {"registers": None, "spill_bytes": 0}
+            out[entry] = {"registers": None, "stack_bytes": 0,
+                          "spill_bytes": 0}
             continue
         m = re.search(r"Function properties for (\S+)", ln)
         if m:
             props = m.group(1)
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
         if m and entry and props == entry:
-            out[entry]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            out[entry]["stack_bytes"] = int(m.group(1))
+            out[entry]["spill_bytes"] = int(m.group(2)) + int(m.group(3))
         m = re.search(r"Used (\d+) registers", ln)
         if m and entry:
             out[entry]["registers"] = int(m.group(1))
@@ -322,7 +325,7 @@ def main(argv=None) -> int:
             work = cs._pricer_operations(c["F"], E, E, M, P,
                                          stoch_vol=stochvol)
             if not injected:
-                work += -(-rows // 4) * 248 * P
+                work += -(-rows // 4) * cs.DRAW_OPERATIONS * P
             bound_ms, bound_by = cs._bound(
                 [volT, l0, dl] + ([z] if injected else []), out_old, work)
             old_entry = _entry(old_regs, stochvol, injected)
