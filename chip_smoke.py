@@ -104,6 +104,33 @@ Phases, one line of output each (more for the kernel builds), in order:
     paths (median of 5, CUDA events): the launch alone on a prepacked
     table (the host's submission kept outside the events), the payoffs
     wrapper (which packs the table) and the plain version;
+18. the Longstaff-Schwartz regression on the card at 100,000 paths, on
+    the Bermudan's basis {1, annuity, swap, swap^2} from phase 19's setup:
+    the float64 betas against NumPy's least squares of the same
+    Tikhonov-regularized problem (backward error under 1e-8, betas within
+    cond(G) * 1e-15 relative: the Gram's condition number is about 1e11),
+    ``regression_fit_predict`` on the card within 2 float32 ulps of the
+    same call on the CPU;
+19. BASELINE configuration 3, ``bench.py:982 bench_bermudan`` through the
+    port: the ATM model (80 libors, 1 factor), 100,000 paths, exercises
+    (4, 8, 12, 16), maturity 20, strike 0.01, at the initial parameters:
+    the value, the duality bounds (lower <= upper, the value inside them
+    to 3e-4, a gap under 25%), the share of paths exercised at each date,
+    the value at least the largest European at the exercise dates and a
+    single-exercise Bermudan equal to the European (3e-4, both on the
+    pricer's own increments), and the wall (min of 3 after a warm-up);
+20. BASELINE configuration 5, ``bench.py:1135 bench_aad_greeks``: route 1,
+    ``torch.autograd`` through the differentiable 1M x 100 pricer (delta
+    within 0.02, vega within 0.05 of the analytic), route 2, the tape's
+    delta at 500,000 paths (within 0.02), and the LMM tape vega of the
+    eager swaption valuation with the AAD factory (within 2e-3 of a
+    central difference on the same increments), each with its wall;
+21. BASELINE configuration 1, ``bench.py:862 bench_eager_ops`` at 100,000
+    paths: eager, lazy (bit for bit equal to eager, through CUDA graphs)
+    and the float oracle (within 1e-5), the 8-chain batch through
+    ``averages`` (one new program; new scalars add none), each wall, and
+    the break-even sweep of lazy against the float oracle at 500k, 1M and
+    4M paths;
 6. with ``--profile`` only, last: device operations and busy time under
    ``torch.profiler`` for one ATM calibration, one engine Jacobian, one
    ATM kernel residual call, one stoch-vol kernel
@@ -149,6 +176,11 @@ ATM_SHAPE, SV_SHAPE = (80, 1), (40, 5)
 SYN_LIBORS, SYN_PATHS, SYN_B = 37, 8_197, 3
 SYN_PRODUCTS = ((2, 10, 0.021), (2, 30, 0.02), (5, 4, 0.022),
                 (5, 32, 0.0205), (11, 26, 0.02))
+# bench.py:982 bench_bermudan (BASELINE configuration 3); the tape AAD
+# route of bench.py:1135 bench_aad_greeks; bench.py:862 bench_eager_ops
+BERMUDAN_PATHS, BERMUDAN_EXERCISES = 100_000, (4, 8, 12, 16)
+BERMUDAN_MATURITY, BERMUDAN_STRIKE = 20, 0.01
+TAPE_PATHS, EAGER_PATHS = 500_000, 100_000
 # the published H100 SXM peaks the bound is taken against
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 SPIN_CYCLES = 2_000_000       # about 1 ms of the card's clock
@@ -975,6 +1007,289 @@ def _slice_d1(torch, smi):
     return rows_out
 
 
+def _wall_s(torch, fn, reps=3):
+    """Min host seconds of ``fn`` (synchronised) over ``reps`` runs after a
+    warm-up; ``fn``'s last result."""
+    out = fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return min(times), out
+
+
+def _bench_chain(x, a=1.01, b=0.02):
+    """``bench.py:862 bench_eager_ops``' chain (BASELINE configuration 1),
+    its two leading scalars as arguments."""
+    y = x.mult(a).add(b).exp().log().discount(x, 0.5)
+    return y.add_product(x, x).cap(3.0).floor(0.1).sqrt()
+
+
+def _slice_e(torch, smi):
+    """Phases 18-21: the regression, the Bermudan swaption, AAD greeks and
+    the lazy engine (BASELINE configurations 3, 5 and 1)."""
+    import math
+
+    from finmath_tpu_torch.models.analytic import black_scholes_option_value
+    from finmath_tpu_torch.models.black_scholes import (
+        mc_european_call_price_differentiable)
+    from finmath_tpu_torch.models.curves import par_swap_rate
+    from finmath_tpu_torch.models.lmm import (BermudanSwaption,
+                                              BermudanSwaptionPricer,
+                                              LMMValuationEngine,
+                                              SwaptionProduct,
+                                              build_atm_calibration,
+                                              eager_swaption_valuation)
+    from finmath_tpu_torch.ops import (RandomVariableFloat,
+                                       RandomVariableTorch,
+                                       RandomVariableTorchFactory,
+                                       RandomVariableTorchLazy, averages,
+                                       lazy)
+    from finmath_tpu_torch.ops.aad import (RandomVariableDifferentiable,
+                                           RandomVariableDifferentiableFactory)
+    from finmath_tpu_torch.ops.conditional_expectation import (
+        regression_fit, regression_fit_predict)
+
+    # -- 19's setup: bench.py:982 bench_bermudan -------------------------
+    setup = build_atm_calibration(num_paths=BERMUDAN_PATHS, num_factors=1)
+    model, x0 = setup.model, setup.covariance.initial_parameters
+    pricer = BermudanSwaptionPricer(
+        model, BermudanSwaption(BERMUDAN_EXERCISES, BERMUDAN_MATURITY,
+                                BERMUDAN_STRIKE), BERMUDAN_PATHS, 1)
+
+    # -- 18: the regression on the card -----------------------------------
+    data = pricer._collect_exercise_data(pricer._engine,
+                                         pricer._engine._params(x0))
+    # the last regression of the backward induction: the date before the
+    # last, onto the last date's exercise value
+    feats, y = data[-2][2], data[-1][1]
+    beta = regression_fit(feats, y)
+    X = feats.double().cpu().numpy().T
+    yy = y.cpu().numpy()
+    gram, rhs = X.T @ X, X.T @ yy
+    lam = 1e-12 * np.trace(gram)
+    b = beta.cpu().numpy()
+    # NumPy's float64 least squares of the same Tikhonov problem (the
+    # jitter rows appended), and the card's backward error against
+    # NumPy's moments
+    b_ls = np.linalg.lstsq(np.vstack([X, math.sqrt(lam) * np.eye(len(b))]),
+                           np.concatenate([yy, np.zeros(len(b))]),
+                           rcond=None)[0]
+    g_reg = gram + lam * np.eye(len(b))
+    cond = float(np.linalg.cond(g_reg))
+    backward = float(np.linalg.norm(g_reg @ b - rhs) / (
+        np.linalg.norm(g_reg, 2) * np.linalg.norm(b) + np.linalg.norm(rhs)))
+    forward = float(np.max(np.abs(b - b_ls)) / np.max(np.abs(b_ls)))
+    fit_cuda = regression_fit_predict(feats, y).cpu().numpy()
+    fit_cpu = regression_fit_predict(feats.cpu(), y.cpu()).numpy()
+    top = float(np.max(np.abs(fit_cpu)))
+    fit_ulps = float(np.max(np.abs(fit_cuda.astype(np.float64) - fit_cpu))
+                     / np.spacing(np.float32(top)))
+    print(f"phase 18 regression on the card ({BERMUDAN_PATHS:,} paths, basis "
+          f"{{1, annuity, swap, swap^2}} at T_{BERMUDAN_EXERCISES[-2]}): "
+          + json.dumps({"betas": b.tolist(), "cond": cond,
+                        "backward_error": backward,
+                        "betas_vs_numpy_lstsq_rel": forward,
+                        "fit_cuda_vs_cpu_ulps_of_max": fit_ulps}), flush=True)
+    checks = {
+        "backward error below 1e-8": backward < 1e-8,
+        "betas within cond * 1e-15 of NumPy's": forward < cond * 1e-15,
+        "fit on cuda within 2 ulps of the CPU's": fit_ulps <= 2.0,
+        "betas on cuda": beta.is_cuda,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: phase 18 failed: {failed}")
+    del data, X
+
+    # -- 19: BASELINE configuration 3 at full width ------------------------
+    wall, value = _wall_s(torch, lambda: pricer.get_value(x0))
+    # one more pricing pass for the policy and the exercise dates; the
+    # bounds apply that policy
+    price, betas, stop = pricer._price(x0)
+    shares = [float(torch.mean((stop == k).double()))
+              for k in range(len(BERMUDAN_EXERCISES))]
+    lower, upper = pricer.get_value_bounds(x0, betas=betas)
+    euro = LMMValuationEngine(
+        model, [SwaptionProduct(e, BERMUDAN_MATURITY - e, BERMUDAN_STRIKE,
+                                0.0, value_unit="VALUE")
+                for e in BERMUDAN_EXERCISES], BERMUDAN_PATHS, 1,
+        increments=pricer._engine.increments).values(x0)
+    e1, m1 = 10, 10
+    par = par_swap_rate(model.forward_curve, model.discount_curve,
+                        model.tenor_times[e1:e1 + m1 + 1])
+    single = BermudanSwaptionPricer(model, BermudanSwaption((e1,), e1 + m1,
+                                                            par),
+                                    BERMUDAN_PATHS, 1)
+    single_value = single.get_value(x0)
+    single_euro = LMMValuationEngine(
+        model, [SwaptionProduct(e1, m1, par, 0.0, value_unit="VALUE")],
+        BERMUDAN_PATHS, 1, increments=single._engine.increments).values(x0)[0]
+    print(f"phase 19 Bermudan ({BERMUDAN_PATHS:,} paths, 80 libors, 1 factor, "
+          f"exercises {BERMUDAN_EXERCISES}, maturity {BERMUDAN_MATURITY}, "
+          f"strike {BERMUDAN_STRIKE}): "
+          + json.dumps({"value": value, "lower": lower, "upper": upper,
+                        "exercise_shares": shares,
+                        "europeans": euro.tolist(),
+                        "single_exercise": single_value,
+                        "single_exercise_european": float(single_euro)})
+          + f"; wall {wall:.6f} s (min of 3 after a warm-up; {smi})",
+          flush=True)
+    slack = 3e-4
+    checks = {
+        "the pricing pass repeats its value": float(price) == value,
+        "lower <= upper": lower <= upper,
+        "bounds bracket the value": lower - slack <= value <= upper + slack,
+        "gap under 25%": upper - lower < 0.25 * value,
+        "at least the largest European": value >= float(euro.max()) - slack,
+        "single exercise equals the European":
+            abs(single_value - single_euro) < slack,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: phase 19 failed: {failed}")
+    del pricer, single, setup
+
+    # -- 20: BASELINE configuration 5, AAD greeks ---------------------------
+    s0_, r_, sigma_, t_, k_ = BS_PARAMS
+    d1 = (math.log(s0_ / k_) + (r_ + sigma_ ** 2 / 2) * t_) / (
+        sigma_ * math.sqrt(t_))
+    delta_an = 0.5 * (1.0 + math.erf(d1 / math.sqrt(2.0)))
+    vega_an = s0_ * math.exp(-d1 * d1 / 2) / math.sqrt(2 * math.pi) \
+        * math.sqrt(t_)
+
+    def route1():
+        s0 = torch.tensor(s0_, dtype=torch.float64, device="cuda",
+                          requires_grad=True)
+        sigma = torch.tensor(sigma_, dtype=torch.float64, device="cuda",
+                             requires_grad=True)
+        price = mc_european_call_price_differentiable(
+            7, BS_PATHS, BS_STEPS, s0, r_, sigma, t_, k_)
+        return [float(g) for g in torch.autograd.grad(price, (s0, sigma))]
+
+    wall1, (delta1, vega1) = _wall_s(torch, route1)
+    z = np.random.default_rng(0).standard_normal(TAPE_PATHS).astype(np.float32)
+    growth = RandomVariableTorch(0.0, np.exp(
+        (r_ - sigma_ ** 2 / 2) * t_ + sigma_ * math.sqrt(t_) * z
+    ).astype(np.float32), device="cuda")
+
+    def route2():
+        s0 = RandomVariableDifferentiable(RandomVariableTorch(0.0, s0_))
+        val = s0.mult(growth).sub(k_).floor(0.0).mult(
+            math.exp(-r_ * t_)).average()
+        return val.get_gradient([s0])[s0.get_id()].double_value()
+
+    wall2, delta2 = _wall_s(torch, route2)
+    # the LMM tape vega (tests/test_aad.py's 6-period setup)
+    deltas, fwds, e, m, strike, vol = [0.5] * 6, [
+        0.020, 0.025, 0.030, 0.032, 0.034, 0.036], 2, 4, 0.030, 0.012
+    inc = (np.random.default_rng(7).standard_normal((e, TAPE_PATHS))
+           * math.sqrt(0.5)).astype(np.float32)
+
+    def lmm_vega():
+        factory = RandomVariableDifferentiableFactory()
+        sigma = factory.create_random_variable(0.0, vol)
+        value = eager_swaption_valuation(factory, fwds, deltas, sigma, inc,
+                                         e, m, strike).average()
+        return value.get_gradient([sigma])[sigma.get_id()].double_value()
+
+    wall3, vega_tape = _wall_s(torch, lmm_vega)
+    h = 1e-5
+    up, down = (eager_swaption_valuation(
+        RandomVariableTorchFactory(), fwds, deltas, vol + sgn * h, inc, e, m,
+        strike).get_average() for sgn in (1.0, -1.0))
+    vega_fd = (up - down) / (2 * h)
+    print(f"phase 20 AAD greeks ({smi}): " + json.dumps({
+        "route1_autograd_1Mx100": {"delta": delta1, "vega": vega1,
+                                   "wall_s": wall1},
+        "route2_tape_500k": {"delta": delta2, "wall_s": wall2},
+        "lmm_tape_vega": {"vega": vega_tape, "central_difference": vega_fd,
+                          "paths": TAPE_PATHS, "wall_s": wall3},
+        "analytic": {"delta": delta_an, "vega": vega_an}})
+        + " (walls: min of 3 after a warm-up)", flush=True)
+    checks = {
+        "route 1 delta within 0.02": abs(delta1 - delta_an) < 0.02,
+        "route 1 vega within 0.05": abs(vega1 - vega_an) < 0.05,
+        "route 2 delta within 0.02": abs(delta2 - delta_an) < 0.02,
+        "LMM tape vega within 2e-3 of the difference":
+            abs(vega_tape - vega_fd) < 2e-3 * abs(vega_fd),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: phase 20 failed: {failed}")
+    del growth
+
+    # -- 21: BASELINE configuration 1, eager / lazy / float oracle ---------
+    vals = np.random.default_rng(0).uniform(0.5, 2.0, EAGER_PATHS).astype(
+        np.float32)
+    eager_x = RandomVariableTorch(0.0, vals, device="cuda")
+    lazy_x = RandomVariableTorchLazy(0.0, vals, device="cuda")
+    lazy_x.cache()
+    float_x = RandomVariableFloat(0.0, vals)
+    walls, avgs = {}, {}
+    for name, rv in (("eager", eager_x), ("lazy", lazy_x),
+                     ("float_oracle", float_x)):
+        walls[name], avgs[name] = _wall_s(
+            torch, lambda rv=rv: _bench_chain(rv).get_average(), reps=5)
+    bits_equal = bool(np.array_equal(
+        _bench_chain(lazy_x).get_realizations().view(np.int32),
+        _bench_chain(eager_x).get_realizations().view(np.int32)))
+    leaves = [RandomVariableTorchLazy(0.0, vals, device="cuda")
+              for _ in range(8)]
+    for leaf in leaves:
+        leaf.cache()
+    n0 = lazy.program_cache_size()
+    batch = averages(*[_bench_chain(leaf) for leaf in leaves])
+    n1 = lazy.program_cache_size()
+    captures = lazy.GRAPH_COUNTS["captures"]
+    batch2 = averages(*[_bench_chain(leaf, 1.02, 0.03) for leaf in leaves])
+    n2 = lazy.program_cache_size()
+    new_captures = lazy.GRAPH_COUNTS["captures"] - captures
+    eager2 = _bench_chain(eager_x, 1.02, 0.03).get_average()
+    walls["lazy_8chains_1flush"], _ = _wall_s(
+        torch, lambda: averages(*[_bench_chain(leaf) for leaf in leaves]),
+        reps=5)
+    sweep = {}
+    for paths in (500_000, 1_000_000, 4_000_000):
+        big = np.random.default_rng(1).uniform(0.5, 2.0, paths).astype(
+            np.float32)
+        lx = RandomVariableTorchLazy(0.0, big, device="cuda")
+        lx.cache()
+        fx = RandomVariableFloat(0.0, big)
+        row = {name: _wall_s(torch, lambda rv=rv: _bench_chain(
+            rv).get_average())[0] for name, rv in (("lazy", lx),
+                                                  ("float_oracle", fx))}
+        row["float_over_lazy"] = row["float_oracle"] / row["lazy"]
+        sweep[str(paths)] = row
+    print(f"phase 21 eager ops ({EAGER_PATHS:,} paths; {smi}): " + json.dumps({
+        "averages": avgs, "walls_s": walls,
+        "lazy_bitwise_equal_eager": bits_equal,
+        "programs_added_by_batch": n1 - n0,
+        "programs_added_by_new_scalars": n2 - n1,
+        "graphs_captured_for_new_scalars": new_captures,
+        "graph_counts": dict(lazy.GRAPH_COUNTS),
+        "break_even_sweep_s": sweep})
+        + " (walls: min after a warm-up)", flush=True)
+    checks = {
+        "lazy equals eager bit for bit": bits_equal
+        and avgs["lazy"] == avgs["eager"],
+        "both within 1e-5 of the float oracle":
+            abs(avgs["eager"] - avgs["float_oracle"]) < 1e-5
+            and abs(avgs["lazy"] - avgs["float_oracle"]) < 1e-5,
+        "the 8-chain batch adds one program": n1 - n0 == 1,
+        "new scalars add none": n2 == n1 and new_captures == 0,
+        "the batch equals eager": batch == [avgs["eager"]] * 8
+        and batch2 == [eager2] * 8,
+        "flushes ran as graphs": lazy.GRAPH_COUNTS["replays"] > 0,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: phase 21 failed: {failed}")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -1386,6 +1701,9 @@ def main(argv=None) -> int:
 
     # -- 15-17: slice D1, the single-swaption LMM pricers -------------------
     pricer_rows = _slice_d1(torch, smi)
+
+    # -- 18-21: the regression, the Bermudan, AAD greeks, the lazy engine ---
+    _slice_e(torch, smi)
 
     if opts.profile:
         _profile(torch, setup, kb, sv, sv_kb)

@@ -4,8 +4,10 @@ A second package beside ``finmath_tpu`` (the JAX reference, which it never
 imports). Module paths and names mirror the JAX package so every part has
 an obvious counterpart; ``TPU`` in a class name becomes ``Torch``.
 
-Ported so far (slice A, the LMM ATM swaption calibration, and slice B,
-the reference's stoch-vol benchmark calibration):
+Ported so far (slice A, the LMM ATM swaption calibration; slice B, the
+reference's stoch-vol benchmark calibration; slice C, the vector engine
+and Monte-Carlo Black-Scholes; slice D1, the single-swaption pricers; and
+the Longstaff-Schwartz, tape-AAD and lazy-engine slice):
 
 * ``models.time_discretization``, ``models.curves``, ``models.calibration``
   — host-side NumPy, copied from the reference package;
@@ -14,8 +16,16 @@ the reference's stoch-vol benchmark calibration):
   stream, bit for bit;
 * ``models.lmm`` — covariance (incl. the 5-parameter, blended and
   stochastic-volatility models), the LMM valuation engine, the analytic
-  approximation, both kernel calibration backends, and the ATM and
-  benchmark workloads;
+  approximation, both kernel calibration backends, the ATM and
+  benchmark workloads, the Bermudan swaption (Longstaff-Schwartz with
+  duality bounds), caps and floors, and the eager factory-injected
+  swaption valuation;
+* ``ops.random_variable`` and ``ops.random_variable_float`` — the vector
+  engine and its float oracle; ``ops.conditional_expectation`` (the
+  regression estimator), ``ops.aad`` (tape AAD) and ``ops.lazy`` (recorded
+  operations flushed as one CUDA graph per structure);
+* ``models.black_scholes`` — Monte-Carlo Black-Scholes, including a
+  price that ``torch.autograd`` differentiates;
 * ``ops.lmm_kernel`` and ``ops.lmm_stochvol_kernel`` — the ATM-surface
   and stoch-vol path-sweep kernels (CUDA C++ in ``csrc/``) and their plain
   PyTorch versions;
@@ -37,6 +47,24 @@ torch.set_float32_matmul_precision("highest")
 
 __version__ = "0.1.0"
 
+from .ops.lazy import (RandomVariableTorchLazy,  # noqa: E402
+                       RandomVariableTorchLazyFactory, averages, flush)
+from .ops.random_variable import (RandomVariable,  # noqa: E402
+                                  RandomVariableTorch,
+                                  RandomVariableTorchFactory)
+from .ops.random_variable_float import (RandomVariableFloat,  # noqa: E402
+                                        RandomVariableFloatFactory)
 from .utils.config import select_device  # noqa: E402
 
-__all__ = ["select_device"]
+__all__ = [
+    "RandomVariable",
+    "RandomVariableTorch",
+    "RandomVariableTorchFactory",
+    "RandomVariableTorchLazy",
+    "RandomVariableTorchLazyFactory",
+    "RandomVariableFloat",
+    "RandomVariableFloatFactory",
+    "averages",
+    "flush",
+    "select_device",
+]

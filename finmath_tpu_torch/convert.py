@@ -9,7 +9,11 @@ port's engine through ``increments_from_numpy``, so both packages price
 the same paths; a path kernel's block of normals becomes such increments
 through ``increments_from_normals``. A vector-engine random variable crosses as its filtration
 time and realizations: ``random_variable_from_numpy`` and
-``random_variable_to_numpy``.
+``random_variable_to_numpy``. A Bermudan policy fitted by the JAX pricer
+(its tuple of float64 beta vectors) applies in the port through
+``betas_from_numpy``, and a JAX ``BermudanSwaption`` becomes the port's
+through ``bermudan_swaption_from_jax`` (read by attribute, without
+importing the JAX package).
 """
 
 from __future__ import annotations
@@ -78,3 +82,22 @@ def random_variable_to_numpy(rv):
         return rv.get_filtration_time(), rv.double_value()
     return rv.get_filtration_time(), np.asarray(rv.get_realizations(),
                                                 dtype=np.float32)
+
+
+def betas_from_numpy(betas, device=None) -> tuple:
+    """A Longstaff-Schwartz policy (one coefficient vector per exercise
+    date but the last, in date order; e.g. the JAX pricer's tuple of
+    float64 arrays) as the port's tuple of float64 tensors on ``device``
+    (default CPU)."""
+    return tuple(params_from_numpy(np.array(b, dtype=np.float64), device)
+                 for b in betas)
+
+
+def bermudan_swaption_from_jax(product):
+    """The port's ``BermudanSwaption`` with the exercise dates, maturity
+    and strike of another package's (any object with those attributes)."""
+    from .models.lmm.bermudan import BermudanSwaption
+
+    return BermudanSwaption(
+        tuple(int(e) for e in product.exercise_indices),
+        int(product.maturity_index), float(product.strike))

@@ -175,14 +175,13 @@ class EuropeanOption:
 # plain Monte-Carlo pricers: a loop over steps on the device
 # ---------------------------------------------------------------------------
 
-def _euler_constants(num_steps, risk_free_rate, volatility, maturity, dtype):
+def _euler_constants(num_steps, risk_free_rate, volatility, maturity):
     """(sqrt_dt, drift per step, vol) computed in float64 and rounded to
-    ``dtype``, as the JAX scan's ``astype`` does."""
+    float32, as the JAX scan's ``astype`` does."""
     dt = maturity / num_steps
-    as_dtype = np.float32 if dtype == torch.float32 else np.float64
-    return (float(as_dtype(math.sqrt(dt))),
-            float(as_dtype((risk_free_rate - 0.5 * volatility * volatility) * dt)),
-            float(as_dtype(volatility)))
+    return (float(np.float32(math.sqrt(dt))),
+            float(np.float32((risk_free_rate - 0.5 * volatility * volatility) * dt)),
+            float(np.float32(volatility)))
 
 
 def mc_european_call_price(seed: int, num_paths: int, num_steps: int,
@@ -190,25 +189,12 @@ def mc_european_call_price(seed: int, num_paths: int, num_steps: int,
                            volatility: float, maturity: float,
                            strike: float, dtype=None, device=None) -> float:
     """European call MC price (the reference's benchmark row "MC
-    Black-Scholes, 1M paths x 100 steps"). ``dtype=torch.float64`` runs the
-    double-precision oracle mode on the identical Brownian stream: the
-    normals are drawn in float32 either way. ``device`` defaults to
-    ``select_device()``."""
-    dtype = dtype if dtype is not None else FLOAT_DTYPE
-    device = torch.device(device) if device is not None else select_device()
-    num_paths, num_steps = int(num_paths), int(num_steps)
-    gen = key_for_seed(seed, device)
-    sqrt_dt, drift, vol = _euler_constants(num_steps, risk_free_rate,
-                                           volatility, maturity, dtype)
-    log_s = torch.full((num_paths,), math.log(initial_value), dtype=dtype,
-                       device=device)
-    for _ in range(num_steps):
-        dw = torch.randn(num_paths, generator=gen, dtype=FLOAT_DTYPE,
-                         device=device).to(dtype) * sqrt_dt
-        log_s = log_s + drift + vol * dw
-    payoff = torch.clamp_min(torch.exp(log_s) - float(strike), 0.0)
-    mean = float(torch.sum(payoff, dtype=ACC_DTYPE)) / num_paths
-    return mean * math.exp(-risk_free_rate * maturity)
+    Black-Scholes, 1M paths x 100 steps"): the value of
+    ``mc_european_call_price_differentiable`` as a float. ``dtype`` and
+    ``device`` as there."""
+    return float(mc_european_call_price_differentiable(
+        seed, num_paths, num_steps, initial_value, risk_free_rate,
+        volatility, maturity, strike, dtype=dtype, device=device))
 
 
 def mc_asian_call_price(seed: int, num_paths: int, num_steps: int,
@@ -221,7 +207,7 @@ def mc_asian_call_price(seed: int, num_paths: int, num_steps: int,
     num_paths, num_steps = int(num_paths), int(num_steps)
     gen = key_for_seed(seed, device)
     sqrt_dt, drift, vol = _euler_constants(num_steps, risk_free_rate,
-                                           volatility, maturity, FLOAT_DTYPE)
+                                           volatility, maturity)
     log_s = torch.full((num_paths,), math.log(initial_value),
                        dtype=FLOAT_DTYPE, device=device)
     sum_s = torch.zeros((num_paths,), dtype=FLOAT_DTYPE, device=device)
@@ -232,4 +218,47 @@ def mc_asian_call_price(seed: int, num_paths: int, num_steps: int,
         sum_s = sum_s + torch.exp(log_s)
     payoff = torch.clamp_min(sum_s / num_steps - float(strike), 0.0)
     mean = float(torch.sum(payoff, dtype=ACC_DTYPE)) / num_paths
+    return mean * math.exp(-risk_free_rate * maturity)
+
+
+def mc_european_call_price_differentiable(seed: int, num_paths: int,
+                                          num_steps: int, s0, risk_free_rate: float,
+                                          sigma, maturity: float, strike: float,
+                                          dtype=None, device=None) -> torch.Tensor:
+    """The European call MC price as a float64 tensor that
+    ``torch.autograd`` differentiates in ``s0`` and ``sigma``: delta and
+    vega are ``torch.autograd.grad(price, (s0, sigma))``.
+
+    Counterpart of the JAX package's fused ``_mc_bs_price_kernel`` under
+    ``jax.grad`` (``bench.py:1135 bench_aad_greeks`` route 1), which is an
+    XLA scan and no Pallas kernel: an Euler loop over steps in the path
+    dtype on one ``torch.Generator`` stream from ``seed``. ``s0`` and
+    ``sigma`` are floats or float64 tensors (``requires_grad``) that enter
+    the path arithmetic through rounded copies, as the JAX scan's
+    ``astype`` does: log S0, the per-step drift (r - sigma^2/2) dt and the
+    volatility, each formed in float64. ``dtype=torch.float64`` runs the
+    double-precision oracle mode on the identical Brownian stream: the
+    normals are drawn in float32 either way. The mean divides by the path
+    count exactly (a device tensor: the card multiplies by the reciprocal
+    of a host scalar). The reverse pass keeps each step's normals,
+    ``num_steps * num_paths`` values. ``device`` defaults to
+    ``select_device()``."""
+    dtype = dtype if dtype is not None else FLOAT_DTYPE
+    device = torch.device(device) if device is not None else select_device()
+    num_paths, num_steps = int(num_paths), int(num_steps)
+    s0 = torch.as_tensor(s0, dtype=ACC_DTYPE, device=device)
+    sigma = torch.as_tensor(sigma, dtype=ACC_DTYPE, device=device)
+    dt = maturity / num_steps
+    sqrt_dt = float(torch.tensor(math.sqrt(dt), dtype=ACC_DTYPE).to(dtype))
+    drift = ((risk_free_rate - 0.5 * sigma * sigma) * dt).to(dtype)
+    vol = sigma.to(dtype)
+    gen = key_for_seed(seed, device)
+    log_s = torch.log(s0).to(dtype).expand(num_paths)
+    for _ in range(num_steps):
+        dw = torch.randn(num_paths, generator=gen, dtype=FLOAT_DTYPE,
+                         device=device).to(dtype) * sqrt_dt
+        log_s = log_s + drift + vol * dw
+    payoff = torch.clamp_min(torch.exp(log_s) - float(strike), 0.0)
+    mean = torch.sum(payoff, dtype=ACC_DTYPE) / torch.tensor(
+        float(num_paths), dtype=ACC_DTYPE, device=device)
     return mean * math.exp(-risk_free_rate * maturity)

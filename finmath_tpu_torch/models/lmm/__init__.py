@@ -15,6 +15,9 @@ from .benchmark_calibration import (
 )
 from .analytic_approximation import LMMAnalyticSwaptionEngine
 from .kernel_backend import ATMKernelCalibration, StochVolKernelCalibration
+from .bermudan import BermudanSwaption, BermudanSwaptionPricer
+from .products import CapFloor
+from .eager import eager_swaption_valuation
 
 __all__ = [
     "LIBORVolatilityModelPiecewiseConstant",
@@ -34,4 +37,8 @@ __all__ = [
     "LMMAnalyticSwaptionEngine",
     "ATMKernelCalibration",
     "StochVolKernelCalibration",
+    "BermudanSwaption",
+    "BermudanSwaptionPricer",
+    "CapFloor",
+    "eager_swaption_valuation",
 ]

@@ -411,14 +411,27 @@ class LMMValuationEngine:
         inv_safe = torch.where(torch.isfinite(inv_n), inv_n, 0.0)
         return contrib.sum(dim=-1), inv_safe.sum()
 
-    def _values(self, params: torch.Tensor) -> torch.Tensor:
-        """Monte-Carlo values [P] (numeraire adjustment applied).
+    def exercise_step_of(self, e: int) -> int:
+        """Simulation step index whose start time is tenor point T_e."""
+        return int(np.argmin(np.abs(self.model.sim_times
+                                    - self.model.tenor_times[e])))
 
-        On the tenor grid, forward i evolves during steps s < i only, so at
-        step s the state is the live block ``L[s:]``: its first row L_s has
-        just fixed (it accrues the numeraire and is read by the step's
-        collection), the rest evolve. The block shrinks by one row a step
-        and nothing needs the fixed rows again."""
+    def _simulate_collect(self, params: torch.Tensor, collect) -> list:
+        """Run the simulation once and apply ``collect(e, ev, L, N)`` at
+        every exercise step, before that step's accrual and evolution;
+        return the outputs per event, in event order (``ev`` is the
+        event's ordinal, ``e`` its tenor index).
+
+        The contract for ``L``: on the tenor grid, forward i evolves during
+        steps s < i only, so at step s the state is the live block
+        ``L[s:]``: its first row L_s has just fixed (it accrues the
+        numeraire and is read by the step's collection), the rest evolve.
+        The block shrinks by one row a step and nothing needs the fixed
+        rows again. So ``collect`` gets the rows from the exercise index on:
+        ``L[j]`` is forward ``e + j`` at T_e, float32 ``[n - e, paths]``.
+        ``N`` is the spot numeraire N(T_e), float64 ``[paths]``. (The JAX
+        engine passes the full ``[n, paths]`` curve and the collectors
+        index it absolutely.) Nothing is simulated after the last event."""
         t = self._t
         cov = self.model.covariance
         n, paths, F = self.model.num_libors, self.num_paths, self.num_factors
@@ -440,16 +453,14 @@ class LMMValuationEngine:
             exponent = getattr(cov, "scaling_exponent", 0.5)
             martingale = getattr(cov, "martingale_correction", True)
             V = torch.ones(paths, dtype=f64, device=self.device)
-        raws, invs = [], []
-        events = iter(self._events)
-        ev = next(events)
+        outs = []
+        events = iter(enumerate(self.exercise_indices))
+        j, e = next(events)
         for s in range(self.steps_needed + 1):
-            if s == ev["e"]:
-                raw, inv = self._collect(ev, L, N)
-                raws.append(raw)
-                invs.append(inv)
-                ev = next(events, None)
-                if ev is None:
+            if s == e:
+                outs.append(collect(e, j, L, N))
+                j, e = next(events, (None, None))
+                if e is None:
                     break
             # spot account accrues period s at its fixing L_s
             N = N * (1.0 + t["deltas32"][s] * L[0]).to(f64)
@@ -477,6 +488,14 @@ class LMMValuationEngine:
                     arg = arg - 0.5 * nu * nu * t["dts"][s].to(f64)
                 # the same overflow guard for the scaling process
                 V = torch.clamp_max(V * torch.exp(arg), 1e6)
+        return outs
+
+    def _values(self, params: torch.Tensor) -> torch.Tensor:
+        """Monte-Carlo values [P] (numeraire adjustment applied)."""
+        t = self._t
+        paths = self.num_paths
+        raws, invs = zip(*self._simulate_collect(
+            params, lambda e, j, L, N: self._collect(self._events[j], L, N)))
         raw = torch.cat(raws) / paths                              # [P]
         if not self.model.use_numeraire_adjustment:
             return raw

@@ -1,3 +1,5 @@
+from .lazy import (RandomVariableTorchLazy, RandomVariableTorchLazyFactory,
+                   averages, flush)
 from .random_variable import (RandomVariable, RandomVariableTorch,
                               RandomVariableTorchFactory)
 from .random_variable_float import RandomVariableFloat, RandomVariableFloatFactory
@@ -6,6 +8,10 @@ __all__ = [
     "RandomVariable",
     "RandomVariableTorch",
     "RandomVariableTorchFactory",
+    "RandomVariableTorchLazy",
+    "RandomVariableTorchLazyFactory",
     "RandomVariableFloat",
     "RandomVariableFloatFactory",
+    "averages",
+    "flush",
 ]

@@ -636,11 +636,10 @@ class RandomVariableTorch(RandomVariable):
         return np.stack([centers, freqs])
 
     def get_conditional_expectation(self, estimator):
-        """Regression estimators (``ops/conditional_expectation.py``) come
-        with a later slice of the port."""
-        raise NotImplementedError(
-            "get_conditional_expectation needs the regression estimators of "
-            "ops/conditional_expectation.py, not ported yet")
+        """Delegates to a regression estimator (Longstaff-Schwartz,
+        ``ops.conditional_expectation``), ref.
+        RandomVariableFromFloatArray.java:860-864."""
+        return estimator.get_conditional_expectation(self)
 
     # ------------------------------------------------------------------
     # Python operator sugar

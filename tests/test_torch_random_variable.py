@@ -299,5 +299,13 @@ class TestApiSurface:
         # a tensor keeps its device
         t = RandomVariableTorch(0.0, torch.ones(3))
         assert t.values.device.type == "cpu"
-        with pytest.raises(NotImplementedError, match="conditional"):
-            t.get_conditional_expectation(None)
+        # the regression hook delegates to its estimator (it raised before
+        # ops/conditional_expectation.py was ported): the constant basis
+        # fits the mean
+        from finmath_tpu_torch.ops.conditional_expectation import (
+            MonteCarloConditionalExpectationRegression)
+        est = MonteCarloConditionalExpectationRegression(
+            [RandomVariableTorch(0.0, 1.0, device=CPU)])
+        fit = t.get_conditional_expectation(est)
+        assert fit.values.device.type == "cpu"
+        assert torch.equal(fit.values, torch.ones(3))
