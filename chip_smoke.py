@@ -131,6 +131,43 @@ Phases, one line of output each (more for the kernel builds), in order:
     ``averages`` (one new program; new scalars add none), each wall, and
     the break-even sweep of lazy against the float oracle at 500k, 1M and
     4M paths;
+22. the matched-quality row, ``bench.py:641 bench_stochvol_matched``,
+    through the public API at full width: the benchmark setup at 81,920
+    scrambled Sobol paths (``brownian="sobol"``, seed 0), K = 3
+    realizations (the engine's own and Sobol seeds 1, 2) on one
+    ``StochVolKernelCalibration``, every program warmed before the
+    threads; per realization, concurrently, the better of the first two
+    curated basins, a 40-evaluation trust-region leg and a 250-evaluation
+    tight leg; then 4 jittered restarts (1%, ``default_rng(11)``, 120
+    evaluations) on the best realization, concurrently; the final ranking
+    by the engine oracle on that realization (``set_increments``). It
+    fails unless the kernel residuals are within 5e-5 of the engine's at
+    the initial point on realization 0, launches equal backend calls,
+    rms19 < 0.25% and |mean deviation| < 1e-2; it prints both oracles'
+    rms19 per realization and restart, the wall of the chains and of the
+    restarts (the Sobol generation outside it) and whether the published
+    0.198% was reached;
+23. ``bench.py:1232 bench_parity_1e6``: the float32 engines against the
+    float64 parity engine on one stream, each within 1e-6 relative:
+    ``mc_european_call_price`` at 1M x 100, the ATM setup's 144 values at
+    10,000 paths, the stoch-vol benchmark at 16,384 paths; at the first
+    curated basin the trimmed criterion (fewer than 0.5% of paths with a
+    pathwise gap of 1e-3 or more, the kept mean within 1e-6); the strict
+    tier, the card's float64 ``pathwise_values`` against the CPU's on the
+    Mersenne stream (printed, not a gate); the float64 engine's ``values``
+    wall over the float32's at 16,384 and 409,600 paths;
+24. the engine options at full width: antithetic, predictor-corrector and
+    the terminal measure on the ATM setup at 100,000 paths, each within 5
+    combined standard errors of the default; the configuration of
+    ``tests/test_measures_and_statespace.py`` at 1,000,000 paths (a
+    lognormal caplet within 2% of Black, a grid twice as fine within 5%
+    of the tenor grid, the terminal E[1/N] within 1% of the discount
+    factor); the terminal-measure Bermudan at phase 19's configuration
+    (within 3e-4 of phase 19's value, its bounds ordered and around it);
+    the forward-delta ladder of ``bench.py:1204-1229`` route 3 (ATM,
+    100,000 paths, 80 buckets, the largest within 2e-3 of a float64
+    central difference on the same increments), its wall (min of 3 after
+    a warm-up) and peak device memory; each phase prints its seconds;
 6. with ``--profile`` only, last: device operations and busy time under
    ``torch.profiler`` for one ATM calibration, one engine Jacobian, one
    ATM kernel residual call, one stoch-vol kernel
@@ -155,6 +192,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -181,6 +219,9 @@ SYN_PRODUCTS = ((2, 10, 0.021), (2, 30, 0.02), (5, 4, 0.022),
 BERMUDAN_PATHS, BERMUDAN_EXERCISES = 100_000, (4, 8, 12, 16)
 BERMUDAN_MATURITY, BERMUDAN_STRIKE = 20, 0.01
 TAPE_PATHS, EAGER_PATHS = 500_000, 100_000
+# bench.py:641 bench_stochvol_matched: realizations and restarts; the
+# path count of tests/test_measures_and_statespace.py's configuration
+MATCHED_K, MATCHED_RESTARTS, MEASURE_PATHS = 3, 4, 1_000_000
 # the published H100 SXM peaks the bound is taken against
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 SPIN_CYCLES = 2_000_000       # about 1 ms of the card's clock
@@ -403,13 +444,15 @@ def _launch_ms(torch, fn, reps=5):
 
 
 class _Counted:
-    """Counts the calls of a function, and adds nothing else to them."""
+    """Counts the calls of a function, from any thread, and adds nothing
+    else to them."""
 
     def __init__(self, fn):
-        self.fn, self.calls = fn, 0
+        self.fn, self.calls, self._lock = fn, 0, threading.Lock()
 
     def __call__(self, *args):
-        self.calls += 1
+        with self._lock:
+            self.calls += 1
         return self.fn(*args)
 
 
@@ -1151,6 +1194,7 @@ def _slice_e(torch, smi):
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise SystemExit(f"chip_smoke: phase 19 failed: {failed}")
+    bermudan_value = value
     del pricer, single, setup
 
     # -- 20: BASELINE configuration 5, AAD greeks ---------------------------
@@ -1288,6 +1332,421 @@ def _slice_e(torch, smi):
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise SystemExit(f"chip_smoke: phase 21 failed: {failed}")
+    return bermudan_value
+
+
+def _matched_row(torch, smi, lmm_stochvol_kernel):
+    """Phase 22: ``bench.py:641 bench_stochvol_matched`` through the port's
+    public API at 81,920 Sobol paths on the stoch-vol products kernel."""
+    from scipy.optimize import least_squares
+
+    from finmath_tpu_torch.models.lmm import (StochVolKernelCalibration,
+                                              build_benchmark_calibration)
+    from finmath_tpu_torch.models.lmm.benchmark_calibration import (
+        CURATED_BASINS)
+    from finmath_tpu_torch.models.qmc import sobol_brownian_increments
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    setup = build_benchmark_calibration(num_paths=SV_PATHS, brownian="sobol",
+                                        seed=0, device="cuda")
+    eng = setup.engine
+    factors = eng.num_factors + 1
+    # the K realizations as the engine's injected format: Owen scramblings
+    # 0 (the engine's own) .. K - 1
+    incs = [sobol_brownian_increments(np.full(40, 0.5), factors, SV_PATHS,
+                                      seed=k) for k in range(MATCHED_K)]
+    sobol_s = time.perf_counter() - t0
+    kb = StochVolKernelCalibration(eng, incs)
+    p0 = setup.covariance.initial_parameters
+    # build and warm every program before the threads start
+    t0 = time.perf_counter()
+    for k in range(MATCHED_K):
+        kb.residuals(p0, k)
+        kb.residuals_and_jacobian(p0, k)
+    gap = float(np.abs(kb.residuals(p0, 0) - eng.residuals(p0)).max())
+    eng.implied_vols(p0)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    weight = kb._weight.cpu().numpy()
+
+    def rms19_kernel(r):
+        return float(np.sqrt(np.sum((r / weight) ** 2) / 19.0))
+
+    def engine_on(k):
+        # the engine oracle on realization k: its injected increments
+        # swapped in place (the backend keeps copies of its own)
+        eng.set_increments(incs[k])
+
+    def rms19_engine(x):
+        d = setup.deviations(x)
+        return float(np.sqrt(np.sum(d ** 2) / 19.0))
+
+    residual_calls = _Counted(kb.residuals)
+    jacobian_calls = _Counted(kb.jacobian)
+
+    def make_funs(k):
+        def fun(x):
+            return np.nan_to_num(residual_calls(x, k), nan=1e3, posinf=1e3,
+                                 neginf=-1e3)
+
+        def jac(x):
+            return np.nan_to_num(jacobian_calls(x, k), nan=0.0, posinf=0.0,
+                                 neginf=0.0)
+        return fun, jac
+
+    starts = [np.asarray(c) for c in CURATED_BASINS[:2]]
+
+    def chain(k):
+        fun, jac = make_funs(k)
+        scores = [float(np.sqrt(np.mean(fun(x) ** 2))) for x in starts]
+        cand = starts[int(np.argmin(scores))]
+        r1 = least_squares(fun, cand, jac=jac, method="trf", x_scale="jac",
+                           max_nfev=40)
+        r2 = least_squares(fun, r1.x, jac=jac, method="trf", x_scale="jac",
+                           max_nfev=250, ftol=1e-15, xtol=1e-15, gtol=1e-15)
+        e1, e2 = rms19_kernel(fun(r1.x)), rms19_kernel(fun(r2.x))
+        return (r1.x, e1) if e1 <= e2 else (r2.x, e2)
+
+    lmm_stochvol_kernel.LAUNCHES = 0
+    t_all = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=MATCHED_K) as pool:
+        chains = list(pool.map(chain, range(MATCHED_K)))
+    chains_s = time.perf_counter() - t_all
+    best_k = int(np.argmin([e for _, e in chains]))
+    best_x, best_kernel = chains[best_k]
+
+    t0 = time.perf_counter()
+    fun_b, jac_b = make_funs(best_k)
+    rng = np.random.default_rng(11)
+    jitter = [best_x * (1 + rng.normal(0.0, 0.01, best_x.shape[0]))
+              for _ in range(MATCHED_RESTARTS)]
+
+    def restart(w):
+        rr = least_squares(fun_b, w, jac=jac_b, method="trf", x_scale="jac",
+                           max_nfev=120, ftol=1e-15, xtol=1e-15)
+        return rr.x, rms19_kernel(fun_b(rr.x))
+
+    with ThreadPoolExecutor(max_workers=MATCHED_RESTARTS) as pool:
+        restarts = list(pool.map(restart, jitter))
+    # the final ranking by the engine oracle on the best realization
+    engine_on(best_k)
+    ranked = sorted((rms19_engine(x), ek, x)
+                    for x, ek in [(best_x, best_kernel)] + restarts)
+    best_rms, best_kernel, best_x = ranked[0]
+    restarts_s = time.perf_counter() - t0
+    wall = chains_s + restarts_s
+    launches = lmm_stochvol_kernel.LAUNCHES
+    backend_calls = residual_calls.calls + jacobian_calls.calls
+    dev = setup.deviations(best_x)
+    mean_dev = float(np.mean(dev))
+    per_restart_engine = [rms19_engine(x) for x, _ in restarts]
+    per_realization_engine = []
+    for k, (x, _) in enumerate(chains):
+        engine_on(k)
+        per_realization_engine.append(rms19_engine(x))
+    on_cuda = (eng.increments.is_cuda and all(z.is_cuda for z in kb._z))
+    print(f"phase 22 matched-quality row: paths={SV_PATHS} Sobol, "
+          f"K={MATCHED_K} realizations, {MATCHED_RESTARTS} restarts; "
+          f"sobol_generation_s={sobol_s:.3f} warmup_s={warm_s:.3f} "
+          f"kernel_vs_engine_residuals_p0={gap:.3e} " + json.dumps({
+              "wall_s": round(wall, 4), "phase_chains_s": round(chains_s, 4),
+              "phase_restarts_s": round(restarts_s, 4),
+              "best_realization": best_k,
+              "best_rms19": best_rms, "best_rms19_kernel": best_kernel,
+              "mean_dev": mean_dev,
+              "per_realization_rms19_kernel": [e for _, e in chains],
+              "per_realization_rms19_engine": per_realization_engine,
+              "per_restart_rms19_kernel": [e for _, e in restarts],
+              "per_restart_rms19_engine": per_restart_engine,
+              "kernel_launches": launches,
+              "backend_residual_calls": residual_calls.calls,
+              "backend_jacobian_calls": jacobian_calls.calls,
+              "published_0.198%_reached": best_rms <= 0.00198,
+              "on_cuda": on_cuda}), flush=True)
+    checks = {
+        "kernel launched": launches > 0,
+        "launches == backend residual + jacobian calls":
+            launches == backend_calls,
+        "realizations on cuda": on_cuda,
+        "kernel residuals within 5e-5 of the engine's at p0": gap < 5e-5,
+        "15 finite deviations": bool(np.all(np.isfinite(dev))
+                                     and dev.shape == (15,)),
+        "rms19 < 0.25%": best_rms < 0.0025,
+        "|mean_dev| < 1e-2": abs(mean_dev) < 1e-2,
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: phase 22 failed: {failed}")
+    print(f"phase 22 seconds: {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+
+
+def _parity(torch, smi):
+    """Phase 23: ``bench.py:1232 bench_parity_1e6`` through the port."""
+    from finmath_tpu_torch.models.black_scholes import mc_european_call_price
+    from finmath_tpu_torch.models.lmm import (build_atm_calibration,
+                                              build_benchmark_calibration)
+    from finmath_tpu_torch.models.lmm.benchmark_calibration import (
+        CURATED_BASINS)
+
+    t_phase = time.perf_counter()
+    f32, f64 = torch.float32, torch.float64
+    args = (7, BS_PATHS, BS_STEPS, 1.0, 0.05, 0.30, 1.0, 1.05)
+    p32 = mc_european_call_price(*args, device="cuda")
+    p64 = mc_european_call_price(*args, dtype=f64, device="cuda")
+    bs_rel = abs(p32 - p64) / abs(p64)
+
+    def pair(build, **kw):
+        return tuple(build(**kw, dtype=d, device="cuda") for d in (f32, f64))
+
+    a32, a64 = pair(build_atm_calibration, num_paths=10_000, num_factors=1,
+                    seed=SEED)
+    x0 = a32.covariance.initial_parameters
+    v32, v64 = a32.engine.values(x0), a64.engine.values(x0)
+    atm_rel = np.abs(v32 - v64) / np.abs(v64)
+    s32, s64 = pair(build_benchmark_calibration, num_paths=16_384,
+                    seed=SV_SEED)
+    sv_p0 = s32.covariance.initial_parameters
+    sv_rel = (np.abs(s32.engine.values(sv_p0) - s64.engine.values(sv_p0))
+              / np.abs(s64.engine.values(sv_p0)))
+    # the calibrated basin: the trimmed criterion
+    basin = CURATED_BASINS[0]
+    c32 = s32.engine.pathwise_values(basin)
+    c64 = s64.engine.pathwise_values(basin)
+    cal_rel = (np.abs(c32.mean(axis=1) - c64.mean(axis=1))
+               / np.abs(c64.mean(axis=1)))
+    keep = np.abs(c32 - c64).max(axis=0) < 1e-3
+    trim_rel = (np.abs(c32[:, keep].mean(axis=1) - c64[:, keep].mean(axis=1))
+                / np.abs(c64[:, keep].mean(axis=1)))
+    n_decorr = int((~keep).sum())
+    # the strict tier: the card's float64 against the CPU's float64 on the
+    # Mersenne stream (evidence, not a gate)
+    strict = {}
+    mersenne = dict(num_paths=16_384, seed=SV_SEED, dtype=f64,
+                    brownian="finmath_mersenne")
+    ct = build_benchmark_calibration(**mersenne, device="cuda"
+                                     ).engine.pathwise_values(basin)
+    cc = build_benchmark_calibration(**mersenne, device="cpu"
+                                     ).engine.pathwise_values(basin)
+    gap64 = np.abs(ct - cc).max(axis=0)
+    strict.update(
+        untrimmed_max_rel_dev=float(np.max(
+            np.abs(ct.mean(axis=1) - cc.mean(axis=1))
+            / np.abs(cc.mean(axis=1)))),
+        max_pathwise_gap=float(gap64.max()),
+        median_pathwise_gap=float(np.median(gap64)),
+        paths_beyond_1e3_gap=int((gap64 >= 1e-3).sum()))
+    # the cost of the float64 engine: values' wall at 16,384 and 409,600
+    walls = {}
+    for paths, engines in ((16_384, (s32.engine, s64.engine)),
+                           (409_600, tuple(
+                               build_benchmark_calibration(
+                                   num_paths=409_600, seed=SV_SEED, dtype=d,
+                                   device="cuda").engine
+                               for d in (f32, f64)))):
+        w32, _ = _wall_s(torch, lambda: engines[0].values(basin))
+        w64, _ = _wall_s(torch, lambda: engines[1].values(basin))
+        walls[paths] = {"f32_ms": w32 * 1e3, "f64_ms": w64 * 1e3,
+                        "f64_over_f32": w64 / w32}
+    print(f"phase 23 parity f32 vs f64 ({smi}): " + json.dumps({
+        "bs_mc_1M_x_100_rel": bs_rel, "bs_prices": [p32, p64],
+        "atm_10k_max_rel": float(atm_rel.max()),
+        "atm_10k_median_rel": float(np.median(atm_rel)),
+        "stochvol_16k_p0_max_rel": float(sv_rel.max()),
+        "basin_untrimmed_max_rel": float(cal_rel.max()),
+        "basin_trimmed_max_rel": float(trim_rel.max()),
+        "basin_decorrelated_paths": n_decorr,
+        "strict_card_f64_vs_cpu_f64": strict,
+        "values_wall": {str(k): v for k, v in walls.items()}}), flush=True)
+    checks = {
+        "Black-Scholes f32 within 1e-6 of f64": bs_rel < 1e-6,
+        "ATM 144 values within 1e-6": bool(atm_rel.max() < 1e-6
+                                           and atm_rel.shape == (144,)),
+        "stoch-vol p0 within 1e-6": bool(sv_rel.max() < 1e-6),
+        "basin trimmed within 1e-6": bool(trim_rel.max() < 1e-6),
+        "basin decorrelated < 0.5% of paths": n_decorr < 5e-3 * c32.shape[1],
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: phase 23 failed: {failed}")
+    print(f"phase 23 seconds: {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+
+
+def _standard_errors(c, antithetic=False):
+    """Standard errors of the row means of pathwise contributions [P,
+    paths]; antithetic pairs ([z, -z] halves) count as one sample."""
+    if antithetic:
+        half = c.shape[1] // 2
+        c = 0.5 * (c[:, :half] + c[:, half:])
+    return c.std(axis=1, ddof=1) / np.sqrt(c.shape[1])
+
+
+def _measures_setup(tmodel, curves, cov, td, *, measure="spot",
+                    state_space="normal", sim_dt=None, products=None):
+    """``tests/test_measures_and_statespace.py:36-60``: 10 libors of a flat
+    2.5% curve, one factor, a flat vol of 0.30, no numeraire adjustment."""
+    horizon, dt, fwd = 5.0, 0.5, 0.025
+    n = int(horizon / dt)
+    fc = curves.ForwardCurveFromForwards(np.arange(0.0, horizon + dt, dt),
+                                         np.full(n + 1, fwd), dt)
+    dc = curves.DiscountCurveFromForwardCurve(fc, horizon=horizon)
+    libor_td = td.TimeDiscretization(initial=0.0, num_steps=n, step=dt)
+    sim_td = (td.TimeDiscretization(initial=0.0,
+                                    num_steps=int(horizon / sim_dt),
+                                    step=sim_dt) if sim_dt else libor_td)
+    k = cov.LIBORCovarianceModelFromVolatilityAndCorrelation(
+        cov.LIBORVolatilityModelPiecewiseConstant(
+            sim_td, libor_td, time_grid=np.asarray([0.0]),
+            maturity_grid=np.asarray([0.0]), initial_volatility=0.30),
+        cov.LIBORCorrelationModelExponentialDecay(libor_td, 1, decay=0.0))
+    model = tmodel.LIBORMarketModelTorch(
+        libor_td, fc, dc, k, measure=measure, state_space=state_space,
+        use_numeraire_adjustment=False, simulation_td=sim_td)
+    if products is None:
+        strike = curves.par_swap_rate(fc, dc, model.tenor_times[4:9])
+        products = [tmodel.SwaptionProduct(4, 4, strike, 0.0,
+                                           value_unit="VALUE")]
+    return model, tmodel.LMMValuationEngine(model, products, MEASURE_PATHS,
+                                            1, 4242, device="cuda")
+
+
+def _engine_options(torch, smi, bermudan_value):
+    """Phase 24: the engine options at full width."""
+    from finmath_tpu_torch.models import curves
+    from finmath_tpu_torch.models import time_discretization as td
+    from finmath_tpu_torch.models.analytic import black_formula
+    from finmath_tpu_torch.models.lmm import build_atm_calibration
+    from finmath_tpu_torch.models.lmm import covariance as cov
+    from finmath_tpu_torch.models.lmm import model as tmodel
+    from finmath_tpu_torch.models.lmm.bermudan import (BermudanSwaption,
+                                                       BermudanSwaptionPricer)
+
+    t_phase = time.perf_counter()
+    out, checks = {}, {}
+    # the ATM setup at 100,000 paths: each option against the default
+    base = build_atm_calibration(num_paths=PATHS, num_factors=1, seed=SEED,
+                                 device="cuda")
+    x0 = base.covariance.initial_parameters
+    c0 = base.engine.pathwise_values(x0)
+    se0 = _standard_errors(c0)
+    terminal = tmodel.LIBORMarketModelTorch(
+        base.model.libor_td, base.model.forward_curve,
+        base.model.discount_curve, base.covariance, measure="terminal",
+        use_numeraire_adjustment=True)
+    variants = {
+        "antithetic": tmodel.LMMValuationEngine(
+            base.model, base.products, PATHS, 1, SEED, device="cuda",
+            antithetic=True),
+        "predictor_corrector": tmodel.LMMValuationEngine(
+            base.model, base.products, PATHS, 1, SEED, device="cuda",
+            scheme="predictor_corrector"),
+        "terminal": tmodel.LMMValuationEngine(
+            terminal, base.products, PATHS, 1, SEED, device="cuda"),
+    }
+    for name, engine in variants.items():
+        c = engine.pathwise_values(x0)
+        se = _standard_errors(c, antithetic=name == "antithetic")
+        z = np.abs(c.mean(axis=1) - c0.mean(axis=1)) / np.sqrt(se ** 2
+                                                                + se0 ** 2)
+        out[f"atm_{name}_max_gap_se"] = float(z.max())
+        checks[f"ATM {name} within 5 combined standard errors"] = bool(
+            z.shape == (144,) and z.max() < 5.0)
+        del c
+    del c0
+
+    # the measures test's configuration at 1,000,000 paths
+    e = 6
+    caplet = [tmodel.SwaptionProduct(e, 1, 0.025, 0.0, value_unit="VALUE")]
+    lmodel, leng = _measures_setup(tmodel, curves, cov, td,
+                                   state_space="lognormal", products=caplet)
+    sigma = np.asarray([0.30])
+    c = leng.pathwise_values(sigma)[0]
+    v, se = float(c.mean()), float(_standard_errors(c[None, :])[0])
+    df_pay = float(lmodel.discount_curve.get_discount_factor(e * 0.5 + 0.5))
+    analytic = 0.5 * df_pay * black_formula(0.025, 0.025, 0.30, e * 0.5)
+    out["lognormal_caplet"] = {"mc": v, "black": analytic,
+                               "rel": abs(v / analytic - 1.0),
+                               "gap_se": abs(v - analytic) / se}
+    checks["lognormal caplet within 2% of Black"] = \
+        abs(v / analytic - 1.0) < 0.02
+    _, coarse = _measures_setup(tmodel, curves, cov, td)
+    _, fine = _measures_setup(tmodel, curves, cov, td, sim_dt=0.25)
+    cc, cf = coarse.pathwise_values(sigma)[0], fine.pathwise_values(sigma)[0]
+    vc, vf = float(cc.mean()), float(cf.mean())
+    se_cf = float(np.hypot(_standard_errors(cc[None, :])[0],
+                           _standard_errors(cf[None, :])[0]))
+    out["refined_grid"] = {"tenor_grid": vc, "dt_0.25": vf,
+                           "rel": abs(vf / vc - 1.0),
+                           "gap_se": abs(vf - vc) / se_cf}
+    checks["refined grid within 5% of the tenor grid"] = \
+        abs(vf / vc - 1.0) < 0.05
+    tmodel_t, teng = _measures_setup(tmodel, curves, cov, td,
+                                     measure="terminal")
+    x = teng._params(sigma)
+    ev = teng._events[0]
+    _, inv_sum = teng._simulate_collect(
+        x, lambda e, j, L, N: teng._collect(ev, L, N))[0]
+    mean_inv = float(inv_sum) / MEASURE_PATHS * teng._p0_terminal
+    df_e = float(tmodel_t.discount_curve.get_discount_factor(
+        float(tmodel_t.tenor_times[ev["e"]])))
+    out["terminal_mean_inv_numeraire"] = {"mc": mean_inv, "df": df_e,
+                                          "rel": abs(mean_inv / df_e - 1.0)}
+    checks["terminal E[1/N] within 1% of the discount factor"] = \
+        abs(mean_inv / df_e - 1.0) < 0.01
+    del leng, coarse, fine, teng
+
+    # the terminal-measure Bermudan at phase 19's configuration
+    product = BermudanSwaption(BERMUDAN_EXERCISES, BERMUDAN_MATURITY,
+                               BERMUDAN_STRIKE)
+    pricer = BermudanSwaptionPricer(terminal, product, BERMUDAN_PATHS, 1,
+                                    device="cuda")
+    value = pricer.get_value(x0)
+    lower, upper = pricer.get_value_bounds(x0)
+    out["bermudan_terminal"] = {"value": value, "lower": lower,
+                                "upper": upper, "spot_value": bermudan_value}
+    checks["terminal Bermudan within 3e-4 of the spot value"] = \
+        abs(value - bermudan_value) < 3e-4
+    checks["terminal bounds ordered and around the value (3e-4)"] = \
+        lower <= upper and lower - 3e-4 <= value <= upper + 3e-4
+
+    # the forward-delta ladder (bench.py:1204-1229 route 3)
+    ladder = build_atm_calibration(num_paths=PATHS, num_factors=1,
+                                   seed=3141, device="cuda")
+    pa = ladder.covariance.initial_parameters
+    torch.cuda.reset_peak_memory_stats()
+    ladder_s, (total, g) = _wall_s(
+        torch, lambda: ladder.engine.forward_deltas(pa))
+    peak = torch.cuda.max_memory_allocated()
+    i = int(np.argmax(np.abs(g)))
+    e64 = tmodel.LMMValuationEngine(
+        ladder.model, ladder.products, PATHS, 1, device="cuda",
+        dtype=torch.float64, increments=ladder.engine.increments)
+    x64 = e64._params(pa)
+    f0 = torch.as_tensor(np.asarray(ladder.model.initial_forwards),
+                         dtype=torch.float64, device="cuda")
+    h = 1e-5
+    bump = torch.zeros_like(f0)
+    bump[i] = h
+    with torch.no_grad():
+        fd = float((e64._values(x64, fwd0=f0 + bump).sum()
+                    - e64._values(x64, fwd0=f0 - bump).sum()) / (2 * h))
+    out["delta_ladder"] = {
+        "buckets": int(g.shape[0]), "portfolio_value": total,
+        "largest_bucket": i, "aad": float(g[i]), "central_difference_f64": fd,
+        "rel": abs(g[i] / fd - 1.0), "wall_ms": ladder_s * 1e3,
+        "max_memory_allocated_gb": peak / 1e9}
+    checks["ladder finite, 80 buckets, not all zero"] = bool(
+        g.shape == (80,) and np.all(np.isfinite(g)) and np.any(g != 0.0))
+    checks["largest bucket within 2e-3 of the f64 central difference"] = \
+        abs(g[i] / fd - 1.0) < 2e-3
+    print(f"phase 24 engine options ({smi}): " + json.dumps(out), flush=True)
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: phase 24 failed: {failed}")
+    print(f"phase 24 seconds: {time.perf_counter() - t_phase:.1f}",
+          flush=True)
 
 
 def main(argv=None) -> int:
@@ -1703,7 +2162,12 @@ def main(argv=None) -> int:
     pricer_rows = _slice_d1(torch, smi)
 
     # -- 18-21: the regression, the Bermudan, AAD greeks, the lazy engine ---
-    _slice_e(torch, smi)
+    bermudan_value = _slice_e(torch, smi)
+
+    # -- 22-24: the matched-quality row, f32/f64 parity, engine options ----
+    _matched_row(torch, smi, lmm_stochvol_kernel)
+    _parity(torch, smi)
+    _engine_options(torch, smi, bermudan_value)
 
     if opts.profile:
         _profile(torch, setup, kb, sv, sv_kb)

@@ -6,6 +6,7 @@ from .brownian_motion import (
     BrownianMotionView,
 )
 from .calibration import (
+    BatchedLevenbergMarquardt,
     LevenbergMarquardt,
     LMResult,
 )
@@ -16,6 +17,7 @@ __all__ = [
     "BrownianMotionHostRandom",
     "BrownianMotionTorchWithHostRandomVariable",
     "BrownianMotionView",
+    "BatchedLevenbergMarquardt",
     "LevenbergMarquardt",
     "LMResult",
 ]

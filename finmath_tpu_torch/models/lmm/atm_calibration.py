@@ -27,6 +27,7 @@ from dataclasses import dataclass
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from ..calibration import LevenbergMarquardt, LMResult
 from ..curves import (DiscountCurve, ForwardCurve, get_calibrated_eur_curve,
@@ -153,12 +154,15 @@ def build_atm_calibration(num_paths: int = 10_000, num_factors: int = 1,
                           discount_curve: Optional[DiscountCurve] = None,
                           calibration_product_type: str = "MONTECARLO",
                           jacobian_paths: Optional[int] = None,
-                          device=None) -> ATMCalibrationSetup:
+                          device=None, dtype=torch.float32,
+                          antithetic: bool = False) -> ATMCalibrationSetup:
     """Assemble the full ATM workload (curves -> surface -> products ->
     model -> engine) on ``device`` (default: ``select_device()``).
     ``model_type``: NORMAL | DISPLACED (ref. :296-306);
     ``calibration_product_type``: MONTECARLO (SwaptionSimple) | ANALYTIC
-    (SwaptionGeneralizedAnalyticApproximation) — ref. :108-118, :505-521."""
+    (SwaptionGeneralizedAnalyticApproximation) — ref. :108-118, :505-521;
+    ``dtype``: the engines' path dtype (float64: the parity engine);
+    ``antithetic``: antithetic sampling in the engines."""
     dc = discount_curve or get_calibrated_eur_curve()
     fc = ForwardCurve(dc, SWAP_PERIOD_LENGTH)
 
@@ -209,11 +213,12 @@ def build_atm_calibration(num_paths: int = 10_000, num_factors: int = 1,
         engine = LMMAnalyticSwaptionEngine(model, products)
     elif calibration_product_type == "MONTECARLO":
         engine = LMMValuationEngine(model, products, num_paths, num_factors,
-                                    seed, device=device)
+                                    seed, device=device, dtype=dtype,
+                                    antithetic=antithetic)
         if jacobian_paths is not None and jacobian_paths < num_paths:
             jacobian_engine = LMMValuationEngine(
                 model, products, jacobian_paths, num_factors, seed,
-                device=device)
+                device=device, dtype=dtype, antithetic=antithetic)
     else:
         raise ValueError(
             f"unknown calibration_product_type {calibration_product_type}"

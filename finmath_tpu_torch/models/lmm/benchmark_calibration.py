@@ -21,11 +21,13 @@ README.md:240-257):
   (-> no numeraire adjustment), Levenberg-Marquardt lambda=0.1,
   accuracy 1e-6 (:297-306), final assert |mean deviation| < 1e-2 (:358).
 
-Not ported here: ``brownian="sobol"`` (scrambled Sobol, with
-``models/qmc.py``), ``sweep_mode="batched"`` (with
-``BatchedLevenbergMarquardt``) and ``set_increments``; each raises
-``NotImplementedError``. The JAX package's AOT program export has no
-counterpart: PyTorch runs eagerly.
+``brownian="sobol"`` injects scrambled Sobol increments with a Brownian
+bridge (``models/qmc.py``); ``set_increments`` swaps a built setup's
+realization in place (the multi-realization calibration of the
+matched-quality row); ``sweep_mode="batched"`` runs the multistart's sweep
+in lockstep (``BatchedLevenbergMarquardt`` on the engine's batched API).
+The JAX package's AOT program export has no counterpart: PyTorch runs
+eagerly.
 """
 
 from __future__ import annotations
@@ -36,8 +38,10 @@ from dataclasses import dataclass
 from typing import List, Optional
 
 import numpy as np
+import torch
 
-from ..calibration import LevenbergMarquardt, LMResult
+from ..calibration import (BatchedLevenbergMarquardt, LevenbergMarquardt,
+                           LMResult)
 from ..curves import (DiscountCurveFromForwardCurve, ForwardCurveFromForwards,
                       par_swap_rate)
 from ..time_discretization import TimeDiscretization
@@ -124,20 +128,33 @@ class BenchmarkCalibrationSetup:
         if self._sweep_engine is None:
             eng = self.engine
             paths = min(eng.num_paths, max(eng.num_paths // 4, 8_192))
+            if eng.antithetic:
+                paths -= paths % 2       # whole mirror pairs
             if paths == eng.num_paths:
                 self._sweep_engine = eng
                 return eng
             inc = eng.increments[:, :, :paths] if eng.injected else None
             self._sweep_engine = LMMValuationEngine(
                 self.model, list(eng.products), paths, eng.num_factors,
-                eng.seed, device=eng.device, increments=inc)
+                eng.seed, device=eng.device, increments=inc,
+                scheme=eng.scheme, dtype=eng.dtype,
+                collect_dtype=eng.collect_dtype, antithetic=eng.antithetic)
         return self._sweep_engine
 
     def set_increments(self, inc):
-        raise NotImplementedError(
-            "swapping the realization of a built setup (set_increments) "
-            "comes with the multi-realization calibration (the matched-"
-            "quality row, later in slice B)")
+        """Swap the injected realization of the engine, and the path
+        prefix of the sweep engine if one was built, in place
+        (``LMMValuationEngine.set_increments``): a kernel backend built on
+        the engine prices the new paths as its realization 0."""
+        self.engine.set_increments(inc)
+        sweep = self._sweep_engine
+        if sweep is not None and sweep is not self.engine:
+            # the sweep engine was built on the engine's own tensor: its
+            # steps, its path prefix, the path dtype
+            steps, _, paths = sweep._inc_shape
+            prefix = torch.as_tensor(getattr(inc, "increments", inc))
+            sweep.set_increments(
+                prefix[:steps, :, :paths].to(sweep._inc_dtype))
 
     def calibrate(self, max_iterations: int = 30, accuracy: float = 1e-6,
                   lambda0: float = 0.1) -> LMResult:
@@ -167,7 +184,11 @@ class BenchmarkCalibrationSetup:
         2. sweep — one capped trust-region run (scipy TRF) per start on
            the reduced-path engine: the curated basins, the reference
            initial point, stage 1's point and seeded jittered starts, in
-           that order;
+           that order; with ``sweep_mode="batched"`` instead every start
+           (stage 1's point, the curated basins, the reference point, the
+           jittered starts) descends in lockstep,
+           ``BatchedLevenbergMarquardt`` on the reduced-path engine's
+           ``residuals_batched`` / ``jacobian_batched`` (40 iterations);
         3. rank — every candidate by one full-path residual;
         4. polish — at full paths, the curated basins first, then the best
            two candidates, each a 40-evaluation trust-region leg and a
@@ -183,11 +204,7 @@ class BenchmarkCalibrationSetup:
         stage and its counts."""
         from scipy.optimize import least_squares
 
-        if sweep_mode == "batched":
-            raise NotImplementedError(
-                "sweep_mode='batched' comes with BatchedLevenbergMarquardt "
-                "(later in slice B)")
-        if sweep_mode != "sequential":
+        if sweep_mode not in ("sequential", "batched"):
             raise ValueError(f"unknown sweep_mode {sweep_mode!r}")
         if polish_jacobian not in ("sweep", "full"):
             raise ValueError("polish_jacobian must be 'sweep' or 'full'")
@@ -320,21 +337,33 @@ class BenchmarkCalibrationSetup:
             return out
 
         t_sweep0 = time.perf_counter()
-        starts = (curated + [x0])[:max(0, max_starts - 1)]
-        if max_starts >= 1:
-            starts.append(stage1)
-        starts += jittered_starts(max_starts - len(starts))
         candidates = []
-        for s in starts:
-            try:
-                r = least_squares(sfun, s, jac=sjac, method="trf",
-                                  x_scale="jac", max_nfev=40)
-            except Exception:
-                # one failed start does not end the search
-                logger.warning("sweep start failed", exc_info=True)
-                continue
-            total_nfev += int(r.nfev)
-            candidates.append(r.x)
+        if sweep_mode == "batched":
+            starts = ([stage1] + curated + [x0])[:max_starts]
+            starts += jittered_starts(max_starts - len(starts))
+            blm = BatchedLevenbergMarquardt(
+                sweep_eng.residuals_batched, sweep_eng.jacobian_batched,
+                lambda0=0.1, max_iterations=40, accuracy=1e-10,
+                lower_bound=-np.inf)
+            for r in blm.run(np.stack(starts)):
+                total_nfev += 2 * r.iterations
+                if np.all(np.isfinite(r.parameters)):
+                    candidates.append(r.parameters)
+        else:
+            starts = (curated + [x0])[:max(0, max_starts - 1)]
+            if max_starts >= 1:
+                starts.append(stage1)
+            starts += jittered_starts(max_starts - len(starts))
+            for s in starts:
+                try:
+                    r = least_squares(sfun, s, jac=sjac, method="trf",
+                                      x_scale="jac", max_nfev=40)
+                except Exception:
+                    # one failed start does not end the search
+                    logger.warning("sweep start failed", exc_info=True)
+                    continue
+                total_nfev += int(r.nfev)
+                candidates.append(r.x)
         stage_info["sweep_s"] = time.perf_counter() - t_sweep0
         stage_info["sweep_candidates"] = len(candidates)
 
@@ -411,7 +440,8 @@ def build_benchmark_calibration(num_paths: int = 8192, num_factors: int = 5,
                                 brownian: str = "threefry",
                                 scaling_exponent: float = 0.5,
                                 martingale_correction: bool = True,
-                                device=None, **engine_options
+                                device=None, dtype=torch.float32,
+                                antithetic: bool = False, **engine_options
                                 ) -> BenchmarkCalibrationSetup:
     """The benchmark workload on ``device`` (default: ``select_device()``,
     which raises without CUDA).
@@ -422,12 +452,19 @@ def build_benchmark_calibration(num_paths: int = 8192, num_factors: int = 5,
     or "finmath_mersenne", which injects the BIT-EXACT realization of the
     reference benchmark's ``BrownianMotionFromMersenneRandomNumbers(td, 6,
     paths, 314151)`` (LIBORMarketModelCalibrationTest.java:267), so results
-    are comparable to the published rows on the SAME paths.
+    are comparable to the published rows on the SAME paths, or "sobol",
+    which injects scrambled Sobol increments with a Brownian bridge
+    (``models/qmc.py``, Owen scrambling seeded by ``seed``; there
+    ``antithetic`` mirrors adjacent Sobol points in the generator and the
+    engine runs without it).
+
+    ``dtype``: the engine's path dtype (float64: the parity engine);
+    ``antithetic``: antithetic sampling.
 
     ``scaling_exponent``/``martingale_correction``: the stochastic-vol
     scaling convention (see LIBORCovarianceModelStochasticVolatility).
-    ``engine_options`` go to the engine (``mesh``, ``antithetic``,
-    ``dtype``, ... raise there until their slices land)."""
+    ``engine_options`` go to the engine (``scheme``, ``collect_dtype``;
+    ``mesh`` raises until the sharding slice)."""
     fc = ForwardCurveFromForwards(FIXING_TIMES, FORWARD_RATES, DT)
     dc = DiscountCurveFromForwardCurve(fc, horizon=50.0)
 
@@ -477,13 +514,21 @@ def build_benchmark_calibration(num_paths: int = 8192, num_factors: int = 5,
         increments = finmath_mersenne_increments(
             dts, num_factors + 1, num_paths, seed)
     elif brownian == "sobol":
-        raise NotImplementedError(
-            "brownian='sobol' comes with models/qmc.py (later in slice B)")
+        from ..qmc import sobol_brownian_increments
+
+        # the engine's antithetic flag moves into the generator (mirrored
+        # pairs of scrambled points); the engine consumes the injected
+        # realization as it is
+        increments = sobol_brownian_increments(
+            dts, num_factors + 1, num_paths, seed=seed,
+            antithetic=antithetic)
+        antithetic = False
     elif brownian != "threefry":
         raise ValueError(f"unknown brownian {brownian!r}")
 
     engine = LMMValuationEngine(model, products, num_paths, num_factors,
                                 seed, device=device, increments=increments,
+                                dtype=dtype, antithetic=antithetic,
                                 **engine_options)
     return BenchmarkCalibrationSetup(
         engine=engine, model=model, covariance=covariance, products=products

@@ -9,9 +9,9 @@ exercise date, and runs the backward induction as a fixed chain of float64
 regression solves (``ops.conditional_expectation``) and ``torch.where``
 selections over the path axis, on the engine's device.
 
-Measure: spot (cash flows discounted by the rolling account). The terminal
-measure raises ``NotImplementedError``, as the port's engine does, until
-the engine's deferred options are ported.
+Measure: spot (cash flows discounted by the rolling account) or terminal
+(discounted by the zero bond P(T_e, T_n), read off the live bond curve,
+and the value scaled by P(0, T_n)), as the JAX pricer does.
 
 Precision: the collector forms the bond ratios, their cumulative product,
 the annuity (a float32 product, TF32 off), the swap value and the
@@ -68,10 +68,6 @@ class BermudanSwaptionPricer:
     def __init__(self, model: LIBORMarketModelTorch, product: BermudanSwaption,
                  num_paths: int, num_factors: int, seed: int = 31415,
                  basis_degree: int = 2, *, device=None):
-        if model.measure != "spot":
-            raise NotImplementedError(
-                "the terminal-measure Bermudan comes with the LMM engine's "
-                "deferred options (the terminal measure)")
         self.model = model
         self.product = product
         self.num_paths = int(num_paths)
@@ -91,10 +87,12 @@ class BermudanSwaptionPricer:
         """Simulate once; per exercise date (z, h, features): the
         discounted payer swap value (not floored, float64), the exercise
         payoff h = max(z, 0) and the regression basis {1, annuity, swap,
-        swap^2, ...} [B, paths] float32."""
+        swap^2, ...} [B, paths] float32. Under the terminal measure the
+        numeraire is P(T_e, T_n), the float32 bond curve's last row."""
         d32 = engine._t["deltas32"]
         strike = self.product.strike
         mat = self.product.maturity_index
+        spot = self.model.measure == "spot"
 
         def collect(e, ev, L, N):
             # L holds the forwards from e on: rows e..mat-1 reach the swap
@@ -103,12 +101,17 @@ class BermudanSwaptionPricer:
             p_end = cp[-1]                                # P(T_e, T_mat)
             ann = d @ cp
             swap_value = 1.0 - p_end - strike * ann       # payer swap at T_e
+            if not spot:
+                # the numeraire P(T_e, T_n) from the whole live curve
+                d_all = d32[e:e + L.shape[0]]
+                N = torch.cumprod(1.0 / (1.0 + d_all[:, None] * L),
+                                  dim=0)[-1]
             return swap_value, ann, p_end, N
 
         data = []
         for swap_value, ann, p_end, N in engine._simulate_collect(
                 params, collect):
-            z = swap_value * (1.0 / N)                    # float64
+            z = swap_value * (1.0 / N)          # float64 (spot), float32
             # a wild float32 path (accrual near the -1/delta pole or past
             # the +-1e3 clamp) makes the bond curve inf - inf, and a
             # finite but astronomical one overflows the squared feature:
@@ -156,8 +159,14 @@ class BermudanSwaptionPricer:
             exercise = (z > 0.0) & (z > continuation)
             value = torch.where(exercise, z, value)
             stop = torch.where(exercise, k, stop)
-        price0 = torch.mean(value.to(ACC_DTYPE))
+        price0 = torch.mean(value.to(ACC_DTYPE)) * self._scale()
         return price0, tuple(reversed(fitted)), stop
+
+    def _scale(self) -> float:
+        """P(0, T_n) under the terminal measure (numeraire at t = 0), 1
+        under the spot measure."""
+        return 1.0 if self.model.measure == "spot" \
+            else self._engine._p0_terminal
 
     def _bounds(self, params, betas):
         if self._bounds_engine is None:
@@ -175,7 +184,7 @@ class BermudanSwaptionPricer:
         for k in reversed(range(E - 1)):
             z = data[k][0]
             value = torch.where((z > 0.0) & (z > conts[k]), z, value)
-        lower = torch.mean(value.to(ACC_DTYPE))
+        lower = torch.mean(value.to(ACC_DTYPE)) * self._scale()
 
         # upper bound: Haugh-Kogan dual with the value surrogates
         # Vhat_e = max(h_e, Chat_e) (no continuation at the last date)
@@ -186,7 +195,8 @@ class BermudanSwaptionPricer:
         for k in range(1, E):
             m = m + vhat[k] - conts[k - 1]
             gap = torch.maximum(gap, data[k][1] - m)
-        upper = torch.mean(torch.clamp_min(gap, 0.0).to(ACC_DTYPE))
+        upper = torch.mean(torch.clamp_min(gap, 0.0).to(ACC_DTYPE)) \
+            * self._scale()
         return lower, upper
 
     # ------------------------------------------------------------------

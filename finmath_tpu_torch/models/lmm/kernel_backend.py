@@ -59,6 +59,9 @@ class _KernelBackend:
         model = engine.model
         if model.measure != "spot" or model.state_space != "normal":
             raise ValueError(f"{self._name}: spot/NORMAL only")
+        if engine.scheme != "euler" or engine.dtype != torch.float32:
+            raise ValueError(f"{self._name}: the Euler scheme on float32 "
+                             "paths only")
         n = model.num_libors
         if len(model.sim_times) - 1 != n:
             raise ValueError(f"{self._name}: simulation grid == tenor grid")

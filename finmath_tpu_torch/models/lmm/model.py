@@ -5,21 +5,23 @@ Counterpart of ``finmath_tpu.models.lmm.model`` (finmath-lib's
 ``LIBORMarketModelFromCovarianceModel`` + ``EulerSchemeFromProcessModel`` +
 ``SwaptionSimple`` as the reference's ATM calibration test drives them,
 LIBORMarketModelCalibrationATMTest.java:270-466) and of its stoch-vol
-benchmark calibration (LIBORMarketModelCalibrationTest.java:246-306). The
-port carries the configurations those calibrations use: spot measure,
-NORMAL state space (optionally with a displaced or blended local
-volatility, optionally with stochastic volatility), the Euler scheme,
-simulation grid equal to the tenor grid, one device, plain Monte Carlo.
-Other options raise ``NotImplementedError`` naming the part of the port
-that brings them.
+benchmark calibration (LIBORMarketModelCalibrationTest.java:246-306):
+spot or terminal measure, NORMAL (optionally with a displaced or blended
+local volatility, optionally with stochastic volatility) or LOGNORMAL
+state space, the Euler or predictor-corrector scheme, any simulation grid
+that refines the tenor grid, float32 or float64 paths, antithetic
+sampling; one device (``mesh=`` raises until the sharding slice).
 
 One call simulates every path once and values all products from the same
-ensemble: path state is float32 ``[libors, paths]``, the spot numeraire,
-the stochastic-volatility process and every collection (bond curve,
-annuity, payoff) are float64. The time loop is a Python loop; ``jacobian``
-is ``torch.func.jacfwd`` of the residual function, exact (not finite
+ensemble: path state is ``[libors, paths]`` in the path dtype (float32 by
+default), the spot numeraire, the stochastic-volatility process and every
+collection (bond curve, annuity, payoff) in the collect dtype (float64 by
+default). The time loop is a Python loop; ``jacobian`` is
+``torch.func.jacfwd`` of the residual function, exact (not finite
 differences), so the loop stays free of in-place updates on tensors that
-carry tangents.
+carry tangents; ``residuals_batched`` / ``jacobian_batched`` are
+``torch.func.vmap`` of the same functions, and ``forward_deltas`` reverse
+mode through the sweep.
 
 Spot-measure drift, NORMAL state space (forwards evolved directly):
   dL_i = lambda_i . (sum_{j=m+1..i} delta_j lambda_j / (1+delta_j L_j)) dt
@@ -42,7 +44,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
-from torch.func import jacfwd
+from torch.func import jacfwd, vmap
 
 from ...utils.config import select_device
 from ..curves import DiscountCurve, ForwardCurve, par_swap_rate
@@ -190,10 +192,11 @@ class LIBORMarketModelTorch:
     covariance model, measure/state-space conventions — the counterpart of
     ``finmath_tpu``'s ``LIBORMarketModelTPU`` (same arguments and checks).
 
-    ``measure``: "spot" or "terminal"; ``state_space``: "normal" or
-    "lognormal"; ``simulation_td``: optional simulation grid refining the
-    tenor grid. The valuation engine of this slice takes spot / normal /
-    simulation grid == tenor grid."""
+    ``measure``: "spot" (rolling spot account numeraire) or "terminal"
+    (zero bond P(., T_n)); ``state_space``: "normal" or "lognormal"
+    (log-Euler); ``simulation_td``: optional simulation grid refining the
+    tenor grid (every tenor point a simulation point), the tenor grid by
+    default."""
 
     def __init__(self, libor_td: TimeDiscretization,
                  forward_curve: ForwardCurve,
@@ -233,53 +236,90 @@ class LIBORMarketModelTorch:
                     "simulation grid must refine the tenor grid")
 
 
+def adjoint_dead_mask(L, N, deltas_col, spot: bool) -> torch.Tensor:
+    """Paths whose bond-ratio scan would poison a reverse-mode adjoint, of a
+    live block ``L`` [rows, paths] (the JAX package's ``adjoint_dead_mask``
+    on the rows the collection reads): an accrual factor at or past the
+    pole, a forward at the +-1e3 clamp or not finite, a contiguous block
+    product of the scan leaving float range (the running log-sum's largest
+    ascent, and its minimum, within 85), and under the spot measure a
+    numeraire outside (1e-12, 1e30). NaN-safe: ``~(x < t)`` is True for a
+    NaN. Computed without gradient."""
+    with torch.no_grad():
+        L, N = L.detach(), N.detach()
+        sfac = 1.0 + deltas_col * L
+        logs = torch.log(torch.clamp_min(torch.abs(sfac), 1e-30))
+        logcum = torch.cumsum(logs, dim=0)
+        runmin = torch.cummin(torch.clamp_max(logcum, 0.0), dim=0).values
+        ascent = torch.max(logcum - runmin, dim=0).values
+        bad = torch.any(~torch.isfinite(L) | (torch.abs(L) >= 999.0)
+                        | (sfac <= 1e-6), dim=0)
+        if spot:
+            bad = bad | ~(N > 1e-12) | ~(N < 1e30)
+        return (bad | ~(ascent < 85.0)
+                | ~(torch.min(logcum, dim=0).values > -85.0))
+
+
 class LMMValuationEngine:
     """(model, products, paths, factors, seed) -> ``values`` /
     ``implied_vols`` / ``residuals`` / ``jacobian`` of the covariance
     parameter vector, on one device.
 
     The Brownian realization is drawn once, at construction, on the
-    engine's device and kept there (``increments``, ``[S, F', paths]``
-    float32 already scaled by sqrt(dt), ``S`` the last exercise step,
-    ``F'`` the factors plus one with stochastic volatility): from
-    ``torch.Generator(device).manual_seed(seed)``, or the caller's
-    ``increments=`` in the JAX engine's injected format (NumPy or tensor;
-    ``injected`` says which). Every evaluation prices the same paths."""
+    engine's device and kept there (``increments``, ``[S, F', paths]`` in
+    the path dtype, already scaled by sqrt(dt), ``S`` the last exercise
+    step, ``F'`` the factors plus one with stochastic volatility): float32
+    normals from ``torch.Generator(device).manual_seed(seed)``, upcast for
+    the float64 engine (so the float32 and float64 engines price one
+    stream), or the caller's ``increments=`` in the JAX engine's injected
+    format (NumPy or tensor, copied; ``injected`` says which;
+    ``set_increments`` swaps it in place). Every evaluation prices the same
+    paths.
+
+    Options, each following the JAX engine's arithmetic:
+
+    * ``dtype``: path storage, float32 (default) or float64 (the parity
+      engine); ``collect_dtype``: the collection's (bond curve, annuity,
+      payoff, spot numeraire, V), float64 by default and never below
+      ``dtype``; the contributions are float64 either way;
+    * ``antithetic``: the path axis holds ``[z, -z]`` (paths even; not
+      with ``increments=``);
+    * ``scheme``: "euler" or "predictor_corrector" (the drift averaged at
+      the current and the Euler-predicted state, the diffusion kept);
+    * the model's ``measure`` ("spot" or "terminal": the suffix drift over
+      j > i and the P(T_e, T_n) numeraire, values scaled by P(0, T_n)),
+      ``state_space`` ("normal" or "lognormal": log-Euler with the L_j
+      numerator in the drift and the -|lambda|^2 / 2 Ito term) and
+      simulation grid (any grid refining the tenor grid)."""
 
     def __init__(self, model: LIBORMarketModelTorch,
                  products: Sequence[SwaptionProduct],
                  num_paths: int, num_factors: int, seed: int = 31415, *,
                  device=None, increments=None, scheme: str = "euler",
-                 dtype: torch.dtype = torch.float32, mesh=None,
-                 antithetic: bool = False):
+                 dtype: torch.dtype = torch.float32, collect_dtype=None,
+                 mesh=None, antithetic: bool = False):
         if mesh is not None:
             raise NotImplementedError(
                 "path-axis sharding comes with the sharding slice "
                 "(torch.distributed)")
-        if scheme != "euler":
-            raise NotImplementedError(
-                f"scheme {scheme!r}: only 'euler' is ported; the "
-                "predictor-corrector scheme comes with the rest of the LMM "
-                "stack")
-        if dtype != torch.float32:
-            raise NotImplementedError(
-                "path storage is float32; the float64 parity engine comes "
-                "with the rest of the LMM stack")
-        if antithetic:
-            raise NotImplementedError(
-                "antithetic sampling comes with the rest of the LMM stack")
-        if model.measure != "spot":
-            raise NotImplementedError(
-                "terminal measure comes with the rest of the LMM stack")
-        if model.state_space != "normal":
-            raise NotImplementedError(
-                "lognormal state space comes with the rest of the LMM stack")
-        n = model.num_libors
-        if len(model.sim_times) != n + 1 or not np.allclose(
-                model.sim_times, model.tenor_times, atol=1e-9):
-            raise NotImplementedError(
-                "a simulation grid refining the tenor grid comes with the "
-                "rest of the LMM stack")
+        if scheme not in ("euler", "predictor_corrector"):
+            raise ValueError(f"unknown scheme {scheme!r}")
+        if dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"path dtype {dtype}: float32 or float64")
+        self.scheme = scheme
+        self.dtype = dtype
+        cd = collect_dtype if collect_dtype is not None else torch.float64
+        if cd not in (torch.float32, torch.float64):
+            raise ValueError(f"collect_dtype {cd}: float32 or float64")
+        # never below the path dtype (a float64 engine collects in float64)
+        self.collect_dtype = cd if cd.itemsize >= dtype.itemsize else dtype
+        self.antithetic = bool(antithetic)
+        if self.antithetic and int(num_paths) % 2:
+            raise ValueError("antithetic sampling requires an even num_paths")
+        if increments is not None and self.antithetic:
+            raise ValueError(
+                "antithetic and injected increments are mutually exclusive: "
+                "the injected realization defines every path")
         self.model = model
         self.device = torch.device(device) if device is not None \
             else select_device()
@@ -292,6 +332,7 @@ class LMMValuationEngine:
                 f"model has {cov_factors} factors; they must match (the "
                 "factor reduction lives in the correlation model)")
         self.seed = int(seed)
+        n = model.num_libors
 
         # keep only products whose payments stay on the tenor grid (the
         # reference's valuation loop skips the others, ATM test :387-401)
@@ -311,6 +352,7 @@ class LMMValuationEngine:
         # ---- static packing (host float64, as in the JAX engine) ----------
         deltas = model.deltas
         tenor = model.tenor_times
+        sim = model.sim_times
         dc = model.discount_curve
         fc = model.forward_curve
         self.exercise_indices = sorted({p.exercise_index for p in self.products})
@@ -330,11 +372,36 @@ class LMMValuationEngine:
         per_product = dict(zip(
             ("ann0", "fwd0", "strike", "texp", "target", "weight", "df_ex"),
             np.asarray(rows).T))
+        # terminal-measure numeraire at t=0: P(0, T_n) from the model's own
+        # initial forwards
+        self._p0_terminal = float(np.prod(
+            1.0 / (1.0 + deltas * np.asarray(model.initial_forwards))))
 
+        # ---- the simulation grid ------------------------------------------
+        # step s runs [t_s, t_s+1); forward i evolves during it iff
+        # t_s < T_i, so the first live forward is the number of tenor
+        # points at or before t_s; a step starting at tenor point T_m
+        # first accrues period m at the just-fixed L_m (spot measure)
+        S = len(sim) - 1
+        self.num_steps = S
+        self._alive_from = [int(np.sum(tenor[:n] <= sim[s] + 1e-9))
+                            for s in range(S)]
+        self._fixing = []
+        for s in range(S):
+            hit = np.where(np.isclose(tenor[:n], sim[s], atol=1e-9))[0]
+            self._fixing.append(int(hit[0]) if hit.size else -1)
+        # exercise events: collected at the step that STARTS at T_e
+        self._event_steps = []
+        for e in self.exercise_indices:
+            s_idx = self.exercise_step_of(e)
+            if not np.isclose(sim[s_idx], tenor[e], atol=1e-9) or s_idx >= S:
+                raise ValueError(
+                    f"exercise time {tenor[e]} is not a simulation step start")
+            self._event_steps.append(s_idx)
         # simulation runs to the last exercise step (collect happens at the
         # START of a step, so nothing after it is ever read)
-        self.num_steps = n
-        self.steps_needed = self.exercise_indices[-1]
+        self.steps_needed = self._event_steps[-1]
+
         dev = self.device
         f64, f32 = torch.float64, torch.float32
         self._t = {k: torch.as_tensor(v, dtype=f64, device=dev)
@@ -343,10 +410,15 @@ class LMMValuationEngine:
             deltas32=torch.as_tensor(deltas, dtype=f32, device=dev),
             deltas64=torch.as_tensor(deltas, dtype=f64, device=dev),
             L0=torch.as_tensor(model.initial_forwards, dtype=f32, device=dev),
-            dts=torch.as_tensor(np.diff(model.sim_times), dtype=f32, device=dev),
+            dts=torch.as_tensor(np.diff(sim), dtype=f32, device=dev),
             ev_of=torch.as_tensor([ev_index[p.exercise_index]
                                    for p in self.products], device=dev),
         )
+        # the simulation's tables in the path dtype
+        self._p = {k: torch.as_tensor(v, dtype=dtype, device=dev)
+                   for k, v in (("deltas", deltas),
+                                ("L0", model.initial_forwards),
+                                ("dts", np.diff(sim)))}
         # per event: its products' annuity masks over the swap periods
         # (relative to the exercise index), end rows and strikes
         self._events = []
@@ -372,20 +444,49 @@ class LMMValuationEngine:
         shape = (self.steps_needed, rng_factors, self.num_paths)
         self.injected = increments is not None
         if increments is not None:
-            inc = torch.as_tensor(increments).to(device=dev, dtype=f32)
-            if (inc.dim() != 3 or inc.shape[1:] != shape[1:]
-                    or not shape[0] <= inc.shape[0] <= self.num_steps):
+            src = torch.as_tensor(getattr(increments, "increments", increments))
+            if (src.dim() != 3 or tuple(src.shape[1:]) != shape[1:]
+                    or not shape[0] <= src.shape[0] <= S):
                 raise ValueError(
-                    f"injected increments have shape {tuple(inc.shape)}, "
-                    f"engine needs [steps in {shape[0]}..{self.num_steps}, "
+                    f"injected increments have shape {tuple(src.shape)}, "
+                    f"engine needs [steps in {shape[0]}..{S}, "
                     f"factors={rng_factors}, paths={self.num_paths}]")
-            self.increments = inc[:shape[0]].contiguous()
+            self._inc_shape, self._inc_dtype = tuple(src.shape), src.dtype
+            # a copy the engine owns: set_increments overwrites it in place
+            self.increments = src[:shape[0]].to(
+                device=dev, dtype=dtype, copy=True).contiguous()
         else:
             gen = torch.Generator(device=dev).manual_seed(self.seed)
-            z = torch.randn(shape, generator=gen, dtype=f32, device=dev)
-            self.increments = z * self._t["dts"][:shape[0], None, None].sqrt()
+            if self.antithetic:
+                half = (shape[0], rng_factors, self.num_paths // 2)
+                z = torch.randn(half, generator=gen, dtype=f32, device=dev)
+                z = torch.cat([z, -z], dim=2)
+            else:
+                z = torch.randn(shape, generator=gen, dtype=f32, device=dev)
+            self.increments = (z.to(dtype)
+                               * self._p["dts"][:shape[0], None, None].sqrt())
 
     # ------------------------------------------------------------------
+    def set_increments(self, inc) -> None:
+        """Swap the injected realization for another of the same shape and
+        dtype (NumPy or tensor), in place: everything built on the engine's
+        ``increments`` (a kernel backend's realization 0, for one) prices
+        the new paths. Only for an engine built with ``increments=``."""
+        if not self.injected:
+            raise ValueError(
+                "engine was built without injected increments; build with "
+                "increments= to use realization swapping")
+        new = torch.as_tensor(getattr(inc, "increments", inc))
+        if tuple(new.shape) != self._inc_shape:
+            raise ValueError(
+                f"replacement increments shape {tuple(new.shape)} != "
+                f"engine's {self._inc_shape}")
+        if new.dtype != self._inc_dtype:
+            raise ValueError(
+                f"replacement increments dtype {new.dtype} != engine's "
+                f"{self._inc_dtype}")
+        self.increments.copy_(new[:self.increments.shape[0]])
+
     def _params(self, params) -> torch.Tensor:
         x = torch.as_tensor(params, dtype=torch.float64).to(self.device)
         n_params = int(self.model.covariance.n_params)
@@ -393,22 +494,62 @@ class LMMValuationEngine:
             raise ValueError(f"params shape {tuple(x.shape)} != ({n_params},)")
         return x
 
-    def _collect(self, ev: dict, L: torch.Tensor, N: torch.Tensor):
-        """Path sums of payoff/numeraire for one event's products [m_ev]
-        and of 1/numeraire [], float64, non-finite contributions dropped.
-        ``L`` holds the forwards from the exercise index on."""
+    def _event_contrib(self, ev: dict, L: torch.Tensor, N: torch.Tensor,
+                       grad_safe: bool = False):
+        """Per-path payoff/numeraire of one event's products ``[m_ev,
+        paths]`` and 1/numeraire ``[paths]``, float64, non-finite
+        contributions zeroed. ``L`` holds the forwards from the exercise
+        index on; the bond curve, annuity and payoff are formed in the
+        collect dtype. The numeraire is the spot account ``N`` or, under
+        the terminal measure, P(T_e, T_n) from the whole live curve.
+
+        ``grad_safe`` (the delta ladders' reverse mode): paths that
+        ``adjoint_dead_mask`` flags are zeroed before the bond curve, which
+        is formed as exp(cumsum(log r)) so that a row's cotangent reaches
+        only rows before it (the JAX package's
+        ``bond_ratio_cumprod_adjoint``)."""
         t = self._t
+        cd = self.collect_dtype
+        terminal = self.model.measure == "terminal"
         e, width = ev["e"], ev["width"]
-        Lw = L[:width].to(torch.float64)                           # [w, paths]
-        d = t["deltas64"][e:e + width, None]
-        cp = torch.cumprod(1.0 / (1.0 + d * Lw), dim=0)           # P(T_e, T_j+1)
-        ann = ev["pay_mask"] @ cp                                  # [m_ev, paths]
+        rows = L.shape[0] if terminal else width
+        Lw = L[:rows].to(cd)                                       # [w, paths]
+        d = t["deltas64"][e:e + rows, None].to(cd)
+        dead = None
+        if grad_safe:
+            dead = adjoint_dead_mask(Lw, N, d, spot=not terminal)
+            Lw = torch.where(dead[None, :], 0.01, Lw)
+            r = 1.0 / (1.0 + d * Lw)
+            cp = torch.exp(torch.cumsum(torch.log(torch.clamp_min(r, 1e-30)),
+                                        dim=0))
+        else:
+            cp = torch.cumprod(1.0 / (1.0 + d * Lw), dim=0)        # P(T_e, T_j+1)
+        ann = ev["pay_mask"].to(cd) @ cp[:width]                   # [m_ev, paths]
         p_end = cp[ev["end"]]
-        payoff = torch.clamp_min(1.0 - p_end - ev["strike"][:, None] * ann, 0.0)
-        inv_n = 1.0 / N
-        contrib = payoff * inv_n[None, :]
+        payoff = torch.clamp_min(
+            1.0 - p_end - ev["strike"].to(cd)[:, None] * ann, 0.0)
+        if terminal:
+            inv_n = 1.0 / cp[-1].to(torch.float64)                 # 1/P(T_e, T_n)
+        else:
+            Nv = N.to(torch.float64)
+            if dead is not None:
+                # a safe primal before the reciprocal: d(1/N)/dN stays
+                # finite on dead paths
+                Nv = torch.where(dead, 1.0, Nv)
+            inv_n = 1.0 / Nv
+        contrib = payoff.to(torch.float64) * inv_n[None, :]
+        if dead is not None:
+            contrib = torch.where(dead[None, :], 0.0, contrib)
+            inv_n = torch.where(dead, 0.0, inv_n)
         contrib = torch.where(torch.isfinite(contrib), contrib, 0.0)
         inv_safe = torch.where(torch.isfinite(inv_n), inv_n, 0.0)
+        return contrib, inv_safe
+
+    def _collect(self, ev: dict, L: torch.Tensor, N: torch.Tensor,
+                 grad_safe: bool = False):
+        """Path sums of payoff/numeraire for one event's products [m_ev]
+        and of 1/numeraire [], float64."""
+        contrib, inv_safe = self._event_contrib(ev, L, N, grad_safe)
         return contrib.sum(dim=-1), inv_safe.sum()
 
     def exercise_step_of(self, e: int) -> int:
@@ -416,90 +557,171 @@ class LMMValuationEngine:
         return int(np.argmin(np.abs(self.model.sim_times
                                     - self.model.tenor_times[e])))
 
-    def _simulate_collect(self, params: torch.Tensor, collect) -> list:
+    def _simulate_collect(self, params: torch.Tensor, collect, fwd0=None,
+                          grad_safe: bool = False) -> list:
         """Run the simulation once and apply ``collect(e, ev, L, N)`` at
         every exercise step, before that step's accrual and evolution;
         return the outputs per event, in event order (``ev`` is the
         event's ordinal, ``e`` its tenor index).
 
-        The contract for ``L``: on the tenor grid, forward i evolves during
-        steps s < i only, so at step s the state is the live block
-        ``L[s:]``: its first row L_s has just fixed (it accrues the
-        numeraire and is read by the step's collection), the rest evolve.
-        The block shrinks by one row a step and nothing needs the fixed
-        rows again. So ``collect`` gets the rows from the exercise index on:
-        ``L[j]`` is forward ``e + j`` at T_e, float32 ``[n - e, paths]``.
-        ``N`` is the spot numeraire N(T_e), float64 ``[paths]``. (The JAX
-        engine passes the full ``[n, paths]`` curve and the collectors
-        index it absolutely.) Nothing is simulated after the last event."""
-        t = self._t
+        The contract for ``L``, on any simulation grid that refines the
+        tenor grid: forward i evolves during the steps that start before
+        T_i only, so the state is the live block of the forwards not fixed
+        before the step's start; a step that starts at T_m holds L_m as its
+        first row (it has just fixed: it accrues the spot numeraire and is
+        read by the step's collection) and drops it after. Nothing needs a
+        fixed row again. So ``collect`` gets the rows from the exercise
+        index on: ``L[j]`` is forward ``e + j`` at T_e, ``[n - e, paths]``
+        in the path dtype. ``N`` is the spot numeraire N(T_e) in the
+        collect dtype ``[paths]`` (ones under the terminal measure). (The
+        JAX engine passes the full ``[n, paths]`` curve and the collectors
+        index it absolutely.) Nothing is simulated after the last event.
+
+        ``fwd0``: initial forwards ``[n]`` (a float64 tensor, the delta
+        ladders' differentiation point) in place of the model's; the
+        blended local-vol anchor ``L0`` moves with them. ``grad_safe``:
+        floor the drift's accrual denominator |1 + delta L| at 1e-4 and
+        clip the log-Euler exponent to +-88, both identity on every path
+        the valuation keeps; for the reverse-mode ladders only."""
+        t, tp = self._t, self._p
         cov = self.model.covariance
         n, paths, F = self.model.num_libors, self.num_paths, self.num_factors
-        f32, f64 = torch.float32, torch.float64
+        dtype, cd = self.dtype, self.collect_dtype
+        spot = self.model.measure == "spot"
+        lognormal = self.model.state_space == "lognormal"
+        corrector = self.scheme == "predictor_corrector"
         prep = cov.prepare(params)
-        vol = cov.vol_table(prep).to(f32)                          # [S, n]
-        R = cov.factor_matrix(prep).to(f32)                        # [n, F]
-        L0 = t["L0"][:, None].expand(n, paths)
-        d32 = t["deltas32"][:, None]
-        L = L0                                                     # rows s..n-1
-        N = torch.ones(paths, dtype=f64, device=self.device)
+        vol = cov.vol_table(prep).to(dtype)                        # [S, n]
+        if vol.shape[-2] != self.num_steps:
+            raise ValueError(
+                f"covariance vol table has {vol.shape[-2]} steps, the "
+                f"simulation grid has {self.num_steps}: build the "
+                "covariance model on the model's simulation time "
+                "discretization")
+        R = cov.factor_matrix(prep).to(dtype)                      # [n, F]
+        L0 = (tp["L0"] if fwd0 is None else fwd0.to(dtype))[:, None].expand(
+            n, paths)
+        d_col = tp["deltas"][:, None]
+        L = L0                                                     # rows r..n-1
+        N = torch.ones(paths, dtype=cd, device=self.device)
         if self.stoch_vol:
-            # nu and rho enter in the path dtype, V and its step in float64
-            # (the JAX engine's choice: one downcast of V per step instead
-            # of a float32 product of exponentials)
-            nu, rho = (torch.as_tensor(p, dtype=f64, device=self.device)
-                       .to(f32).to(f64) for p in cov.stoch_vol_params(prep))
+            # nu and rho enter in the path dtype, V and its step in the
+            # collect dtype (the JAX engine's choice: one downcast of V per
+            # step instead of a float32 product of exponentials)
+            nu, rho = (torch.as_tensor(p, dtype=torch.float64,
+                                       device=self.device).to(dtype).to(cd)
+                       for p in cov.stoch_vol_params(prep))
             somega = torch.sqrt(torch.clamp_min(1.0 - rho * rho, 1e-12))
             exponent = getattr(cov, "scaling_exponent", 0.5)
             martingale = getattr(cov, "martingale_correction", True)
-            V = torch.ones(paths, dtype=f64, device=self.device)
+            V = torch.ones(paths, dtype=cd, device=self.device)
+
+        def drift(Lx, lam, d):
+            """finmath's measure drift: spot, the prefix sum over live
+            j <= i; terminal, minus the suffix sum over j > i; lognormal
+            with the L_j numerator and the Ito term."""
+            denom = 1.0 + d * Lx
+            if grad_safe:
+                floor = torch.full_like(denom, 1e-4)
+                denom = torch.where(torch.abs(denom) < 1e-4,
+                                    torch.where(denom < 0, -floor, floor),
+                                    denom)
+            mt = d / denom
+            if lognormal:
+                mt = mt * Lx
+            c = mt[:, None, :] * lam
+            if spot:
+                acc = torch.cumsum(c, dim=0)                       # incl. own
+            else:
+                suffix = torch.flip(torch.cumsum(torch.flip(c, (0,)), dim=0),
+                                    (0,))
+                acc = -(suffix - c)                                # excl. own
+            mu = torch.sum(lam * acc, dim=1)
+            if lognormal:
+                mu = mu - 0.5 * torch.sum(lam * lam, dim=1)
+            return mu
+
+        def evolve(Lx, mu, diffusion, dt):
+            if lognormal:
+                arg = mu * dt + diffusion
+                if grad_safe:
+                    arg = torch.clamp(arg, -88.0, 88.0)
+                new = Lx * torch.exp(arg)
+            else:
+                new = Lx + mu * dt + diffusion
+            # float32 guard: rates beyond +-1000 carry no price information
+            return torch.clamp(new, -1e3, 1e3)
+
         outs = []
-        events = iter(enumerate(self.exercise_indices))
-        j, e = next(events)
+        events = iter(zip(self._event_steps, enumerate(self.exercise_indices)))
+        s_e, (j, e) = next(events)
+        r = 0                                          # first row of the block
         for s in range(self.steps_needed + 1):
-            if s == e:
+            if s == s_e:
                 outs.append(collect(e, j, L, N))
-                j, e = next(events, (None, None))
+                s_e, (j, e) = next(events, (None, (None, None)))
                 if e is None:
                     break
-            # spot account accrues period s at its fixing L_s
-            N = N * (1.0 + t["deltas32"][s] * L[0]).to(f64)
-            La = L[1:]                                             # rows s+1..
-            lam = vol[s, s + 1:, None]                             # [n', 1]
-            if cov.has_local_vol:
-                lam = lam * cov.local_factor(prep, La, L0[s + 1:])
+            m = self._fixing[s]
+            if spot and m >= 0:
+                # spot account accrues period m at its fixing L_m
+                N = N * (1.0 + tp["deltas"][m] * L[m - r]).to(cd)
+            a = self._alive_from[s]
+            La = L[a - r:]                                         # rows a..
             if self.stoch_vol:
-                Vc = V.to(f32)
-                lam = lam * (Vc if exponent == 1.0 else torch.sqrt(Vc)
-                             if exponent == 0.5 else Vc ** exponent)
-            lam = lam[:, None, :] * R[s + 1:, :, None]             # [n', F, .]
-            d = d32[s + 1:]
-            mt = d / (1.0 + d * La)
-            acc = torch.cumsum(mt[:, None, :] * lam, dim=0)        # incl. own
-            mu = torch.sum(lam * acc, dim=1)
+                Vc = V.to(dtype)
+                scale = (Vc if exponent == 1.0 else torch.sqrt(Vc)
+                         if exponent == 0.5 else Vc ** exponent)
+
+            def loadings(Lx):
+                lam = vol[s, a:, None]                             # [n', 1]
+                if cov.has_local_vol:
+                    lam = lam * cov.local_factor(prep, Lx, L0[a:])
+                if self.stoch_vol:
+                    lam = lam * scale
+                return lam[:, None, :] * R[a:, :, None]            # [n', F, .]
+
+            lam = loadings(La)
+            d = d_col[a:]
+            mu = drift(La, lam, d)
             dw = self.increments[s]                                # [F', paths]
             diffusion = torch.sum(lam * dw[None, :F], dim=1)
-            # float32 guard: rates beyond +-1000 carry no price information
-            L = torch.clamp(La + mu * t["dts"][s] + diffusion, -1e3, 1e3)
+            if corrector:
+                L_pred = evolve(La, mu, diffusion, tp["dts"][s])
+                mu = 0.5 * (mu + drift(L_pred, loadings(L_pred), d))
+            L = evolve(La, mu, diffusion, tp["dts"][s])
+            r = a
             if self.stoch_vol:
-                dw_v = rho * dw[0].to(f64) + somega * dw[F].to(f64)
+                dw_v = rho * dw[0].to(cd) + somega * dw[F].to(cd)
                 arg = nu * dw_v
                 if martingale:
-                    arg = arg - 0.5 * nu * nu * t["dts"][s].to(f64)
+                    arg = arg - 0.5 * nu * nu * tp["dts"][s].to(cd)
                 # the same overflow guard for the scaling process
                 V = torch.clamp_max(V * torch.exp(arg), 1e6)
         return outs
 
-    def _values(self, params: torch.Tensor) -> torch.Tensor:
-        """Monte-Carlo values [P] (numeraire adjustment applied)."""
+    def _values(self, params: torch.Tensor, fwd0=None,
+                grad_safe: bool = False) -> torch.Tensor:
+        """Monte-Carlo values [P] (terminal scale and numeraire adjustment
+        applied). With ``fwd0`` the terminal P(0, T_n) is formed from it,
+        so it differentiates too."""
         t = self._t
         paths = self.num_paths
         raws, invs = zip(*self._simulate_collect(
-            params, lambda e, j, L, N: self._collect(self._events[j], L, N)))
+            params, lambda e, j, L, N: self._collect(self._events[j], L, N,
+                                                     grad_safe),
+            fwd0=fwd0, grad_safe=grad_safe))
         raw = torch.cat(raws) / paths                              # [P]
+        terminal = self.model.measure == "terminal"
+        if terminal:
+            p0 = self._p0_terminal if fwd0 is None else torch.prod(
+                1.0 / (1.0 + t["deltas64"] * fwd0))
+            raw = raw * p0
         if not self.model.use_numeraire_adjustment:
             return raw
         mean_inv = torch.stack(invs)[t["ev_of"]] / paths           # [P]
+        if terminal:
+            mean_inv = mean_inv * p0
         return raw * torch.where(mean_inv > 0.0, t["df_ex"] / mean_inv, 0.0)
 
     def _quotes(self, values: torch.Tensor) -> torch.Tensor:
@@ -532,6 +754,89 @@ class LMMValuationEngine:
         """d residuals / d params [P, n_params], forward-mode through the
         whole simulation."""
         return jacfwd(self._residuals)(self._params(params)).cpu().numpy()
+
+    def pathwise_values(self, params) -> np.ndarray:
+        """Per-path value contributions ``[P, paths]`` float64, whose row
+        means are ``values(params)`` (terminal scale and numeraire
+        adjustment included): the decomposition behind the f32-vs-f64
+        parity check, where the paths that decorrelate between the two
+        precisions are found by their contribution gap. Holds ``[P,
+        paths]`` float64 on the device."""
+        t = self._t
+        contribs, invs = zip(*self._simulate_collect(
+            self._params(params),
+            lambda e, j, L, N: self._event_contrib(self._events[j], L, N)))
+        contrib = torch.cat(contribs)                              # [P, paths]
+        mean_inv = torch.stack(invs).mean(dim=-1)[t["ev_of"]]      # [P]
+        if self.model.measure == "terminal":
+            contrib = contrib * self._p0_terminal
+            mean_inv = mean_inv * self._p0_terminal
+        if self.model.use_numeraire_adjustment:
+            adj = torch.where(mean_inv > 0.0, t["df_ex"] / mean_inv, 0.0)
+            contrib = contrib * adj[:, None]
+        return contrib.cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # delta ladders: reverse mode through the whole sweep with respect to
+    # the initial forwards (measure drift, local-vol anchor, stochastic-vol
+    # scaling, payoff, numeraire). Held fixed, as in the JAX package: the
+    # product definitions and the numeraire adjustment's discount factors;
+    # the terminal P(0, T_n) is differentiated. Autograd keeps every
+    # step's block for the backward sweep.
+    def _delta_inputs(self, params):
+        x = self._params(params)
+        fwd0 = torch.as_tensor(np.asarray(self.model.initial_forwards,
+                                          dtype=np.float64),
+                               device=self.device).requires_grad_(True)
+        return x, fwd0
+
+    def forward_deltas(self, params, weights=None):
+        """Bucketed delta ladder of the (weighted) product portfolio:
+        ``(portfolio value, dV/dL0 [num_libors])`` from one forward and one
+        backward sweep. ``weights`` defaults to one of each product."""
+        x, fwd0 = self._delta_inputs(params)
+        w = torch.as_tensor(
+            np.ones(len(self.products)) if weights is None
+            else np.asarray(weights, dtype=np.float64),
+            dtype=torch.float64, device=self.device)
+        with torch.enable_grad():
+            total = torch.sum(w * self._values(x, fwd0=fwd0, grad_safe=True))
+            (grad,) = torch.autograd.grad(total, fwd0)
+        return float(total.detach()), grad.cpu().numpy()
+
+    def forward_delta_matrix(self, params) -> np.ndarray:
+        """Per-product delta ladder ``[P, num_libors]``: one forward sweep
+        and P backward sweeps through its graph. Use ``forward_deltas`` (one
+        backward sweep) for portfolio risk at production path counts."""
+        x, fwd0 = self._delta_inputs(params)
+        with torch.enable_grad():
+            v = self._values(x, fwd0=fwd0, grad_safe=True)
+            P = v.shape[0]
+            rows = [torch.autograd.grad(v[k], fwd0, retain_graph=k < P - 1)[0]
+                    for k in range(P)]
+        return torch.stack(rows).cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # batched evaluation: B parameter sets in one evaluation, vmap over
+    # the residual function (and over its forward-mode Jacobian); used by
+    # BatchedLevenbergMarquardt in the lockstep multistart
+    def _params_batch(self, params_batch) -> torch.Tensor:
+        X = torch.as_tensor(params_batch, dtype=torch.float64).to(self.device)
+        n_params = int(self.model.covariance.n_params)
+        if X.dim() != 2 or X.shape[1] != n_params:
+            raise ValueError(f"parameter sets of shape {tuple(X.shape)}, "
+                             f"expected [B, {n_params}]")
+        return X
+
+    def residuals_batched(self, params_batch) -> np.ndarray:
+        """Residuals for a ``[B, n_params]`` batch -> ``[B, P]``."""
+        return vmap(self._residuals)(
+            self._params_batch(params_batch)).cpu().numpy()
+
+    def jacobian_batched(self, params_batch) -> np.ndarray:
+        """Jacobians for a ``[B, n_params]`` batch -> ``[B, P, n_params]``."""
+        return vmap(jacfwd(self._residuals))(
+            self._params_batch(params_batch)).cpu().numpy()
 
     @property
     def targets(self) -> np.ndarray:

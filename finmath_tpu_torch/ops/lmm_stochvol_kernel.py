@@ -55,6 +55,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -75,8 +76,11 @@ MAX_FACTORS = 8               # kMaxFactors in csrc/lmm_sweep.cuh
 LOG_V_CAP = 13.815511         # log(1e6), the engine's cap of V
 
 #: kernel launches since the last reset (plain integer; a run resets it
-#: and reads it to show that its main path went through the kernel)
+#: and reads it to show that its main path went through the kernel);
+#: counted under a lock, since a backend's realizations may be evaluated
+#: from several threads
 LAUNCHES = 0
+_LAUNCHES_LOCK = threading.Lock()
 
 
 @functools.cache
@@ -195,7 +199,8 @@ def launch(z, packed, tables, partials, *, n: int, S: int, num_paths: int,
         msg = lib.lmm_stochvol_products_error_string(err).decode()
         raise RuntimeError(f"lmm_stochvol_products launch failed: {msg} "
                            f"({err})")
-    LAUNCHES += 1
+    with _LAUNCHES_LOCK:
+        LAUNCHES += 1
 
 
 def lmm_stochvol_swaptions_batch_reference(z, volT_b, scal_b,

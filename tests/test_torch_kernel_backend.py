@@ -124,18 +124,23 @@ def test_guards(inc):
 
 
 def test_engine_rejects_what_this_slice_does_not_port(inc):
+    """The engine takes the options the kernel does not implement; the
+    kernel backend refuses an engine built with them. Sharding is not
+    ported: the engine raises."""
     model, _, products = _setup(tcurves, ttd, tcov, tmodel, False)
-    for kw, match in ((dict(scheme="predictor_corrector"), "scheme"),
-                      (dict(dtype=torch.float64), "float64"),
-                      (dict(antithetic=True), "antithetic"),
-                      (dict(mesh=object()), "sharding")):
-        with pytest.raises(NotImplementedError, match=match):
-            tmodel.LMMValuationEngine(model, products, PATHS, FACTORS,
-                                      device="cpu", **kw)
-    model.measure = "terminal"
-    with pytest.raises(NotImplementedError, match="terminal"):
+    for kw in (dict(scheme="predictor_corrector"),
+               dict(dtype=torch.float64)):
+        engine = tmodel.LMMValuationEngine(model, products, PATHS, FACTORS,
+                                           device="cpu", **kw)
+        with pytest.raises(ValueError, match="Euler scheme on float32"):
+            ATMKernelCalibration(engine)
+    with pytest.raises(NotImplementedError, match="sharding"):
         tmodel.LMMValuationEngine(model, products, PATHS, FACTORS,
-                                  device="cpu")
+                                  device="cpu", mesh=object())
+    model.measure = "terminal"
+    with pytest.raises(ValueError, match="spot/NORMAL"):
+        ATMKernelCalibration(tmodel.LMMValuationEngine(
+            model, products, PATHS, FACTORS, device="cpu"))
     with pytest.raises(ValueError):          # increments of the wrong shape
         _torch_engine(False, inc[:, :1])
 

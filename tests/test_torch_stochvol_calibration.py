@@ -236,15 +236,20 @@ def test_sweep_engine_and_unported_options():
     np.testing.assert_array_equal(sweep.increments.numpy(),
                                   setup.engine.increments[:, :, :8_250].numpy())
     assert setup.sweep_engine() is sweep
-    with pytest.raises(NotImplementedError, match="batched"):
-        setup.calibrate_multistart(sweep_mode="batched")
     with pytest.raises(ValueError, match="sweep_mode"):
         setup.calibrate_multistart(sweep_mode="nope")
-    with pytest.raises(NotImplementedError):
-        setup.set_increments(None)
-    with pytest.raises(NotImplementedError, match="qmc"):
-        tbench.build_benchmark_calibration(num_paths=64, brownian="sobol",
-                                           device="cpu")
+    # the realization swap reaches the sweep engine's prefix
+    # (the injected shape: all 40 steps, of which 20 are simulated)
+    flipped = setup.engine.increments.flip(2).numpy()
+    swapped = np.concatenate([flipped, flipped])
+    setup.set_increments(swapped)
+    np.testing.assert_array_equal(sweep.increments.numpy(),
+                                  flipped[:, :, :8_250])
+    with pytest.raises(ValueError, match="shape"):
+        setup.set_increments(swapped[:, :, :64])
+    sobol = tbench.build_benchmark_calibration(num_paths=64, brownian="sobol",
+                                               device="cpu")
+    assert sobol.engine.injected
     with pytest.raises(ValueError, match="brownian"):
         tbench.build_benchmark_calibration(num_paths=64, brownian="nope",
                                            device="cpu")
