@@ -168,11 +168,41 @@ Phases, one line of output each (more for the kernel builds), in order:
     100,000 paths, 80 buckets, the largest within 2e-3 of a float64
     central difference on the same increments), its wall (min of 3 after
     a warm-up) and peak device memory; each phase prints its seconds;
+25. ``bench.py:1474 bench_exposure`` at full width (no kernel): the ATM
+    setup (80 libors, 1 factor) at 50,000 paths and its initial
+    parameters; the 19-date EE/ENE/PFE profile of the 10Y par payer swap
+    over periods [4, 20) at quantiles (0.95, 0.99): the cold call and the
+    min of 5 warm walls, peak EE, peak PFE99, the CVA at a 100 bp hazard,
+    the martingale error under 1e-3; then the 20-trade netting set drawn
+    from ``numpy.random.default_rng(7)`` as the bench draws it: its walls,
+    peak netted and standalone EE, the netting benefit, the martingale
+    error under 2e-3;
+26. ``bench.py:1558 bench_cva_deltas`` on phase 25's swap engine: the
+    80-bucket dCVA/dL0 ladder at a 1.2% hazard from one reverse pass (cold
+    call, min of 3 warm walls, peak device memory), all finite, every
+    bucket from the swap's last index on exactly 0.0, the largest within
+    2e-3 of a float64 central difference of the same CVA on the same
+    paths;
+27. the XVA extensions at 50,000 paths: a mixed netting set (two swaps, a
+    European and a Bermudan swaption) without and with a zero-threshold,
+    zero-MTA CSA lagged one date (its gross rows equal the plain
+    profile), FVA on the residual profile and dynamic IM with MVA on the
+    20-trade set (each equal to its rectangle rule), the single-swaption
+    engine (its forward value flat to expiry within 1e-10); each wall;
+28. the smile layer: ``mc_sabr_implied_vols`` at 1,000,000 paths x 64
+    steps (``bench.py:1808-1816``; within 0.006 of Hagan), its walls;
+    ``calibrate_sabr`` recovering the parameters from Hagan quotes; a
+    caplet strip from price quotes and its repricing; the 3Y cap on a
+    lognormal LMM driven by the stripped curve at 100,000 paths (within 3%
+    of the quote); one CMS caplet by replication (caplet - floorlet =
+    swaplet);
 6. with ``--profile`` only, last: device operations and busy time under
    ``torch.profiler`` for one ATM calibration, one engine Jacobian, one
    ATM kernel residual call, one stoch-vol kernel
    ``residuals_and_jacobian`` call and one reduced-path stoch-vol engine
-   Jacobian, against the same call's unprofiled wall.
+   Jacobian, and for phases 25-28 one swap and one 20-trade profile, one
+   CVA ladder, one mixed-set profile, one IM profile and one SABR smile,
+   each against the same call's unprofiled wall.
 
 Then the whole script's seconds, one JSON line with the eight kernels'
 numbers (``bound_ms`` is the least time of the same work on an
@@ -222,6 +252,9 @@ TAPE_PATHS, EAGER_PATHS = 500_000, 100_000
 # bench.py:641 bench_stochvol_matched: realizations and restarts; the
 # path count of tests/test_measures_and_statespace.py's configuration
 MATCHED_K, MATCHED_RESTARTS, MEASURE_PATHS = 3, 4, 1_000_000
+# bench.py:1474 bench_exposure's paths; bench.py:1808-1816's SABR smile;
+# the caplet repricing of phase 28
+EXPOSURE_PATHS, SABR_PATHS, CAPLET_PATHS = 50_000, 1_000_000, 100_000
 # the published H100 SXM peaks the bound is taken against
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 SPIN_CYCLES = 2_000_000       # about 1 ms of the card's clock
@@ -472,18 +505,16 @@ class _Timed:
         return out
 
 
-def _profile(torch, setup, kb, sv, sv_kb) -> None:
+def _profile(torch, setup, kb, sv, sv_kb, later) -> None:
     """Phase 6 (``--profile``): the device's busy share of one whole ATM
     calibration, of one call of each of its device stages, of one
-    stoch-vol kernel ``residuals_and_jacobian`` call and of one call of
+    stoch-vol kernel ``residuals_and_jacobian`` call, of one call of
     the stoch-vol multistart's dominant stage, the reduced-path engine
-    Jacobian. Each is run once unprofiled (host wall, synchronised) and
-    once under ``torch.profiler``; the device events of the profiled run
-    (kernels, copies, memsets) give the device operation count and busy
-    time, set against the unprofiled wall."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    Jacobian, and of the calls ``later`` names (phases 25-28). Each is
+    run once unprofiled (host wall, synchronised) and once under
+    ``torch.profiler``; the device events of the profiled run (kernels,
+    copies, memsets) give the device operation count and busy time, set
+    against the unprofiled wall."""
     p0 = setup.covariance.initial_parameters
     sv_p0 = sv.covariance.initial_parameters
     sweep = sv.sweep_engine()
@@ -497,24 +528,33 @@ def _profile(torch, setup, kb, sv, sv_kb) -> None:
             lambda: sv_kb.residuals_and_jacobian(sv_p0),
         f"stoch-vol engine jacobian ({sweep.num_paths:,} paths)":
             lambda: sweep.jacobian(sv_p0),
+        **later,
     }
-    out = {}
-    for name, fn in runs.items():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+    out = {name: _device_busy(torch, fn) for name, fn in runs.items()}
+    print("phase 6 profile: " + json.dumps(out), flush=True)
+
+
+def _device_busy(torch, fn) -> dict:
+    """``fn`` once unprofiled (host wall, synchronised) and once under
+    ``torch.profiler``: the device events of the profiled run (kernels,
+    copies, memsets) give the device operation count and busy time, set
+    against the unprofiled wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
-        out[name] = {"unprofiled_wall_ms": wall_ms, "device_ops": len(device),
-                     "device_busy_ms": busy_ms,
-                     "busy_share": busy_ms / wall_ms}
-    print("phase 6 profile: " + json.dumps(out), flush=True)
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
+    return {"unprofiled_wall_ms": wall_ms, "device_ops": len(device),
+            "device_busy_ms": busy_ms, "busy_share": busy_ms / wall_ms}
 
 
 def _slice_c(torch, smi):
@@ -1053,15 +1093,24 @@ def _slice_d1(torch, smi):
 def _wall_s(torch, fn, reps=3):
     """Min host seconds of ``fn`` (synchronised) over ``reps`` runs after a
     warm-up; ``fn``'s last result."""
+    _, warm, out = _walls(torch, fn, reps)
+    return warm, out
+
+
+def _walls(torch, fn, reps):
+    """(cold seconds, min warm seconds over ``reps`` runs, last result) of
+    ``fn``, each run synchronised."""
+    t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
-    times = []
+    cold = time.perf_counter() - t0
+    warm = []
     for _ in range(reps):
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    return min(times), out
+        warm.append(time.perf_counter() - t0)
+    return cold, min(warm), out
 
 
 def _bench_chain(x, a=1.01, b=0.02):
@@ -1749,6 +1798,328 @@ def _engine_options(torch, smi, bermudan_value):
           flush=True)
 
 
+
+def _exposure(torch, smi) -> dict:
+    """Phases 25-27: ``bench.py:1474 bench_exposure`` and
+    ``bench.py:1558 bench_cva_deltas`` at full width, then the XVA
+    extensions (a mixed netting set with and without a CSA, FVA, dynamic
+    IM and MVA, the swaption engine). Returns the calls phase 6 profiles,
+    by name."""
+    from finmath_tpu_torch.models.curves import par_swap_rate
+    from finmath_tpu_torch.models.lmm import build_atm_calibration
+    from finmath_tpu_torch.models.lmm import exposure as xv
+
+    # -- 25: the 19-date profile of a 10Y par payer swap, a 20-trade set --
+    t_phase = time.perf_counter()
+    setup = build_atm_calibration(num_paths=EXPOSURE_PATHS, num_factors=1,
+                                  device="cuda")
+    model, p0 = setup.model, setup.covariance.initial_parameters
+    par = float(par_swap_rate(model.forward_curve, model.discount_curve,
+                              model.tenor_times[4:21]))
+    eng = xv.SwapExposureEngine(model, first_index=4, last_index=20,
+                                strike=par, num_paths=EXPOSURE_PATHS,
+                                num_factors=1,
+                                quantiles=(0.95, 0.99), device="cuda")
+    cold_s, wall_s, prof = _walls(torch, lambda: eng.profile(p0), 5)
+    mart = float(np.max(np.abs(prof.forward_value
+                               - eng.analytic_forward_values())))
+    rng = np.random.default_rng(7)
+    trades = []
+    for k in range(20):
+        first = int(rng.integers(1, 20))
+        last = int(rng.integers(first + 1, 40))
+        trades.append(xv.SwapTrade(first, last, float(rng.uniform(0.0, 0.02)),
+                                   payer=bool(k % 2),
+                                   notional=float(rng.uniform(0.5, 2.0))))
+    nset = xv.NettingSetExposureEngine(model, trades, num_paths=EXPOSURE_PATHS,
+                                       num_factors=1, device="cuda")
+    n_cold_s, n_wall_s, nprof = _walls(torch, lambda: nset.profile(p0), 5)
+    n_mart = float(np.max(np.abs(nprof.forward_value
+                                 - nset.analytic_forward_values())))
+    out = {
+        "paths": EXPOSURE_PATHS, "observation_dates": len(prof.times),
+        "cold_ms": cold_s * 1e3, "wall_ms": wall_s * 1e3,
+        "peak_ee": float(np.max(prof.ee)),
+        "peak_pfe99": prof.max_pfe(0.99),
+        "cva_100bp": eng.cva(p0, hazard_rate=0.01),
+        "martingale_max_abs_err": mart,
+        "netting_set_20_trades": {
+            "observation_dates": len(nprof.times),
+            "cold_ms": n_cold_s * 1e3, "wall_ms": n_wall_s * 1e3,
+            "peak_netted_ee": float(np.max(nprof.ee)),
+            "peak_standalone_ee": float(np.max(nprof.ee_standalone)),
+            "peak_netting_benefit": float(np.max(nprof.netting_benefit)),
+            "martingale_max_abs_err": n_mart}}
+    print(f"phase 25 bench_exposure ({smi}): " + json.dumps(out), flush=True)
+    checks = {
+        "19 dates, all finite": bool(
+            len(prof.times) == 19 and np.all(np.isfinite(prof.ee))
+            and all(np.all(np.isfinite(v)) for v in prof.pfe.values())),
+        "martingale < 1e-3": mart < 1e-3,
+        "netting set finite, benefit >= 0": bool(
+            np.all(np.isfinite(nprof.ee))
+            and np.all(nprof.netting_benefit >= -1e-12)),
+        "netting set martingale < 2e-3": n_mart < 2e-3,
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: phase 25 failed: {failed}")
+    print(f"phase 25 seconds: {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+
+    # -- 26: the 80-bucket dCVA/dL0 ladder from one reverse pass -----------
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    d_cold_s, d_wall_s, (cva, grad) = _walls(
+        torch, lambda: eng.cva_forward_deltas(p0, hazard_rate=0.012), 3)
+    peak = torch.cuda.max_memory_allocated()
+    last = eng.trades[0].last_index
+    i = int(np.argmax(np.abs(grad)))
+    # a float64 central difference of the same CVA on the same paths
+    e64 = xv.SwapExposureEngine(model, first_index=4, last_index=20,
+                                strike=par, num_paths=EXPOSURE_PATHS,
+                                num_factors=1,
+                                quantiles=(0.95, 0.99), dtype=torch.float64,
+                                increments=eng.engine.increments,
+                                device="cuda")
+    pd = torch.as_tensor((1.0 - 0.4) * xv._default_probability_vector(
+        e64._obs_times, 0.012, None), dtype=torch.float64, device="cuda")
+    x64 = e64.engine._params(p0)
+    f0 = torch.as_tensor(np.asarray(model.initial_forwards),
+                         dtype=torch.float64, device="cuda")
+    h = 1e-5
+    bump = torch.zeros_like(f0)
+    bump[i] = h
+    with torch.no_grad():
+        fd = float((e64._cva_value(x64, f0 + bump, pd)
+                    - e64._cva_value(x64, f0 - bump, pd)) / (2 * h))
+    out = {"buckets": int(grad.shape[0]), "cold_ms": d_cold_s * 1e3,
+           "wall_ms": d_wall_s * 1e3, "cva_120bp": cva,
+           "largest_bucket": i, "aad": float(grad[i]),
+           "central_difference_f64": fd, "rel": abs(grad[i] / fd - 1.0),
+           "finite": bool(np.all(np.isfinite(grad))),
+           "tail_exact_zero": bool(np.all(grad[last:] == 0.0)),
+           "max_memory_allocated_gb": peak / 1e9}
+    print(f"phase 26 bench_cva_deltas ({smi}): " + json.dumps(out),
+          flush=True)
+    checks = {
+        "80 buckets, finite, not all zero": bool(
+            grad.shape == (80,) and np.all(np.isfinite(grad))
+            and np.any(grad != 0.0)),
+        "tail_exact_zero": out["tail_exact_zero"],
+        "largest bucket within 2e-3 of the f64 central difference":
+            abs(grad[i] / fd - 1.0) < 2e-3,
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: phase 26 failed: {failed}")
+    print(f"phase 26 seconds: {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+    del e64
+
+    # -- 27: the XVA extensions --------------------------------------------
+    t_phase = time.perf_counter()
+    x_, m_ = 8, 8
+    strike = float(par_swap_rate(model.forward_curve, model.discount_curve,
+                                 model.tenor_times[x_:x_ + m_ + 1]))
+    mixed = [xv.SwapTrade(2, 16, 0.006, payer=False, notional=1.5),
+             xv.SwapTrade(1, 12, 0.02, payer=True),
+             xv.SwaptionTrade(x_, m_, strike),
+             xv.BermudanSwaptionTrade((x_, x_ + 2, x_ + 4), x_ + m_, strike)]
+    plain = xv.NettingSetExposureEngine(model, mixed, num_paths=EXPOSURE_PATHS,
+                                        num_factors=1, device="cuda")
+    csa = xv.NettingSetExposureEngine(
+        model, mixed, num_paths=EXPOSURE_PATHS, num_factors=1, device="cuda",
+        csa=xv.CSA(threshold=0.0, mta=0.0, margin_lag=1))
+    m_cold_s, m_wall_s, mprof = _walls(torch, lambda: plain.profile(p0), 3)
+    c_cold_s, c_wall_s, cprof = _walls(torch, lambda: csa.profile(p0), 3)
+    fva_gross = xv.fva_from_profile(mprof, 0.01, 0.004, 0.012, 0.005)
+    fva_csa = xv.fva_from_profile(cprof, 0.01, 0.004, 0.012, 0.005)
+    i_cold_s, i_wall_s, im = _walls(torch, lambda: nset.im_profile(p0), 3)
+    mva = xv.mva_from_im_profile(im, 0.008, 0.012, 0.005)
+    swpt = xv.SwaptionExposureEngine(model, x_, m_, strike,
+                                     num_paths=EXPOSURE_PATHS, num_factors=1,
+                                     device="cuda")
+    s_cold_s, s_wall_s, sprof = _walls(torch, lambda: swpt.profile(p0), 3)
+    up_to_x = sprof.forward_value[:swpt._ev_x + 1]
+    flat = float(np.max(np.abs(up_to_x - up_to_x[-1])))
+    out = {
+        "paths": EXPOSURE_PATHS,
+        "mixed_set": {"trades": len(mixed), "dates": len(mprof.times),
+                      "cold_ms": m_cold_s * 1e3, "wall_ms": m_wall_s * 1e3,
+                      "peak_ee": float(np.max(mprof.ee)),
+                      "t0_forward_value": float(mprof.forward_value[0]),
+                      "peak_netting_benefit": float(
+                          np.max(mprof.netting_benefit))},
+        "csa_zero_threshold_lag1": {
+            "cold_ms": c_cold_s * 1e3, "wall_ms": c_wall_s * 1e3,
+            "peak_residual_ee": float(np.max(cprof.ee)),
+            "peak_collateral_benefit": float(
+                np.max(cprof.collateral_benefit))},
+        "fva_gross": fva_gross, "fva_csa": fva_csa,
+        "im_20_trades": {"dates": len(im.times), "cold_ms": i_cold_s * 1e3,
+                         "wall_ms": i_wall_s * 1e3,
+                         "peak_im": im.peak_im(), "mva_80bp": mva},
+        "swaption_engine": {"dates": len(sprof.times),
+                            "cold_ms": s_cold_s * 1e3,
+                            "wall_ms": s_wall_s * 1e3,
+                            "value": float(up_to_x[-1]),
+                            "forward_value_flat_to_expiry": flat}}
+    print(f"phase 27 XVA extensions ({smi}): " + json.dumps(out), flush=True)
+    # the rectangle rules of tests/test_xva_extensions.py, by hand
+    t = cprof.times
+    surv = np.exp(-(0.012 + 0.005) * t)
+    dt = np.diff(np.concatenate([[0.0], t]))
+    fva_hand = float(np.sum(0.01 * cprof.ee * surv * dt)
+                     - np.sum(0.004 * (-cprof.ene) * surv * dt))
+    mva_hand = float(np.sum(0.008 * im.expected_im
+                            * np.exp(-(0.012 + 0.005) * im.times) * im.dts))
+    checks = {
+        "CSA gross rows equal the plain profile (1e-12)": bool(
+            np.allclose(cprof.ee_gross, mprof.ee, rtol=1e-12, atol=0.0)
+            and np.allclose(cprof.ene_gross, mprof.ene, rtol=1e-12,
+                            atol=0.0)),
+        "profiles finite, netting benefit >= 0": bool(
+            np.all(np.isfinite(mprof.ee)) and np.all(np.isfinite(cprof.ee))
+            and np.all(mprof.netting_benefit >= -1e-12)),
+        "FVA equals its rectangle rule (1e-12)": bool(
+            np.isclose(fva_csa, fva_hand, rtol=1e-12, atol=0.0)),
+        "IM >= 0, peak > 0, MVA its rectangle rule (1e-12)": bool(
+            np.all(im.expected_im >= 0.0) and im.peak_im() > 0.0
+            and np.isclose(mva, mva_hand, rtol=1e-12, atol=0.0)),
+        "swaption forward value flat to expiry (1e-10)": flat < 1e-10,
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: phase 27 failed: {failed}")
+    print(f"phase 27 seconds: {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+    return {"phase 25 swap profile (50,000 paths)": lambda: eng.profile(p0),
+            "phase 25 20-trade profile": lambda: nset.profile(p0),
+            "phase 26 cva_forward_deltas": lambda: eng.cva_forward_deltas(
+                p0, hazard_rate=0.012),
+            "phase 27 mixed-set profile": lambda: plain.profile(p0),
+            "phase 27 im_profile": lambda: nset.im_profile(p0)}
+
+
+def _smile(torch, smi) -> dict:
+    """Phase 28: the smile layer (``bench.py:1808-1816`` and the caps and
+    cube modules). Returns the call phase 6 profiles, by name."""
+    from finmath_tpu_torch.models import caps, cube, sabr
+    from finmath_tpu_torch.models.curves import (DiscountCurve, ForwardCurve,
+                                                 swap_annuity)
+    from finmath_tpu_torch.models.lmm.covariance import (
+        LIBORCorrelationModelExponentialDecay,
+        LIBORCovarianceModelFromVolatilityAndCorrelation)
+    from finmath_tpu_torch.models.lmm.model import LIBORMarketModelTorch
+    from finmath_tpu_torch.models.lmm.products import CapFloor
+    from finmath_tpu_torch.models.time_discretization import (
+        TimeDiscretization)
+
+    t_phase = time.perf_counter()
+    p = sabr.SABRParams(alpha=0.035, beta=0.5, rho=-0.3, nu=0.4)
+    ks = np.array([0.025, 0.03, 0.035])
+    cold_s, wall_s, mc = _walls(torch, lambda: sabr.mc_sabr_implied_vols(
+        p, 0.03, 2.0, ks, num_paths=SABR_PATHS, num_steps=64, seed=5,
+        device="cuda"), 3)
+    hagan = np.array([sabr.sabr_lognormal_implied_volatility(p, 0.03, k, 2.0)
+                      for k in ks])
+    dev = float(np.max(np.abs(mc - hagan)))
+    # calibrate_sabr on Hagan quotes (tests/test_sabr.py's smile)
+    smile_ks = np.array([0.015, 0.02, 0.025, 0.03, 0.04, 0.05])
+    quotes = [sabr.sabr_lognormal_implied_volatility(p, 0.03, k, 2.0)
+              for k in smile_ks]
+    fit = sabr.calibrate_sabr(0.03, 2.0, smile_ks, quotes, beta=0.5)
+    # a caplet strip from price quotes (tests/test_caps.py's curves), its
+    # repricing, and the lognormal LMM on the stripped curve
+    period = 0.5
+    pillars = [0.5, 1.0, 2.0, 3.0, 5.0, 7.0, 10.0, 12.0]
+    zeros = [0.015, 0.017, 0.020, 0.022, 0.025, 0.027, 0.029, 0.030]
+    dc = DiscountCurve(pillars, list(np.exp(-np.array(zeros)
+                                            * np.array(pillars))))
+    fc = ForwardCurve(dc, payment_offset=period)
+    mats, strike = np.array([1.0, 2.0, 3.0]), 0.03
+    truth = caps.CapletVolatilityCurve(mats, np.array([0.35, 0.29, 0.24]))
+    prices = [caps.cap_value(dc, fc, caps.make_cap_schedule(float(m), period),
+                             period, strike, truth.get_caplet_volatility(
+                                 caps.make_cap_schedule(float(m), period)))
+              for m in mats]
+    stripped = caps.strip_caplet_volatilities(dc, fc, mats, prices, strike,
+                                              period, quote_type="price")
+    reprice = max(abs(caps.cap_value(
+        dc, fc, caps.make_cap_schedule(float(m), period), period, strike,
+        stripped.get_caplet_volatility(
+            caps.make_cap_schedule(float(m), period))) / q - 1.0)
+        for m, q in zip(mats, prices))
+    libor_td = TimeDiscretization(initial=0.0, num_steps=7, step=period)
+    cov = LIBORCovarianceModelFromVolatilityAndCorrelation(
+        caps.LIBORVolatilityModelFromCapletCurve(libor_td, libor_td,
+                                                 stripped),
+        LIBORCorrelationModelExponentialDecay(libor_td, 2))
+    lmm = LIBORMarketModelTorch(libor_td, fc, dc, cov, measure="spot",
+                                state_space="lognormal")
+    cap = CapFloor(lmm, 1, 6, strike, num_paths=CAPLET_PATHS, seed=7,
+                   device="cuda")
+    l_cold_s, l_wall_s, mc_cap = _walls(
+        torch, lambda: cap.get_value(np.zeros(0)), 3)
+    # one CMS caplet by replication on a SABR smile (tests/test_cube.py)
+    ts = np.arange(0.5, 30.1, 0.5)
+    curve = DiscountCurve(list(ts), list(np.exp(-0.025 * ts)))
+    pay = [5.0 + (j + 1) * 0.5 for j in range(20)]
+    a0 = swap_annuity(curve, pay, [0.5] * len(pay))
+    s0 = float((curve.get_discount_factor(5.0)
+                - curve.get_discount_factor(pay[-1])) / a0)
+    mapping = cube.LinearTSRAnnuityMapping.from_curve(
+        curve, s0, pay, payment_time=5.5, period_length=0.5)
+    pricer = cube.CMSReplicationPricer(cube.SwaptionSmile(
+        forward=s0, expiry=5.0, params=sabr.SABRParams(
+            alpha=0.25 * s0 ** 0.3, beta=0.7, rho=-0.25, nu=0.25)),
+        mapping, a0)
+    parity = abs(pricer.caplet_value(s0) - pricer.floorlet_value(s0)
+                 - pricer.swaplet_value(s0))
+    out = {
+        "sabr_smile": {"paths": SABR_PATHS, "steps": 64,
+                       "cold_ms": cold_s * 1e3, "wall_ms": wall_s * 1e3,
+                       "mc_vols": mc.tolist(), "hagan_vols": hagan.tolist(),
+                       "max_vol_dev_vs_hagan": dev},
+        "calibrate_sabr": {"alpha": fit.params.alpha, "rho": fit.params.rho,
+                           "nu": fit.params.nu,
+                           "rms_vol_error": fit.rms_vol_error},
+        "caplet_strip": {"vols": stripped.volatilities.tolist(),
+                         "max_reprice_rel": reprice},
+        "lmm_on_stripped_curve": {"paths": CAPLET_PATHS,
+                                  "cold_ms": l_cold_s * 1e3,
+                                  "wall_ms": l_wall_s * 1e3,
+                                  "mc_3y_cap": mc_cap,
+                                  "quote": prices[-1],
+                                  "rel": abs(mc_cap / prices[-1] - 1.0)},
+        "cms_caplet_atm": {"value": pricer.caplet_value(s0),
+                           "cms_rate": pricer.cms_rate(),
+                           "parity_gap": parity}}
+    print(f"phase 28 smile layer ({smi}): " + json.dumps(out), flush=True)
+    checks = {
+        "SABR MC within 0.006 of Hagan": dev < 0.006,
+        "calibrate_sabr recovers alpha, rho, nu": bool(
+            abs(fit.params.alpha - p.alpha) < 1e-5
+            and abs(fit.params.rho - p.rho) < 1e-4
+            and abs(fit.params.nu - p.nu) < 1e-4),
+        "stripped curve reprices its caps (1e-9)": reprice < 1e-9,
+        "LMM on the stripped curve within 3% of the 3Y cap": bool(
+            abs(mc_cap / prices[-1] - 1.0) < 0.03),
+        "CMS caplet positive, parity to 1e-11": bool(
+            pricer.caplet_value(s0) > 0.0 and parity < 1e-11),
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: phase 28 failed: {failed}")
+    print(f"phase 28 seconds: {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+    return {"phase 28 mc_sabr_option_prices (1M x 64)":
+            lambda: sabr.mc_sabr_option_prices(
+                p, 0.03, 2.0, ks, num_paths=SABR_PATHS, num_steps=64, seed=5,
+                device="cuda")}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -2169,8 +2540,11 @@ def main(argv=None) -> int:
     _parity(torch, smi)
     _engine_options(torch, smi, bermudan_value)
 
+    # -- 25-28: the exposure and XVA layer, the smile layer (no kernel) ----
+    later = {**_exposure(torch, smi), **_smile(torch, smi)}
+
     if opts.profile:
-        _profile(torch, setup, kb, sv, sv_kb)
+        _profile(torch, setup, kb, sv, sv_kb, later)
 
     print(f"chip_smoke seconds: {time.perf_counter() - t_script:.1f}",
           flush=True)

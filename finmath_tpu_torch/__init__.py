@@ -18,8 +18,11 @@ the Longstaff-Schwartz, tape-AAD and lazy-engine slice):
   stochastic-volatility models), the LMM valuation engine, the analytic
   approximation, both kernel calibration backends, the ATM and
   benchmark workloads, the Bermudan swaption (Longstaff-Schwartz with
-  duality bounds), caps and floors, and the eager factory-injected
-  swaption valuation;
+  duality bounds), caps and floors, the eager factory-injected swaption
+  valuation, and the exposure and XVA layer (``models.lmm.exposure``);
+* ``models.sabr``, ``models.caps`` and ``models.cube`` — the smile layer:
+  SABR and its Monte-Carlo smile, caplet stripping, the swaption cube and
+  CMS replication;
 * ``ops.random_variable`` and ``ops.random_variable_float`` — the vector
   engine and its float oracle; ``ops.conditional_expectation`` (the
   regression estimator), ``ops.aad`` (tape AAD) and ``ops.lazy`` (recorded

@@ -10,6 +10,30 @@ from .calibration import (
     LevenbergMarquardt,
     LMResult,
 )
+from .sabr import (
+    SABRCalibrationResult,
+    SABRParams,
+    calibrate_sabr,
+    mc_sabr_implied_vols,
+    mc_sabr_option_prices,
+    sabr_lognormal_implied_volatility,
+    sabr_normal_implied_volatility,
+)
+from .caps import (
+    CapletVolatilityCurve,
+    LIBORVolatilityModelFromCapletCurve,
+    cap_value,
+    implied_flat_cap_volatility,
+    make_cap_schedule,
+    strip_caplet_surface,
+    strip_caplet_volatilities,
+)
+from .cube import (
+    CMSReplicationPricer,
+    LinearTSRAnnuityMapping,
+    SwaptionCube,
+    SwaptionSmile,
+)
 
 __all__ = [
     "TimeDiscretization",
@@ -20,4 +44,22 @@ __all__ = [
     "BatchedLevenbergMarquardt",
     "LevenbergMarquardt",
     "LMResult",
+    "SABRCalibrationResult",
+    "SABRParams",
+    "calibrate_sabr",
+    "mc_sabr_implied_vols",
+    "mc_sabr_option_prices",
+    "sabr_lognormal_implied_volatility",
+    "sabr_normal_implied_volatility",
+    "CapletVolatilityCurve",
+    "LIBORVolatilityModelFromCapletCurve",
+    "cap_value",
+    "implied_flat_cap_volatility",
+    "make_cap_schedule",
+    "strip_caplet_surface",
+    "strip_caplet_volatilities",
+    "CMSReplicationPricer",
+    "LinearTSRAnnuityMapping",
+    "SwaptionCube",
+    "SwaptionSmile",
 ]

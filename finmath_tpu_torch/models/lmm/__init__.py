@@ -17,6 +17,22 @@ from .analytic_approximation import LMMAnalyticSwaptionEngine
 from .kernel_backend import ATMKernelCalibration, StochVolKernelCalibration
 from .bermudan import BermudanSwaption, BermudanSwaptionPricer
 from .products import CapFloor
+from .exposure import (
+    CSA,
+    BermudanSwaptionTrade,
+    ExposureProfile,
+    IMProfile,
+    NettingSetExposureEngine,
+    SwapExposureEngine,
+    SwapTrade,
+    SwaptionExposureEngine,
+    SwaptionTrade,
+    bilateral_cva_from_profile,
+    cva_from_profile,
+    dva_from_profile,
+    fva_from_profile,
+    mva_from_im_profile,
+)
 from .eager import eager_swaption_valuation
 
 __all__ = [
@@ -40,5 +56,19 @@ __all__ = [
     "BermudanSwaption",
     "BermudanSwaptionPricer",
     "CapFloor",
+    "CSA",
+    "ExposureProfile",
+    "IMProfile",
+    "NettingSetExposureEngine",
+    "SwapExposureEngine",
+    "SwapTrade",
+    "SwaptionExposureEngine",
+    "SwaptionTrade",
+    "BermudanSwaptionTrade",
+    "bilateral_cva_from_profile",
+    "cva_from_profile",
+    "dva_from_profile",
+    "fva_from_profile",
+    "mva_from_im_profile",
     "eager_swaption_valuation",
 ]
