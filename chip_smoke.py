@@ -255,6 +255,8 @@ MATCHED_K, MATCHED_RESTARTS, MEASURE_PATHS = 3, 4, 1_000_000
 # bench.py:1474 bench_exposure's paths; bench.py:1808-1816's SABR smile;
 # the caplet repricing of phase 28
 EXPOSURE_PATHS, SABR_PATHS, CAPLET_PATHS = 50_000, 1_000_000, 100_000
+# phase 29's hybrid (antithetic) and phase 30's Hull-White paths
+HYBRID_PATHS, HW_PATHS = 100_000, 1_000_000
 # the published H100 SXM peaks the bound is taken against
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 SPIN_CYCLES = 2_000_000       # about 1 ms of the card's clock
@@ -2120,6 +2122,227 @@ def _smile(torch, smi) -> dict:
                 device="cuda")}
 
 
+def _hybrid(torch, smi) -> dict:
+    """Phase 29: the hybrid asset-LMM at full width (no kernel): equity and
+    FX under the ATM setup's rates, their martingales, put-call parity, a
+    five-trade book's exposure profile and an autocallable. Returns the
+    calls phase 6 profiles, by name."""
+    from finmath_tpu_torch.models.curves import DiscountCurve
+    from finmath_tpu_torch.models.lmm import build_atm_calibration
+    from finmath_tpu_torch.models.lmm import hybrid as hy
+
+    t_phase = time.perf_counter()
+    paths = HYBRID_PATHS
+    setup = build_atm_calibration(num_paths=paths, num_factors=1,
+                                  device="cuda")
+    model, p0 = setup.model, setup.covariance.initial_parameters
+    n = model.num_libors
+    ft = np.arange(0.5, model.tenor_times[-1] + 0.01, 0.5)
+    foreign = DiscountCurve(list(ft), list(np.exp(-0.01 * ft)))
+    s0 = np.array([100.0, 1.10])
+    h = hy.HybridAssetLMM(model, s0, [0.20, 0.10],
+                          rate_correlations=[0.3, -0.2],
+                          dividend_yields=[0.01, foreign],
+                          observation_indices=range(1, n), num_paths=paths,
+                          num_factors=1, seed=SEED, antithetic=True,
+                          device="cuda")
+    cold_s, wall_s, (assets, nums) = _walls(torch, lambda: h.simulate(p0), 5)
+    # the martingale errors against their own standard errors, antithetic
+    # pairs counting as one sample
+    disc = (assets / nums[:, None, :]).cpu().numpy()          # [E, K, paths]
+    E, K = disc.shape[:2]
+    target = np.stack([s0 * h._dividend_discount(ev) for ev in range(E)])
+    se = _standard_errors(disc.reshape(E * K, -1),
+                          antithetic=True).reshape(E, K) / target
+    mart = h.martingale_errors(p0)
+    mart_z = float(np.max(np.abs(mart) / se))
+    del disc
+    # put-call parity at 10Y (tests/test_hybrid.py:141)
+    e10, strike = int(np.argmin(np.abs(model.tenor_times - 10.0))), 100.0
+    c, se_c = h.european_option_value(p0, e10, strike, is_call=True)
+    p, se_p = h.european_option_value(p0, e10, strike, is_call=False)
+    fwd, _ = h.forward_value(p0, e10)
+    df10 = float(model.discount_curve.get_discount_factor(
+        model.tenor_times[e10]))
+    parity = abs((c - p) - (fwd - strike * df10))
+    # a five-trade equity/FX book
+    book = [hy.EquityForwardTrade(0, 20, 100.0),
+            hy.EquityOptionTrade(0, 40, 110.0),
+            hy.EquityOptionTrade(0, 60, 90.0, is_call=False, notional=0.5),
+            hy.EquityForwardTrade(1, 30, 1.10, notional=-50.0),
+            hy.EquityOptionTrade(1, 20, 1.10, is_call=False, notional=80.0)]
+    eng = hy.HybridExposureEngine(h, book, quantiles=(0.95,))
+    p_cold_s, p_wall_s, prof = _walls(torch, lambda: eng.profile(p0), 5)
+    identity = float(np.max(np.abs(prof.ee + prof.ene - prof.forward_value)))
+    note = hy.HybridAutocallableNote(
+        h, [2, 4, 6, 8, 10], [105.0] * 5, [0.04] * 5, 70.0,
+        coupon_levels=[80.0] * 5, memory=True)
+    a_cold_s, a_wall_s, (av, ae) = _walls(
+        torch, lambda: note.get_value_and_error(p0), 5)
+    out = {
+        "paths": paths, "observation_dates": E, "assets": K,
+        "simulate": {"cold_ms": cold_s * 1e3, "wall_ms": wall_s * 1e3},
+        "martingale_max_abs_err": float(np.max(np.abs(mart))),
+        "martingale_max_z": mart_z,
+        "parity_10y": {"call": c, "put": p, "se_call": se_c, "se_put": se_p,
+                       "forward": fwd, "gap": parity,
+                       "bound": 4 * (se_c + se_p) + 5e-3},
+        "profile_5_trades": {"cold_ms": p_cold_s * 1e3,
+                             "wall_ms": p_wall_s * 1e3,
+                             "peak_ee": float(np.max(prof.ee)),
+                             "min_ene": float(np.min(prof.ene)),
+                             "peak_pfe95": float(np.max(prof.pfe[0.95])),
+                             "ee_plus_ene_minus_fv": identity},
+        "autocallable": {"value": av, "stderr": ae,
+                         "cold_ms": a_cold_s * 1e3,
+                         "wall_ms": a_wall_s * 1e3}}
+    print(f"phase 29 hybrid asset-LMM ({smi}): " + json.dumps(out),
+          flush=True)
+    checks = {
+        "martingale errors within 4.5 standard errors": bool(
+            np.all(np.isfinite(mart)) and mart_z <= 4.5),
+        "put-call parity at 10Y": parity < 4 * (se_c + se_p) + 5e-3,
+        "profile finite, EE >= 0 >= ENE": bool(
+            np.all(np.isfinite(prof.ee)) and np.all(np.isfinite(prof.ene))
+            and np.all(np.isfinite(prof.pfe[0.95]))
+            and np.all(prof.ee >= 0.0) and np.all(prof.ene <= 0.0)),
+        "EE + ENE equals the forward value (1e-10)": identity < 1e-10,
+        "autocallable finite, error > 0": bool(
+            np.isfinite(av) and 0.0 < av < 2.0 and ae > 0.0),
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: phase 29 failed: {failed}")
+    print(f"phase 29 seconds: {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+    return {f"phase 29 hybrid simulate ({paths:,} paths, {E} dates)":
+            lambda: h.simulate(p0),
+            "phase 29 five-trade profile": lambda: eng.profile(p0),
+            "phase 29 autocallable": lambda: note.get_value_and_error(p0)}
+
+
+def _hull_white(torch, smi) -> dict:
+    """Phase 30: the Hull-White slice at ``bench.py``'s widths (no kernel):
+    ``hull_white_swaption_1m``, ``hw_bermudan_ls_1m_x10``, a 1M-path TARN
+    and the calibration. Returns the calls phase 6 profiles, by name."""
+    from finmath_tpu_torch.models.curves import DiscountCurve
+    from finmath_tpu_torch.models.hull_white import (
+        HullWhiteModel, HullWhiteSimulation, calibrate_hull_white)
+    from finmath_tpu_torch.models.hw_bermudan import (
+        BermudanSwaption, hw_bermudan_swaption_pde)
+    from finmath_tpu_torch.models.tarn import (
+        TargetRedemptionNote, inverse_floater_value)
+    from finmath_tpu_torch.models.time_discretization import (
+        TimeDiscretization)
+
+    t_phase = time.perf_counter()
+    paths = HW_PATHS
+    # bench.py:1645-1661 hull_white_swaption_1m
+    pil = np.array([0.5, 1.0, 2.0, 3.0, 5.0, 7.0, 10.0, 15.0, 20.0])
+    z = np.array([0.010, 0.012, 0.015, 0.017, 0.020, 0.022, 0.024,
+                  0.025, 0.0255])
+    curve = DiscountCurve(list(pil), list(np.exp(-z * pil)))
+    hw = HullWhiteModel(curve, 0.12, [0.010, 0.014, 0.008],
+                        vol_times=[0.0, 2.0, 5.0])
+    td = TimeDiscretization(initial=0.0, num_steps=20, step=0.5)
+
+    def simulate():
+        return HullWhiteSimulation(hw, td, num_paths=paths, seed=7,
+                                   antithetic=True, device="cuda")
+
+    s_cold_s, s_wall_s, sim = _walls(torch, simulate, 5)
+    pts = [3.0, 3.5, 4.0, 4.5, 5.0]
+    an = hw.swaption(2.0, pts, 0.02)
+    w_cold_s, w_wall_s, mc = _walls(
+        torch, lambda: sim.mc_swaption_price(2.0, pts, 0.02), 5)
+    fit10 = sim.mc_bond_price(10.0) / float(hw.df(10.0)) - 1.0
+    del sim
+    # bench.py:1835-1854 hw_bermudan_ls_1m_x10
+    ts = np.arange(0.5, 20.1, 0.5)
+    hwb = HullWhiteModel(DiscountCurve(list(ts), list(np.exp(-0.022 * ts))),
+                         0.1, [0.01])
+    ex = [2.0 + 0.5 * i for i in range(10)]
+    bsim = HullWhiteSimulation(
+        hwb, TimeDiscretization(initial=0.0, num_steps=14, step=0.5),
+        num_paths=paths, seed=11, antithetic=True, device="cuda")
+    prod = BermudanSwaption(ex, 7.0, 0.025)
+    b_cold_s, b_wall_s, (bv, be) = _walls(
+        torch, lambda: prod.get_value_and_error(bsim), 5)
+    t0 = time.perf_counter()
+    pde = hw_bermudan_swaption_pde(hwb, ex, 7.0, 0.025, nx=601,
+                                   steps_per_year=100)
+    pde_s = time.perf_counter() - t0
+    # a TARN on tests/test_tarn.py's set-up with an infinite target
+    tp = np.array([0.5, 1.0, 2.0, 3.0, 5.0, 7.0, 10.0])
+    tz = np.array([0.012, 0.014, 0.017, 0.019, 0.022, 0.024, 0.026])
+    hwt = HullWhiteModel(DiscountCurve(list(tp), list(np.exp(-tz * tp))),
+                         0.10, 0.011)
+    tsim = HullWhiteSimulation(
+        hwt, TimeDiscretization(initial=0.0, num_steps=9, step=0.5),
+        num_paths=paths, seed=13, antithetic=True, device="cuda")
+    fix = [0.5 * i for i in range(1, 9)]
+    pay = [t + 0.5 for t in fix]
+    tarn = TargetRedemptionNote(fix, pay, 0.045, target=float("inf"),
+                                multiplier=2.0)
+    t_cold_s, t_wall_s, (tv, te) = _walls(
+        torch, lambda: tarn.get_value_and_error(tsim), 5)
+    t_an = inverse_floater_value(hwt, fix, pay, 0.045, multiplier=2.0)
+    # calibrate_hull_white on tests/test_hull_white.py:192's case
+    truth = HullWhiteModel(curve, 0.12, [0.009, 0.013], vol_times=[0.0, 3.0])
+    swaptions = [
+        {"expiry": 1.0, "payment_times": [1.5, 2.0, 2.5, 3.0],
+         "strike": 0.015},
+        {"expiry": 2.0, "payment_times": [2.5, 3.0, 3.5, 4.0],
+         "strike": 0.018},
+        {"expiry": 5.0, "payment_times": [5.5, 6.0, 6.5, 7.0],
+         "strike": 0.022}]
+    targets = [truth.swaption(s["expiry"], s["payment_times"], s["strike"])
+               for s in swaptions]
+    t0 = time.perf_counter()
+    cal = calibrate_hull_white(curve, 0.12, [0.0, 3.0], swaptions, targets)
+    cal_s = time.perf_counter() - t0
+    out = {
+        "paths": paths,
+        "hull_white_swaption_1m": {
+            "simulation_cold_ms": s_cold_s * 1e3,
+            "simulation_wall_ms": s_wall_s * 1e3,
+            "price_cold_ms": w_cold_s * 1e3, "price_wall_ms": w_wall_s * 1e3,
+            "mc": mc, "jamshidian": an, "rel_dev": (mc - an) / an,
+            "curve_fit_rel_10y": fit10},
+        "hw_bermudan_ls_1m_x10": {
+            "cold_ms": b_cold_s * 1e3, "wall_ms": b_wall_s * 1e3,
+            "value": bv, "stderr": be, "pde_oracle": pde,
+            "pde_host_s": pde_s, "dev_sigma": (bv - pde) / be},
+        "tarn_1m_target_inf": {
+            "cold_ms": t_cold_s * 1e3, "wall_ms": t_wall_s * 1e3,
+            "value": tv, "stderr": te, "inverse_floater": t_an},
+        "calibrate_hull_white": {
+            "sigmas": cal.model.sigmas.tolist(),
+            "rms_price_error": cal.rms_price_error,
+            "iterations": cal.iterations, "host_s": cal_s}}
+    print(f"phase 30 Hull-White ({smi}): " + json.dumps(out), flush=True)
+    checks = {
+        "swaption within max(4e-5, 0.012 an) of Jamshidian":
+            abs(mc - an) < max(4e-5, 0.012 * an),
+        "10Y curve fit within 1e-3": abs(fit10) < 1e-3,
+        "Bermudan within 4 e + 0.005 pde of the PDE":
+            abs(bv - pde) < 4 * be + 0.005 * pde,
+        "TARN within 4 e + 2e-4 an of the inverse floater":
+            abs(tv - t_an) < 4 * te + 2e-4 * t_an,
+        "calibration rms < 1e-9": cal.rms_price_error < 1e-9,
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: phase 30 failed: {failed}")
+    print(f"phase 30 seconds: {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+    return {f"phase 30 Hull-White simulation ({paths:,} x 20)": simulate,
+            f"phase 30 Bermudan LS ({paths:,} x 10 dates)":
+                lambda: prod.get_value_and_error(bsim),
+            f"phase 30 TARN ({paths:,})":
+                lambda: tarn.get_value_and_error(tsim)}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -2540,8 +2763,10 @@ def main(argv=None) -> int:
     _parity(torch, smi)
     _engine_options(torch, smi, bermudan_value)
 
-    # -- 25-28: the exposure and XVA layer, the smile layer (no kernel) ----
-    later = {**_exposure(torch, smi), **_smile(torch, smi)}
+    # -- 25-30: the exposure and XVA layer, the smile layer, the hybrid
+    # asset-LMM and the Hull-White slice (no kernel) ------------------------
+    later = {**_exposure(torch, smi), **_smile(torch, smi),
+             **_hybrid(torch, smi), **_hull_white(torch, smi)}
 
     if opts.profile:
         _profile(torch, setup, kb, sv, sv_kb, later)

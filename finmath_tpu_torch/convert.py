@@ -11,9 +11,10 @@ through ``increments_from_normals``. A vector-engine random variable crosses as 
 time and realizations: ``random_variable_from_numpy`` and
 ``random_variable_to_numpy``. A Bermudan policy fitted by the JAX pricer
 (its tuple of float64 beta vectors) applies in the port through
-``betas_from_numpy``, and a JAX ``BermudanSwaption`` becomes the port's
-through ``bermudan_swaption_from_jax`` (read by attribute, without
-importing the JAX package).
+``betas_from_numpy``, a JAX ``BermudanSwaption`` becomes the port's
+through ``bermudan_swaption_from_jax``, and a (calibrated) JAX
+``HullWhiteModel`` the port's through ``hull_white_model_from_jax``
+(both read by attribute, without importing the JAX package).
 """
 
 from __future__ import annotations
@@ -101,3 +102,20 @@ def bermudan_swaption_from_jax(product):
     return BermudanSwaption(
         tuple(int(e) for e in product.exercise_indices),
         int(product.maturity_index), float(product.strike))
+
+
+def hull_white_model_from_jax(model):
+    """The port's ``HullWhiteModel`` with the mean reversion, volatility
+    segments and discount curve (rebuilt from its pillars and discount
+    factors) of another package's (any object with ``.curve``, ``.a``,
+    ``.sigmas`` and ``.vol_times``; the curve with ``.times`` and
+    ``.factors``): a model calibrated there prices the same here."""
+    from .models.curves import DiscountCurve
+    from .models.hull_white import HullWhiteModel
+
+    curve = DiscountCurve(np.array(model.curve.times, dtype=np.float64),
+                          np.array(model.curve.factors, dtype=np.float64),
+                          name=getattr(model.curve, "name", "discountCurve"))
+    return HullWhiteModel(curve, float(model.a),
+                          np.array(model.sigmas, dtype=np.float64),
+                          np.array(model.vol_times, dtype=np.float64))

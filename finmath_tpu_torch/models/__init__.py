@@ -34,6 +34,20 @@ from .cube import (
     SwaptionCube,
     SwaptionSmile,
 )
+from .hull_white import (
+    HullWhiteCalibrationResult,
+    HullWhiteModel,
+    HullWhiteSimulation,
+    calibrate_hull_white,
+)
+from .hw_bermudan import (
+    BermudanSwaption,
+    hw_bermudan_swaption_pde,
+)
+from .tarn import (
+    TargetRedemptionNote,
+    inverse_floater_value,
+)
 
 __all__ = [
     "TimeDiscretization",
@@ -62,4 +76,12 @@ __all__ = [
     "LinearTSRAnnuityMapping",
     "SwaptionCube",
     "SwaptionSmile",
+    "HullWhiteCalibrationResult",
+    "HullWhiteModel",
+    "HullWhiteSimulation",
+    "calibrate_hull_white",
+    "BermudanSwaption",
+    "hw_bermudan_swaption_pde",
+    "TargetRedemptionNote",
+    "inverse_floater_value",
 ]

@@ -34,6 +34,13 @@ from .exposure import (
     mva_from_im_profile,
 )
 from .eager import eager_swaption_valuation
+from .hybrid import (
+    EquityForwardTrade,
+    EquityOptionTrade,
+    HybridAssetLMM,
+    HybridAutocallableNote,
+    HybridExposureEngine,
+)
 
 __all__ = [
     "LIBORVolatilityModelPiecewiseConstant",
@@ -71,4 +78,9 @@ __all__ = [
     "fva_from_profile",
     "mva_from_im_profile",
     "eager_swaption_valuation",
+    "EquityForwardTrade",
+    "EquityOptionTrade",
+    "HybridAssetLMM",
+    "HybridAutocallableNote",
+    "HybridExposureEngine",
 ]

@@ -558,7 +558,7 @@ class LMMValuationEngine:
                                     - self.model.tenor_times[e])))
 
     def _simulate_collect(self, params: torch.Tensor, collect, fwd0=None,
-                          grad_safe: bool = False) -> list:
+                          grad_safe: bool = False, step_hook=None) -> list:
         """Run the simulation once and apply ``collect(e, ev, L, N)`` at
         every exercise step, before that step's accrual and evolution;
         return the outputs per event, in event order (``ev`` is the
@@ -582,7 +582,16 @@ class LMMValuationEngine:
         blended local-vol anchor ``L0`` moves with them. ``grad_safe``:
         floor the drift's accrual denominator |1 + delta L| at 1e-4 and
         clip the log-Euler exponent to +-88, both identity on every path
-        the valuation keeps; for the reverse-mode ladders only."""
+        the valuation keeps; for the reverse-mode ladders only.
+
+        ``step_hook``: called once per simulated step ``s``, after its
+        accrual and evolution, as ``step_hook(s, N_old, N_new, dw)``:
+        the numeraire at the step's start and after its accrual (the
+        collect dtype, ``[paths]``) and the step's increments
+        ``self.increments[s]`` ``[F', paths]``. A state carried beside the
+        rates (the hybrid's assets) evolves there; the collection still
+        sees the state after the steps before the event. The hook changes
+        nothing the engine computes."""
         t, tp = self._t, self._p
         cov = self.model.covariance
         n, paths, F = self.model.num_libors, self.num_paths, self.num_factors
@@ -663,6 +672,7 @@ class LMMValuationEngine:
                 if e is None:
                     break
             m = self._fixing[s]
+            N_old = N
             if spot and m >= 0:
                 # spot account accrues period m at its fixing L_m
                 N = N * (1.0 + tp["deltas"][m] * L[m - r]).to(cd)
@@ -698,6 +708,8 @@ class LMMValuationEngine:
                     arg = arg - 0.5 * nu * nu * tp["dts"][s].to(cd)
                 # the same overflow guard for the scaling process
                 V = torch.clamp_max(V * torch.exp(arg), 1e6)
+            if step_hook is not None:
+                step_hook(s, N_old, N, dw)
         return outs
 
     def _values(self, params: torch.Tensor, fwd0=None,
