@@ -196,13 +196,42 @@ Phases, one line of output each (more for the kernel builds), in order:
     lognormal LMM driven by the stripped curve at 100,000 paths (within 3%
     of the quote); one CMS caplet by replication (caplet - floorlet =
     swaplet);
+29. the hybrid asset-LMM on the ATM model at 100,000 antithetic paths, 79
+    dates (an equity and an FX rate): martingale errors, 10Y put-call
+    parity, a five-trade profile and an autocallable;
+30. the Hull-White slice at ``bench.py``'s widths: the 1M-path swaption
+    against Jamshidian and the 10Y curve, the 1M-path Bermudan against the
+    PDE, a 1M-path TARN against the inverse floater, the calibration;
+31. ``bench.py:1937 bench_credit_wwr`` (no kernel): the survival curve
+    bootstrapped from five CDS quotes, CIR++ on Hull-White, the 10Y payer
+    swap's wrong-way CVA at 500,000 antithetic paths and 4 CIR substeps at
+    rho 0.6, 0 and -0.6 (contributions sum to the CVA, the last one zero,
+    rho 0 factorizes within 3% and tracks the curve within 3e-3, the CVA
+    increases in rho), its walls (cold, min of 5 warm) and peak device
+    memory; the survival error at rho +-0.6 printed beside rho 0's, not
+    gated (the reference's substep correlation, ``ROADMAP.md`` Queue 3);
+    a 500,000-path ``CIRPPSimulation`` whose 5Y CDS legs match
+    ``cds_legs``;
+32. ``bench.py:2047 bench_cross_currency`` (no kernel): 1,000,000
+    antithetic paths over 20 semiannual steps, the 5Y FX options within
+    4.5 standard errors of the closed form, the forward, the 10Y CCS legs
+    at par, the martingale diagnostics, and the exposure engine on
+    ``tests/test_cross_currency.py``'s trades (the CCS's EE against the FX
+    option, its forward value, EE + ENE = FV, a mirrored pair netting to
+    zero, an FX forward, a foreign basis); each call's walls;
+33. Jarrow-Yildirim, ``tests/test_inflation.py``'s model at 1,000,000
+    paths over 20 semiannual steps (no kernel): the YoY forwards, caplets
+    and floorlets within 4 standard errors of the moment propagation, the
+    forwards closer than the naive ratio, a ZCIS; the walls;
 6. with ``--profile`` only, last: device operations and busy time under
    ``torch.profiler`` for one ATM calibration, one engine Jacobian, one
    ATM kernel residual call, one stoch-vol kernel
    ``residuals_and_jacobian`` call and one reduced-path stoch-vol engine
-   Jacobian, and for phases 25-28 one swap and one 20-trade profile, one
-   CVA ladder, one mixed-set profile, one IM profile and one SABR smile,
-   each against the same call's unprofiled wall.
+   Jacobian, and for phases 25-33 one swap and one 20-trade profile, one
+   CVA ladder, one mixed-set profile, one IM profile, one SABR smile, the
+   hybrid's and Hull-White's calls, one WWR CVA and one CIR++ simulation,
+   one cross-currency and one Jarrow-Yildirim simulation, each against the
+   same call's unprofiled wall.
 
 Then the whole script's seconds, one JSON line with the eight kernels'
 numbers (``bound_ms`` is the least time of the same work on an
@@ -257,6 +286,9 @@ MATCHED_K, MATCHED_RESTARTS, MEASURE_PATHS = 3, 4, 1_000_000
 EXPOSURE_PATHS, SABR_PATHS, CAPLET_PATHS = 50_000, 1_000_000, 100_000
 # phase 29's hybrid (antithetic) and phase 30's Hull-White paths
 HYBRID_PATHS, HW_PATHS = 100_000, 1_000_000
+# bench.py:1937 bench_credit_wwr's paths (phase 31) and bench.py:2047
+# bench_cross_currency's (phases 32-33)
+CREDIT_PATHS, XCCY_PATHS = 500_000, 1_000_000
 # the published H100 SXM peaks the bound is taken against
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 SPIN_CYCLES = 2_000_000       # about 1 ms of the card's clock
@@ -512,7 +544,7 @@ def _profile(torch, setup, kb, sv, sv_kb, later) -> None:
     calibration, of one call of each of its device stages, of one
     stoch-vol kernel ``residuals_and_jacobian`` call, of one call of
     the stoch-vol multistart's dominant stage, the reduced-path engine
-    Jacobian, and of the calls ``later`` names (phases 25-28). Each is
+    Jacobian, and of the calls ``later`` names (phases 25-33). Each is
     run once unprofiled (host wall, synchronised) and once under
     ``torch.profiler``; the device events of the profiled run (kernels,
     copies, memsets) give the device operation count and busy time, set
@@ -2343,6 +2375,314 @@ def _hull_white(torch, smi) -> dict:
                 lambda: tarn.get_value_and_error(tsim)}
 
 
+def _credit(torch, smi) -> dict:
+    """Phase 31: ``bench.py:1937 bench_credit_wwr`` through the port (no
+    kernel): the survival curve bootstrapped from CDS quotes, CIR++ (0.5,
+    0.015, 0.08, 0.01) on Hull-White (0.1, 0.01), the 10Y semiannual payer
+    par swap's CVA at 500,000 antithetic paths, 4 CIR substeps, seed 31, at
+    rho 0.6, 0 and -0.6, and a ``CIRPPSimulation`` on the 20-step
+    semiannual grid. Returns the calls phase 6 profiles, by name."""
+    from finmath_tpu_torch.models.credit import (
+        CIRPPIntensityModel, CIRPPSimulation, WrongWayRiskCVAEngine,
+        bootstrap_survival_curve, cds_legs, par_swap_rate)
+    from finmath_tpu_torch.models.curves import DiscountCurve
+    from finmath_tpu_torch.models.hull_white import HullWhiteModel
+    from finmath_tpu_torch.models.time_discretization import (
+        TimeDiscretization)
+
+    t_phase = time.perf_counter()
+    paths = CREDIT_PATHS
+    t_grid = np.arange(0.0, 31.0)
+    dc = DiscountCurve(t_grid, np.exp(-0.03 * t_grid))
+    curve = bootstrap_survival_curve(
+        dc, [1.0, 3.0, 5.0, 7.0, 10.0], [0.006, 0.009, 0.012, 0.014, 0.016],
+        recovery=0.4)
+    intensity = CIRPPIntensityModel(curve, kappa=0.5, theta=0.015,
+                                    sigma=0.08, y0=0.01)
+    hw = HullWhiteModel(dc, mean_reversion=0.1, volatility=0.01)
+    pay = np.arange(1, 21) * 0.5
+    k = par_swap_rate(dc, pay)
+    engines = {rho: WrongWayRiskCVAEngine(
+        hw, intensity, pay, k, num_paths=paths, correlation=rho,
+        recovery=0.4, seed=31, antithetic=True, substeps=4, device="cuda")
+        for rho in (0.6, 0.0, -0.6)}
+    torch.cuda.reset_peak_memory_stats()
+    cold_s, wall_s, res = _walls(torch, engines[0.6].compute, 5)
+    peak = torch.cuda.max_memory_allocated()
+    results = {0.6: res, 0.0: engines[0.0].compute(),
+               -0.6: engines[-0.6].compute()}
+    surv_err = {rho: float(np.max(np.abs(
+        r.expected_survival
+        - curve.get_survival_probability(r.observation_times))))
+        for rho, r in results.items()}
+    td = TimeDiscretization(initial=0.0, num_steps=20, step=0.5)
+
+    def simulate():
+        return CIRPPSimulation(intensity, td, paths, seed=31,
+                               antithetic=True, substeps=4, device="cuda")
+
+    c_cold_s, c_wall_s, sim = _walls(torch, simulate, 5)
+    legs_mc = sim.mc_cds_legs(dc, 5.0, recovery=0.4, payment_interval=0.5)
+    legs_an = cds_legs(dc, curve, 5.0, recovery=0.4, payment_interval=0.5)
+    del sim
+    r0 = results[0.0]
+    out = {
+        "paths": paths, "observation_dates": int(pay.size),
+        "cir_substeps": 4,
+        "wwr_cva_rho_0.6": {
+            "cold_ms": cold_s * 1e3, "wall_ms": wall_s * 1e3,
+            "max_memory_allocated_gb": peak / 1e9,
+            "cva_bp": 1e4 * res.cva,
+            "cva_independent_bp": 1e4 * res.cva_independent,
+            "wwr_ratio": res.wwr_ratio},
+        "cva_bp_by_rho": {str(rho): 1e4 * r.cva for rho, r in results.items()},
+        "wwr_ratio_by_rho": {str(rho): r.wwr_ratio
+                             for rho, r in results.items()},
+        "survival_max_err_by_rho (reference defect: substep correlation "
+        "(ROADMAP Queue 3), not gated at rho != 0)":
+            {str(rho): e for rho, e in surv_err.items()},
+        "cirpp_simulation": {
+            "cold_ms": c_cold_s * 1e3, "wall_ms": c_wall_s * 1e3,
+            "mc_cds_legs_5y": legs_mc, "cds_legs_5y": legs_an}}
+    print(f"phase 31 credit WWR CVA ({smi}): " + json.dumps(out), flush=True)
+    checks = {
+        f"contributions sum to the CVA at rho {rho}":
+            abs(float(np.sum(r.contributions)) - r.cva)
+            < 1e-12 + 1e-9 * abs(r.cva) for rho, r in results.items()}
+    checks.update({f"last contribution below 1e-15 at rho {rho}":
+                   abs(float(r.contributions[-1])) < 1e-15
+                   for rho, r in results.items()})
+    checks.update({
+        "rho 0 factorizes within 3%":
+            abs(r0.cva - r0.cva_independent) < 0.03 * r0.cva,
+        "rho 0 survival within 3e-3 of the curve": surv_err[0.0] < 3e-3,
+        "cva(-0.6) < cva(0) < cva(0.6)":
+            results[-0.6].cva < r0.cva < results[0.6].cva,
+        "mc_cds_legs within 2e-3 relative + 2e-3 of cds_legs": all(
+            abs(m - a) < 2e-3 * abs(a) + 2e-3
+            for m, a in zip(legs_mc, legs_an)),
+    })
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: phase 31 failed: {failed}")
+    print(f"phase 31 seconds: {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+    return {f"phase 31 WWR CVA engine ({paths:,} paths, rho 0.6)":
+                engines[0.6].compute,
+            f"phase 31 CIR++ simulation ({paths:,} x 20 x 4)": simulate}
+
+
+def _xccy_model(dc_d, dc_f):
+    """``bench.py:2062-2066``'s cross-currency model."""
+    from finmath_tpu_torch.models.cross_currency import CrossCurrencyModel
+    from finmath_tpu_torch.models.hull_white import HullWhiteModel
+
+    return CrossCurrencyModel(HullWhiteModel(dc_d, 0.1, 0.01),
+                              HullWhiteModel(dc_f, 0.05, 0.008),
+                              fx_spot=1.25, fx_vol=0.10, rho_df=0.3,
+                              rho_dx=-0.2, rho_fx=0.25)
+
+
+def _cross_currency(torch, smi) -> dict:
+    """Phase 32: ``bench.py:2047 bench_cross_currency`` through the port (no
+    kernel): 1,000,000 antithetic paths over 20 semiannual steps, seed 5;
+    the 5Y FX options against the closed form, the 10Y CCS legs, the
+    martingale diagnostics, and ``tests/test_cross_currency.py``'s exposure
+    trades at that width. Returns the calls phase 6 profiles, by name."""
+    from finmath_tpu_torch.models.cross_currency import (
+        CCSTrade, CrossCurrencyExposureEngine, CrossCurrencySimulation,
+        FXForwardTrade)
+    from finmath_tpu_torch.models.curves import DiscountCurve
+    from finmath_tpu_torch.models.time_discretization import (
+        TimeDiscretization)
+
+    t_phase = time.perf_counter()
+    paths, x0 = XCCY_PATHS, 1.25
+    t_grid = np.arange(0.0, 31.0)
+    dc_d = DiscountCurve(t_grid, np.exp(-0.03 * t_grid))
+    dc_f = DiscountCurve(t_grid, np.exp(-0.01 * t_grid))
+    m = _xccy_model(dc_d, dc_f)
+    td = TimeDiscretization(initial=0.0, num_steps=20, step=0.5)
+
+    def simulate():
+        return CrossCurrencySimulation(m, td, num_paths=paths, seed=5,
+                                       antithetic=True, device="cuda")
+
+    s_cold_s, s_wall_s, sim = _walls(torch, simulate, 5)
+    strikes = [1.0, 1.25, 1.5]
+    o_cold_s, o_wall_s, (fwd, prices, se) = _walls(
+        torch, lambda: sim.mc_fx_option_prices(5.0, strikes), 5)
+    cf = [m.fx_option(5.0, kk) for kk in strikes]
+    pay10 = np.arange(1, 11) * 1.0
+    c_cold_s, c_wall_s, (dom, fgn) = _walls(
+        torch, lambda: sim.mc_ccs_legs(pay10), 5)
+    diag = sim.martingale_diagnostics(5.0, 10.0)
+    diag_err = {key: float(mc / an - 1.0) for key, (mc, an) in diag.items()}
+    # the exposure engine on the trades of tests/test_cross_currency.py
+    ccs10 = [CCSTrade(tuple(pay10))]
+    e_cold_s, e_wall_s, eng = _walls(
+        torch, lambda: CrossCurrencyExposureEngine(sim, ccs10), 5)
+    prof = eng.profile()
+    ee_err = {}
+    for t in (1.0, 5.0, 9.0):
+        i = list(prof.times).index(t)
+        ee_err[str(t)] = float(prof.ee[i] / (m.fx_option(t, x0) / x0) - 1.0)
+    fv_oracle = np.array([
+        0.0 if t >= 10.0 - 1e-9 else float(
+            dc_f.get_discount_factor(np.floor(t + 1e-9))
+            - dc_d.get_discount_factor(np.floor(t + 1e-9)))
+        for t in prof.times])
+    fv_err = float(np.max(np.abs(prof.forward_value - fv_oracle)))
+    decomposition = float(np.max(np.abs(prof.ee + prof.ene
+                                        - prof.forward_value)))
+    pay5 = tuple(np.arange(1, 6) * 1.0)
+    both = CrossCurrencyExposureEngine(
+        sim, [CCSTrade(pay5), CCSTrade(pay5, receive_foreign=False)]).profile()
+    fxf = CrossCurrencyExposureEngine(
+        sim, [FXForwardTrade(5.0, 1.3)]).profile()
+    live = fxf.times < 5.0 - 1e-9
+    fxf_err = float(np.max(np.abs(
+        fxf.forward_value[live]
+        - (x0 * float(dc_f.get_discount_factor(5.0))
+           - 1.3 * float(dc_d.get_discount_factor(5.0))))))
+    base = CrossCurrencyExposureEngine(sim, [CCSTrade(pay5)]).profile()
+    sprd = CrossCurrencyExposureEngine(
+        sim, [CCSTrade(pay5, foreign_basis=0.005)]).profile()
+    cva = eng.cva(0.01)
+    del sim
+    out = {
+        "paths": paths, "steps": 20,
+        "simulation_cold_ms": s_cold_s * 1e3,
+        "simulation_wall_ms": s_wall_s * 1e3,
+        "fx_option_cold_ms": o_cold_s * 1e3,
+        "fx_option_wall_ms": o_wall_s * 1e3,
+        "fx_options_5y": {str(kk): {"mc": float(p), "stderr": float(e),
+                                    "closed_form": c, "dev_se":
+                                    float((p - c) / e)}
+                          for kk, p, e, c in zip(strikes, prices, se, cf)},
+        "fx_forward_rel_err": float(fwd / m.fx_forward(5.0) - 1.0),
+        "ccs_cold_ms": c_cold_s * 1e3, "ccs_wall_ms": c_wall_s * 1e3,
+        "ccs_domestic_leg_par_dev": dom - 1.0,
+        "ccs_foreign_leg_par_dev": fgn / x0 - 1.0,
+        "martingale_rel_err_5y_10y": diag_err,
+        "exposure_cold_ms": e_cold_s * 1e3,
+        "exposure_wall_ms": e_wall_s * 1e3,
+        "ccs10_ee_rel_err_vs_fx_option": ee_err,
+        "ccs10_forward_value_max_err": fv_err,
+        "ee_plus_ene_minus_fv": decomposition,
+        "mirrored_pair_max_netted_ee": float(np.max(np.abs(both.ee))),
+        "fx_forward_value_max_err": fxf_err, "ccs10_cva_100bp": cva}
+    print(f"phase 32 cross-currency ({smi}): " + json.dumps(out), flush=True)
+    checks = {
+        "5Y FX options within 4.5 se + 1e-5 of fx_option": all(
+            abs(p - c) < 4.5 * e + 1e-5 for p, e, c in zip(prices, se, cf)),
+        "FX forward within 1e-3": abs(fwd / m.fx_forward(5.0) - 1.0) < 1e-3,
+        "CCS legs par within 5e-4":
+            abs(dom - 1.0) < 5e-4 and abs(fgn / x0 - 1.0) < 5e-4,
+        "martingale diagnostics within 6e-4":
+            all(abs(e) < 6e-4 for e in diag_err.values()),
+        "CCS EE within 6e-3 of fx_option(t, X0) / X0":
+            all(abs(e) < 6e-3 for e in ee_err.values()),
+        "CCS forward value within 8e-4": fv_err < 8e-4,
+        "EE + ENE = FV within 1e-12": decomposition < 1e-12,
+        "mirrored pair nets to zero EE within 1e-12":
+            bool(np.allclose(both.ee, 0.0, atol=1e-12)),
+        "FX forward value within 8e-4 while live": fxf_err < 8e-4,
+        "FX forward EE zero after expiry":
+            bool(np.allclose(fxf.ee[~live], 0.0)),
+        "a foreign basis raises EE":
+            bool(np.all(sprd.ee[:-1] >= base.ee[:-1] - 1e-12)
+                 and sprd.ee[0] > base.ee[0]),
+        "CVA positive": cva > 0.0,
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: phase 32 failed: {failed}")
+    print(f"phase 32 seconds: {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+    return {f"phase 32 cross-currency simulation ({paths:,} x 20)": simulate}
+
+
+def _inflation(torch, smi) -> dict:
+    """Phase 33: Jarrow-Yildirim, ``tests/test_inflation.py``'s ``make_jy()``
+    on the 20-step semiannual grid at 1,000,000 paths (the cross-currency
+    engine at ``bench_cross_currency``'s width; no kernel): the YoY
+    forwards, caplets and floorlets against the moment propagation, and a
+    ZCIS. Returns the calls phase 6 profiles, by name."""
+    from finmath_tpu_torch.models.curves import DiscountCurve
+    from finmath_tpu_torch.models.hull_white import HullWhiteModel
+    from finmath_tpu_torch.models.inflation import (
+        JarrowYildirimModel, JarrowYildirimSimulation)
+    from finmath_tpu_torch.models.time_discretization import (
+        TimeDiscretization)
+
+    t_phase = time.perf_counter()
+    paths = XCCY_PATHS
+    t_grid = np.arange(0.0, 21.0)
+    nom = HullWhiteModel(DiscountCurve(t_grid, np.exp(-0.03 * t_grid)),
+                         0.1, 0.01)
+    real = HullWhiteModel(DiscountCurve(t_grid, np.exp(-0.01 * t_grid)),
+                          0.2, 0.006)
+    jy = JarrowYildirimModel(nom, real, 100.0, 0.012, 0.3, 0.1, -0.3)
+    td = TimeDiscretization(initial=0.0, num_steps=20, step=0.5)
+
+    def simulate():
+        return JarrowYildirimSimulation(jy, td, num_paths=paths, seed=3,
+                                        device="cuda")
+
+    s_cold_s, s_wall_s, sim = _walls(torch, simulate, 5)
+    y_cold_s, y_wall_s, _ = _walls(
+        torch, lambda: sim.mc_yoy_forward(4.0, 5.0), 5)
+    k_cold_s, k_wall_s, _ = _walls(
+        torch, lambda: sim.mc_yoy_caplet(4.0, 5.0, 0.02), 5)
+    yoy = {}
+    for t1, t2 in ((4.0, 5.0), (9.0, 10.0)):
+        mc, se = sim.mc_yoy_forward(t1, t2)
+        naive = float(real.df(t2) / real.df(t1) * nom.df(t1) / nom.df(t2))
+        yoy[f"{t1}-{t2}"] = {"mc": mc, "stderr": se,
+                             "analytic": jy.yoy_forward(t1, t2),
+                             "naive": naive}
+    caps = {}
+    for kk in (0.01, 0.02, 0.04):
+        for is_cap in (True, False):
+            mc, se = sim.mc_yoy_caplet(4.0, 5.0, kk, is_caplet=is_cap)
+            caps[f"{'cap' if is_cap else 'floor'}let {kk}"] = {
+                "mc": mc, "stderr": se,
+                "analytic": jy.yoy_caplet(4.0, 5.0, kk, is_caplet=is_cap)}
+    zcis_mc = sim.mc_zcis_value(5.0, 0.01)
+    zcis_an = jy.zcis_value(5.0, 0.01)
+    del sim
+    out = {"paths": paths, "steps": 20,
+           "simulation_cold_ms": s_cold_s * 1e3,
+           "simulation_wall_ms": s_wall_s * 1e3,
+           "mc_yoy_forward_cold_ms": y_cold_s * 1e3,
+           "mc_yoy_forward_wall_ms": y_wall_s * 1e3,
+           "mc_yoy_caplet_cold_ms": k_cold_s * 1e3,
+           "mc_yoy_caplet_wall_ms": k_wall_s * 1e3,
+           "yoy_forwards": yoy, "yoy_caplets_4y_5y": caps,
+           "zcis_5y_1pct": {"mc": zcis_mc, "analytic": zcis_an}}
+    print(f"phase 33 Jarrow-Yildirim ({smi}): " + json.dumps(out),
+          flush=True)
+    checks = {
+        "YoY forwards within 4 se + 1e-6": all(
+            abs(v["analytic"] - v["mc"]) < 4 * v["stderr"] + 1e-6
+            for v in yoy.values()),
+        "YoY forwards closer than the naive ratio": all(
+            abs(v["analytic"] - v["mc"]) < abs(v["naive"] - v["mc"])
+            for v in yoy.values()),
+        "caplets and floorlets within 4 se + 1e-6": all(
+            abs(v["analytic"] - v["mc"]) < 4 * v["stderr"] + 1e-6
+            for v in caps.values()),
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: phase 33 failed: {failed}")
+    print(f"phase 33 seconds: {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+    return {f"phase 33 Jarrow-Yildirim simulation ({paths:,} x 20)":
+                simulate}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -2767,6 +3107,11 @@ def main(argv=None) -> int:
     # asset-LMM and the Hull-White slice (no kernel) ------------------------
     later = {**_exposure(torch, smi), **_smile(torch, smi),
              **_hybrid(torch, smi), **_hull_white(torch, smi)}
+
+    # -- 31-33: slice E2, credit with wrong-way risk, cross-currency and
+    # Jarrow-Yildirim inflation (no kernel) ---------------------------------
+    later.update({**_credit(torch, smi), **_cross_currency(torch, smi),
+                  **_inflation(torch, smi)})
 
     if opts.profile:
         _profile(torch, setup, kb, sv, sv_kb, later)

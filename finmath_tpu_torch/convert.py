@@ -13,8 +13,12 @@ time and realizations: ``random_variable_from_numpy`` and
 (its tuple of float64 beta vectors) applies in the port through
 ``betas_from_numpy``, a JAX ``BermudanSwaption`` becomes the port's
 through ``bermudan_swaption_from_jax``, and a (calibrated) JAX
-``HullWhiteModel`` the port's through ``hull_white_model_from_jax``
-(both read by attribute, without importing the JAX package).
+``HullWhiteModel`` the port's through ``hull_white_model_from_jax``,
+and a survival curve (bootstrapped there), a CIR++ intensity, a
+cross-currency and a Jarrow-Yildirim model through
+``survival_curve_from_jax``, ``cirpp_intensity_model_from_jax``,
+``cross_currency_model_from_jax`` and ``jarrow_yildirim_model_from_jax``
+(all read by attribute, without importing the JAX package).
 """
 
 from __future__ import annotations
@@ -119,3 +123,51 @@ def hull_white_model_from_jax(model):
     return HullWhiteModel(curve, float(model.a),
                           np.array(model.sigmas, dtype=np.float64),
                           np.array(model.vol_times, dtype=np.float64))
+
+
+def survival_curve_from_jax(curve):
+    """The port's ``SurvivalCurve`` with the hazard segments of another
+    package's (any object with ``.times``, ``.hazards`` and ``.name``)."""
+    from .models.credit import SurvivalCurve
+
+    return SurvivalCurve(np.array(curve.times, dtype=np.float64),
+                         np.array(curve.hazards, dtype=np.float64),
+                         name=getattr(curve, "name", "survivalCurve"))
+
+
+def cirpp_intensity_model_from_jax(model):
+    """The port's ``CIRPPIntensityModel`` with the survival curve and the
+    CIR parameters (``.curve``, ``.kappa``, ``.theta``, ``.sigma``,
+    ``.y0``) of another package's."""
+    from .models.credit import CIRPPIntensityModel
+
+    return CIRPPIntensityModel(survival_curve_from_jax(model.curve),
+                               float(model.kappa), float(model.theta),
+                               float(model.sigma), float(model.y0))
+
+
+def cross_currency_model_from_jax(model):
+    """The port's ``CrossCurrencyModel`` with the two Hull-White economies
+    (``.domestic``, ``.foreign``), the FX spot, volatility segments
+    (``.fx_spot``, ``.fx_vols``, ``.fx_vol_times``) and correlations
+    (``.rho_df``, ``.rho_dx``, ``.rho_fx``) of another package's."""
+    from .models.cross_currency import CrossCurrencyModel
+
+    return CrossCurrencyModel(
+        hull_white_model_from_jax(model.domestic),
+        hull_white_model_from_jax(model.foreign), float(model.fx_spot),
+        np.array(model.fx_vols, dtype=np.float64), float(model.rho_df),
+        float(model.rho_dx), float(model.rho_fx),
+        fx_vol_times=np.array(model.fx_vol_times, dtype=np.float64))
+
+
+def jarrow_yildirim_model_from_jax(model):
+    """The port's ``JarrowYildirimModel`` of another package's (its
+    cross-currency form ``.xccy``, the real economy as foreign and the CPI
+    as the FX rate, and ``.cpi0``)."""
+    from .models.inflation import JarrowYildirimModel
+
+    x = cross_currency_model_from_jax(model.xccy)
+    return JarrowYildirimModel(x.domestic, x.foreign, float(model.cpi0),
+                               x.fx_vols, x.rho_df, x.rho_dx, x.rho_fx,
+                               cpi_vol_times=x.fx_vol_times)

@@ -48,6 +48,29 @@ from .tarn import (
     TargetRedemptionNote,
     inverse_floater_value,
 )
+from .cross_currency import (
+    CCSTrade,
+    CrossCurrencyExposureEngine,
+    CrossCurrencyModel,
+    CrossCurrencySimulation,
+    FXForwardTrade,
+)
+from .credit import (
+    CIRPPIntensityModel,
+    CIRPPSimulation,
+    SurvivalCurve,
+    WrongWayRiskCVAEngine,
+    WWRCVAResult,
+    bootstrap_survival_curve,
+    cds_legs,
+    cds_par_spread,
+    cds_value,
+    par_swap_rate,
+)
+from .inflation import (
+    JarrowYildirimModel,
+    JarrowYildirimSimulation,
+)
 
 __all__ = [
     "TimeDiscretization",
@@ -84,4 +107,21 @@ __all__ = [
     "hw_bermudan_swaption_pde",
     "TargetRedemptionNote",
     "inverse_floater_value",
+    "CCSTrade",
+    "CrossCurrencyExposureEngine",
+    "CrossCurrencyModel",
+    "CrossCurrencySimulation",
+    "FXForwardTrade",
+    "CIRPPIntensityModel",
+    "CIRPPSimulation",
+    "SurvivalCurve",
+    "WrongWayRiskCVAEngine",
+    "WWRCVAResult",
+    "bootstrap_survival_curve",
+    "cds_legs",
+    "cds_par_spread",
+    "cds_value",
+    "par_swap_rate",
+    "JarrowYildirimModel",
+    "JarrowYildirimSimulation",
 ]

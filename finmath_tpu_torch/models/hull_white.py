@@ -231,6 +231,35 @@ def _hw_paths(z1: torch.Tensor, z2: torch.Tensor, coef: torch.Tensor):
     return xs, ys
 
 
+def _normal_block(gen, shape, antithetic: bool, device) -> torch.Tensor:
+    """Standard float32 normals ``shape`` (last axis: paths), drawn as half
+    the paths and mirrored ``[z, -z]`` along the last axis when
+    antithetic."""
+    if not antithetic:
+        return torch.randn(shape, generator=gen, dtype=FLOAT_DTYPE,
+                           device=device)
+    z = torch.randn((*shape[:-1], shape[-1] // 2), generator=gen,
+                    dtype=FLOAT_DTYPE, device=device)
+    return torch.cat([z, -z], dim=-1)
+
+
+def _f64(values, device) -> torch.Tensor:
+    """Host values as a float64 tensor on ``device``."""
+    return torch.as_tensor(np.asarray(values, dtype=np.float64),
+                           device=device)
+
+
+def _injected(z, shape, device, what: str,
+              dtype=FLOAT_DTYPE) -> torch.Tensor:
+    """A caller's block as ``dtype`` on ``device``, checked to be
+    ``shape``."""
+    z = torch.as_tensor(z, dtype=dtype).to(device)
+    if tuple(z.shape) != tuple(shape):
+        raise ValueError(f"{what} of shape {tuple(z.shape)}; need "
+                         f"{list(shape)}")
+    return z
+
+
 class HullWhiteSimulation:
     """Exact Monte-Carlo simulation of the Hull-White model on a time
     grid: pathwise short rate, zero bonds (affine reconstitution) and the
@@ -280,24 +309,14 @@ class HullWhiteSimulation:
         coef = torch.as_tensor(
             np.stack([np.exp(-a * dts), _b(a, dts), lx, lyx, ly]).astype(
                 np.float32), device=self.device)
-        steps, dev = dts.size, self.device
+        shape, dev = (dts.size, self.num_paths), self.device
         if normals is None:
-            half = self.num_paths // 2 if self.antithetic else self.num_paths
             gen = torch.Generator(device=dev).manual_seed(self.seed)
-            z1, z2 = (torch.randn((steps, half), generator=gen,
-                                  dtype=FLOAT_DTYPE, device=dev)
+            z1, z2 = (_normal_block(gen, shape, self.antithetic, dev)
                       for _ in range(2))
-            if self.antithetic:
-                z1 = torch.cat([z1, -z1], dim=1)
-                z2 = torch.cat([z2, -z2], dim=1)
         else:
-            z1, z2 = (torch.as_tensor(z, dtype=FLOAT_DTYPE).to(dev)
-                      for z in normals)
-            if z1.shape != (steps, self.num_paths) or z2.shape != z1.shape:
-                raise ValueError(
-                    f"normals of shapes {tuple(z1.shape)}, "
-                    f"{tuple(z2.shape)}; need two [{steps}, "
-                    f"{self.num_paths}] blocks")
+            z1, z2 = (_injected(z, shape, dev, f"normals z{i}")
+                      for i, z in enumerate(normals, 1))
         self._xs, self._ys = _hw_paths(z1, z2, coef)
         # deterministic state at the grid points (host float64)
         st = np.array([model.gaussian_state(t) for t in times])
@@ -363,8 +382,7 @@ class HullWhiteSimulation:
         return torch.exp(-self._ys[i].to(ACC_DTYPE) - float(self._a_int[i]))
 
     def _f64(self, values) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(values, dtype=np.float64),
-                               device=self.device)
+        return _f64(values, self.device)
 
     def mc_bond_price(self, maturity: float) -> float:
         """E[1/N(T)]: reproduces the input curve (martingale)."""
