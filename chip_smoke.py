@@ -223,15 +223,43 @@ Phases, one line of output each (more for the kernel builds), in order:
     paths over 20 semiannual steps (no kernel): the YoY forwards, caplets
     and floorlets within 4 standard errors of the moment propagation, the
     forwards closer than the naive ratio, a ZCIS; the walls;
+34. ``bench.py:1676 bench_exotics``' single-asset legs (no kernel): the
+    1M x 250 Black-Scholes facade on the port's torch stream (S0 100, r
+    5%, sigma 30%, T 1, seed 42); the digital at 105 within 4 standard
+    errors + 1e-4 of the closed form, the 12-date Asian plain and with the
+    geometric control variate (within 4 plain standard errors of each
+    other, the error cut at least 5x), the bridge up-and-out (100, 130)
+    within 4 standard errors + 1e-3 of the continuous closed form, the
+    floating lookback call inside ``tests/test_equity_products.py``'s BGK
+    band, the 20-product book of ``bench.py:1754-1763`` through
+    ``price_portfolio`` equal to the serial loop within 1e-12; each call's
+    walls (a cold one, then the min of 3) and the peak device memory;
+35. ``bench.py:1781-1806``: three correlated assets, 1M paths x 30 steps
+    to T 1.5, seed 11; the exchange within 4 standard errors of Margrabe,
+    the call on the minimum of the first two within 4 of Stulz, the
+    geometric-CV basket printed; the walls;
+36. ``american_ls_put_1m_x50`` (``bench.py:1662-1672``: 1M x 50, K 110,
+    seed 77) against CRR at 4,000 steps under ``tests/test_american.py``'s
+    bounds; the delta hedge of the 105 call on phase 34's facade
+    (|value - premium| < 0.25) and the variance swap's fair strike within
+    4 sigma^2 sqrt(2 dt) of sigma^2; the walls;
+37. the forward-start, cliquet, compound, chooser and two-date express
+    autocallable at 1M paths x 50 steps (seed 21) within 4 standard errors
+    of their closed forms (the JAX tests' wider bounds for the chooser and
+    the autocallable); importance sampling at 3x spot (1M paths, seed 13)
+    within 4 standard errors of Black-Scholes, its standard-error reduction
+    printed; ``mlmc_lookback_call`` at eps 0.03 within 2.5 eps of the
+    continuous closed form, its levels, samples and walls;
 6. with ``--profile`` only, last: device operations and busy time under
    ``torch.profiler`` for one ATM calibration, one engine Jacobian, one
    ATM kernel residual call, one stoch-vol kernel
    ``residuals_and_jacobian`` call and one reduced-path stoch-vol engine
-   Jacobian, and for phases 25-33 one swap and one 20-trade profile, one
+   Jacobian, and for phases 25-37 one swap and one 20-trade profile, one
    CVA ladder, one mixed-set profile, one IM profile, one SABR smile, the
    hybrid's and Hull-White's calls, one WWR CVA and one CIR++ simulation,
-   one cross-currency and one Jarrow-Yildirim simulation, each against the
-   same call's unprofiled wall.
+   one cross-currency and one Jarrow-Yildirim simulation, and phases
+   34-37's book, bridge barrier, multi-asset simulation, LS put, delta
+   hedge and MLMC run, each against the same call's unprofiled wall.
 
 Then the whole script's seconds, one JSON line with the eight kernels'
 numbers (``bound_ms`` is the least time of the same work on an
@@ -289,6 +317,12 @@ HYBRID_PATHS, HW_PATHS = 100_000, 1_000_000
 # bench.py:1937 bench_credit_wwr's paths (phase 31) and bench.py:2047
 # bench_cross_currency's (phases 32-33)
 CREDIT_PATHS, XCCY_PATHS = 500_000, 1_000_000
+# bench.py:1676 bench_exotics' 1M x 250 Black-Scholes facade (phases 34,
+# 36), its three-asset 1M x 30 facade (35), bench_model_zoo's
+# american_ls_put_1m_x50 (36), the 1M-path structured products, importance
+# sampling and the MLMC accuracy of phase 37
+EXOTIC_PATHS, EXOTIC_STEPS, MULTI_PATHS = 1_000_000, 250, 1_000_000
+AMERICAN_PATHS, STRUCTURED_PATHS, MLMC_EPS = 1_000_000, 1_000_000, 0.03
 # the published H100 SXM peaks the bound is taken against
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 SPIN_CYCLES = 2_000_000       # about 1 ms of the card's clock
@@ -544,7 +578,7 @@ def _profile(torch, setup, kb, sv, sv_kb, later) -> None:
     calibration, of one call of each of its device stages, of one
     stoch-vol kernel ``residuals_and_jacobian`` call, of one call of
     the stoch-vol multistart's dominant stage, the reduced-path engine
-    Jacobian, and of the calls ``later`` names (phases 25-33). Each is
+    Jacobian, and of the calls ``later`` names (phases 25-37). Each is
     run once unprofiled (host wall, synchronised) and once under
     ``torch.profiler``; the device events of the profiled run (kernels,
     copies, memsets) give the device operation count and busy time, set
@@ -2683,6 +2717,343 @@ def _inflation(torch, smi) -> dict:
                 simulate}
 
 
+def _named_walls(torch, walls):
+    """A function ``timed(name, fn)`` that runs ``fn`` as ``_walls`` does
+    (a cold call, then the min of 3), records its cold and warm
+    milliseconds in ``walls[name]`` and returns its last result."""
+    def timed(name, fn):
+        cold, warm, out = _walls(torch, fn, 3)
+        walls[name] = {"cold_ms": cold * 1e3, "wall_ms": warm * 1e3}
+        return out
+    return timed
+
+
+def _equity_exotics(torch, smi):
+    """Phase 34: ``bench.py:1676 bench_exotics``' single-asset legs through
+    the port (no kernel): the 1M x 250 Black-Scholes facade (S0 100, r 5%,
+    sigma 30%, T 1, seed 42, the port's torch stream); the digital at 105,
+    the 12-date Asian plain and with the geometric control variate, the
+    bridge up-and-out (100, 130), the floating lookback call, and the
+    20-product book of ``bench.py:1754-1763`` through ``price_portfolio``
+    against the serial loop. Returns the facade (phase 36 hedges on it) and
+    the calls phase 6 profiles, by name."""
+    import math
+
+    from finmath_tpu_torch.models import (AsianOption, BarrierOption,
+                                          DigitalOption, LookbackOption,
+                                          price_portfolio)
+    from finmath_tpu_torch.models.analytic import (
+        barrier_option_value, digital_option_value,
+        lookback_floating_strike_value)
+    from finmath_tpu_torch.models.black_scholes import (
+        BlackScholesModel, EuropeanOption, MonteCarloBlackScholesModel)
+    from finmath_tpu_torch.models.time_discretization import (
+        TimeDiscretization)
+
+    t_phase = time.perf_counter()
+    s0, r, sig, t, n = 100.0, 0.05, 0.3, 1.0, EXOTIC_STEPS
+    dt = t / n
+    td = TimeDiscretization(initial=0.0, num_steps=n, step=dt)
+    torch.cuda.reset_peak_memory_stats()
+
+    def simulate():
+        sim = MonteCarloBlackScholesModel(
+            td, EXOTIC_PATHS, BlackScholesModel(s0, r, sig), seed=42,
+            device="cuda")
+        sim.process._lazy_states()
+        return sim
+
+    walls = {}
+    timed = _named_walls(torch, walls)
+
+    sim = timed("simulation", simulate)
+    vd, ed = timed("digital", lambda: DigitalOption(t, 105.0)
+                   .get_value_and_error(sim))
+    dates = [round((i + 1) * t / 12 / dt) * dt for i in range(12)]
+    vp, ep = timed("asian", lambda: AsianOption(dates, 100.0)
+                   .get_value_and_error(sim))
+    vc, ec = timed("asian_cv", lambda: AsianOption(
+        dates, 100.0, control_variate="geometric").get_value_and_error(sim))
+    vb, eb = timed("barrier_bridge", lambda: BarrierOption(
+        t, 100.0, 130.0, "up-out", monitoring="bridge")
+        .get_value_and_error(sim))
+    vl, el = timed("lookback", lambda: LookbackOption(t, "floating-call")
+                   .get_value_and_error(sim))
+    book = [EuropeanOption(t, 85.0 + 5.0 * i, is_call=i % 2 == 0)
+            for i in range(8)]
+    book += [DigitalOption(t, 95.0 + 5.0 * i) for i in range(4)]
+    book += [AsianOption(dates, 90.0 + 10.0 * i) for i in range(3)]
+    book += [BarrierOption(t, 100.0, 125.0 + 10.0 * i, "up-out")
+             for i in range(3)]
+    book += [LookbackOption(t, "floating-call"),
+             LookbackOption(t, "fixed-put", strike=100.0)]
+    port = timed("portfolio_20", lambda: price_portfolio(sim, book))
+    serial = timed("serial_20", lambda: [p.get_value_and_error(sim)
+                                         for p in book])
+    peak = torch.cuda.max_memory_allocated()
+    an_d = digital_option_value(s0, r, sig, t, 105.0)
+    an_b = barrier_option_value(s0, r, sig, t, 100.0, 130.0, "up-out")
+    an_l = lookback_floating_strike_value(s0, r, sig, t, True)
+    bgk = 0.5826 * sig * math.sqrt(dt)
+    book_gap = max(max(abs(a - b), abs(ea - eb))
+                   for (a, ea), (b, eb) in zip(port, serial))
+    out = {"paths": EXOTIC_PATHS, "steps": n,
+           "digital_105": {"value": vd, "stderr": ed, "closed_form": an_d},
+           "asian_12": {"plain": vp, "plain_stderr": ep, "cv": vc,
+                        "cv_stderr": ec, "stderr_reduction": ep / ec},
+           "barrier_bridge_up_out": {"value": vb, "stderr": eb,
+                                     "continuous_closed_form": an_b},
+           "lookback_floating_call": {"value": vl, "stderr": el,
+                                      "continuous_closed_form": an_l,
+                                      "bgk_band": 2.5 * bgk * s0},
+           "portfolio_20_max_gap_to_serial": book_gap,
+           "walls": walls, "max_memory_allocated_gb": peak / 1e9}
+    print(f"phase 34 equity exotics ({smi}): " + json.dumps(out), flush=True)
+    checks = {
+        "digital within 4 se + 1e-4": abs(vd - an_d) < 4 * ed + 1e-4,
+        "Asian plain and CV within 4 plain se": abs(vp - vc) < 4 * ep,
+        "Asian CV cuts the error 5x": ep / ec >= 5.0,
+        "bridge barrier within 4 se + 1e-3": abs(vb - an_b) < 4 * eb + 1e-3,
+        "lookback inside the BGK band":
+            an_l - 2.5 * bgk * s0 - 4 * el < vl < an_l + 4 * el,
+        "price_portfolio equals the serial loop within 1e-12":
+            book_gap < 1e-12,
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: phase 34 failed: {failed}")
+    print(f"phase 34 seconds: {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+    return sim, {
+        f"phase 34 price_portfolio, 20 products ({EXOTIC_PATHS:,} x {n})":
+            lambda: price_portfolio(sim, book),
+        f"phase 34 bridge barrier ({EXOTIC_PATHS:,} x {n})":
+            lambda: BarrierOption(t, 100.0, 130.0, "up-out",
+                                  monitoring="bridge").get_value_and_error(
+                sim)}
+
+
+def _multi_asset(torch, smi) -> dict:
+    """Phase 35: ``bench.py:1781-1806`` through the port (no kernel): three
+    correlated assets (S0 100, 95, 105; vols 25%, 35%, 20%), 1M paths x 30
+    steps to T 1.5, seed 11; the exchange against Margrabe, the call on the
+    minimum of the first two against Stulz, the geometric-CV basket.
+    Returns the calls phase 6 profiles, by name."""
+    from finmath_tpu_torch.models.multi_asset import (
+        BasketOption, ExchangeOption, MonteCarloMultiAssetBlackScholesModel,
+        MultiAssetBlackScholesModel, RainbowOption, margrabe_exchange_value,
+        stulz_rainbow_value)
+    from finmath_tpu_torch.models.time_discretization import (
+        TimeDiscretization)
+
+    t_phase = time.perf_counter()
+    s0v, vols, r, t = [100.0, 95.0, 105.0], [0.25, 0.35, 0.2], 0.05, 1.5
+    corr = [[1.0, 0.4, 0.2], [0.4, 1.0, 0.5], [0.2, 0.5, 1.0]]
+    td = TimeDiscretization(initial=0.0, num_steps=30, step=t / 30)
+    model = MultiAssetBlackScholesModel(s0v, r, vols, corr)
+    walls = {}
+    timed = _named_walls(torch, walls)
+
+    def simulate():
+        sim = MonteCarloMultiAssetBlackScholesModel(
+            td, MULTI_PATHS, model, seed=11, device="cuda")
+        sim.process._lazy_states()
+        return sim
+
+    sim = timed("simulation", simulate)
+    exchange = ExchangeOption(t, 0, 1)
+    rainbow = RainbowOption(t, 100.0, "call-on-min", asset_indices=[0, 1])
+    basket = BasketOption(t, [0.4, 0.3, 0.3], 100.0,
+                          control_variate="geometric")
+    vx, ex = timed("exchange", lambda: exchange.get_value_and_error(sim))
+    vr, er = timed("rainbow_min", lambda: rainbow.get_value_and_error(sim))
+    vb, eb = timed("basket_cv", lambda: basket.get_value_and_error(sim))
+    _, eb_plain = BasketOption(t, [0.4, 0.3, 0.3], 100.0) \
+        .get_value_and_error(sim)
+    an_x = margrabe_exchange_value(s0v[0], s0v[1], vols[0], vols[1], 0.4, t)
+    an_r = stulz_rainbow_value(s0v[0], s0v[1], r, vols[0], vols[1], 0.4, t,
+                               100.0, "call-on-min")
+    out = {"paths": MULTI_PATHS, "steps": 30, "assets": 3,
+           "exchange": {"value": vx, "stderr": ex, "margrabe": an_x},
+           "rainbow_call_on_min": {"value": vr, "stderr": er, "stulz": an_r},
+           "basket_cv": {"value": vb, "stderr": eb,
+                         "plain_stderr": eb_plain},
+           "walls": walls}
+    print(f"phase 35 multi-asset ({smi}): " + json.dumps(out), flush=True)
+    checks = {"exchange within 4 se of Margrabe": abs(vx - an_x) < 4 * ex,
+              "call-on-min within 4 se of Stulz": abs(vr - an_r) < 4 * er,
+              "basket CV finite": all(map(np.isfinite, (vb, eb)))}
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: phase 35 failed: {failed}")
+    print(f"phase 35 seconds: {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+    return {f"phase 35 multi-asset simulation ({MULTI_PATHS:,} x 3 x 30)":
+                simulate}
+
+
+def _american_hedging(torch, smi, sim) -> dict:
+    """Phase 36: ``bench.py:1662-1672``'s ``american_ls_put_1m_x50`` (1M
+    paths x 50 steps, K 110 put, seed 77) against CRR at 4,000 steps, and
+    ``bench.py:1855-1866``'s delta hedge (call 105) and variance swap on
+    phase 34's 1M x 250 facade ``sim`` (no kernel). Returns the calls
+    phase 6 profiles, by name."""
+    import math
+
+    from finmath_tpu_torch.models.american import (BermudanOption,
+                                                   crr_american_price)
+    from finmath_tpu_torch.models.black_scholes import (
+        BlackScholesModel, MonteCarloBlackScholesModel)
+    from finmath_tpu_torch.models.hedging import (DeltaHedgedPortfolio,
+                                                  VarianceSwap)
+    from finmath_tpu_torch.models.time_discretization import (
+        TimeDiscretization)
+
+    t_phase = time.perf_counter()
+    walls = {}
+    timed = _named_walls(torch, walls)
+
+    sim50 = MonteCarloBlackScholesModel(
+        TimeDiscretization(initial=0.0, num_steps=50, step=0.02),
+        AMERICAN_PATHS, BlackScholesModel(100.0, 0.05, 0.3), seed=77,
+        device="cuda")
+    put = BermudanOption([i * 0.02 for i in range(1, 51)], 110.0,
+                         is_call=False)
+    v, err = timed("american_ls_put", lambda: put.get_value_and_error(sim50))
+    t0 = time.perf_counter()
+    crr = crr_american_price(100.0, 0.05, 0.3, 1.0, 110.0, is_call=False,
+                             num_steps=4000)
+    crr_s = time.perf_counter() - t0
+    hedge = DeltaHedgedPortfolio(1.0, 105.0)
+    res = timed("delta_hedge", lambda: hedge.simulate(sim))
+    swap = VarianceSwap(1.0)
+    k = timed("variance_swap_fair_strike", lambda: swap.fair_strike(sim))
+    sig, dt = 0.3, 1.0 / EXOTIC_STEPS
+    out = {"american_ls_put_1m_x50": {"paths": AMERICAN_PATHS, "value": v,
+                                      "stderr": err, "crr_4000": crr,
+                                      "crr_host_s": crr_s},
+           "delta_hedge": {**res, "replication_dev":
+                           res["value"] - res["premium"]},
+           "variance_swap": {"fair_strike": k, "dev_vs_sigma2": k - sig ** 2,
+                             "bound": 4 * sig ** 2 * math.sqrt(2 * dt)},
+           "walls": walls}
+    print(f"phase 36 American and hedging ({smi}): " + json.dumps(out),
+          flush=True)
+    checks = {
+        "LS put below CRR + 3 se": v < crr + 3 * err,
+        "LS put above CRR - max(5 se, 1.5%)":
+            v > crr - max(5 * err, 0.015 * crr),
+        "|hedge value - premium| < 0.25":
+            abs(res["value"] - res["premium"]) < 0.25,
+        "variance swap within 4 sigma^2 sqrt(2 dt) of sigma^2":
+            abs(k - sig ** 2) < 4 * sig ** 2 * math.sqrt(2 * dt),
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: phase 36 failed: {failed}")
+    print(f"phase 36 seconds: {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+    return {f"phase 36 LS put ({AMERICAN_PATHS:,} x 50)":
+                lambda: put.get_value_and_error(sim50),
+            f"phase 36 delta hedge ({EXOTIC_PATHS:,} x {EXOTIC_STEPS})":
+                lambda: hedge.simulate(sim)}
+
+
+def _structured_is_mlmc(torch, smi) -> dict:
+    """Phase 37 (no kernel): the structured products of
+    ``tests/test_structured_products.py`` at 1M paths x 50 steps (S0 100,
+    r 5%, sigma 30%, T 1, seed 21) against their closed forms;
+    ``bench.py:1819-1829``'s importance sampling at 3x spot (seed 13, 1M
+    paths) against Black-Scholes; ``mlmc_lookback_call`` at eps 0.03
+    against the continuous closed form. Returns the calls phase 6
+    profiles, by name."""
+    from finmath_tpu_torch.models.analytic import (
+        black_scholes_option_value, lookback_floating_strike_value)
+    from finmath_tpu_torch.models.black_scholes import (
+        BlackScholesModel, MonteCarloBlackScholesModel)
+    from finmath_tpu_torch.models.importance_sampling import (
+        mc_european_price_importance_sampled)
+    from finmath_tpu_torch.models.mlmc import mlmc_lookback_call
+    from finmath_tpu_torch.models.structured_products import (
+        AutocallableNote, ChooserOption, CliquetOption, CompoundOption,
+        ForwardStartOption, autocallable_value_single_observation,
+        chooser_option_value, cliquet_option_value, compound_option_value,
+        forward_start_option_value)
+    from finmath_tpu_torch.models.time_discretization import (
+        TimeDiscretization)
+
+    t_phase = time.perf_counter()
+    s0, r, sig, t = 100.0, 0.05, 0.3, 1.0
+    walls = {}
+    timed = _named_walls(torch, walls)
+
+    sim = MonteCarloBlackScholesModel(
+        TimeDiscretization(initial=0.0, num_steps=50, step=t / 50),
+        STRUCTURED_PATHS, BlackScholesModel(s0, r, sig), seed=21,
+        device="cuda")
+    resets = [0.2, 0.4, 0.6, 0.8, 1.0]
+    cases = {
+        "forward_start": (ForwardStartOption(0.4, t, 1.05),
+                          forward_start_option_value(s0, r, sig, 0.4, t,
+                                                     1.05), 0.0),
+        "cliquet": (CliquetOption(resets, -0.05, 0.08),
+                    cliquet_option_value(r, sig, resets, -0.05, 0.08), 0.0),
+        "compound": (CompoundOption(0.5, 5.0, t, 100.0),
+                     compound_option_value(s0, r, sig, 0.5, 5.0, t, 100.0),
+                     0.0),
+        "chooser": (ChooserOption(0.5, t, 100.0),
+                    chooser_option_value(s0, r, sig, 0.5, t, 100.0), 1e-3),
+        "express_autocall": (
+            AutocallableNote([0.5, t], [105.0, 100.0], [0.05, 0.08], 70.0),
+            autocallable_value_single_observation(
+                s0, r, sig, 0.5, t, 105.0, 0.05, 100.0, 0.08, 70.0), None),
+    }
+    structured = {}
+    for name, (product, an, rel) in cases.items():
+        v, e = timed(name, lambda p=product: p.get_value_and_error(sim))
+        # 4 standard errors, or the JAX tests' wider bound
+        bound = 4 * e + (1e-4 if rel is None else rel * an)
+        structured[name] = {"value": v, "stderr": e, "closed_form": an,
+                            "bound": bound}
+    k = 3.0 * s0
+    vi, ei = timed("importance_sampling_3x", lambda:
+                   mc_european_price_importance_sampled(
+                       13, STRUCTURED_PATHS, s0, r, sig, t, k,
+                       device="cuda"))
+    _, e_plain = mc_european_price_importance_sampled(
+        13, STRUCTURED_PATHS, s0, r, sig, t, k, drift_shift=0.0,
+        device="cuda")
+    an_is = black_scholes_option_value(s0, r, sig, t, k)
+    res = timed(f"mlmc_eps_{MLMC_EPS}", lambda: mlmc_lookback_call(
+        s0, r, sig, t, eps=MLMC_EPS, device="cuda"))
+    an_l = lookback_floating_strike_value(s0, r, sig, t, True)
+    out = {"paths": STRUCTURED_PATHS, "structured": structured,
+           "importance_sampling_3x": {"value": vi, "stderr": ei,
+                                      "black_scholes": an_is,
+                                      "stderr_reduction": e_plain / ei},
+           "mlmc": {"eps": MLMC_EPS, "value": res.value,
+                    "stderr": res.stderr, "closed_form": an_l,
+                    "levels": res.levels, "samples": res.samples,
+                    "total_fine_steps": res.total_fine_steps},
+           "walls": walls}
+    print(f"phase 37 structured, importance sampling, MLMC ({smi}): "
+          + json.dumps(out), flush=True)
+    checks = {f"{name} within its bound": abs(c["value"] - c["closed_form"])
+              < c["bound"] for name, c in structured.items()}
+    checks.update({
+        "importance sampling within 4 se": abs(vi - an_is) < 4 * ei,
+        "MLMC within 2.5 eps": abs(res.value - an_l) < 2.5 * MLMC_EPS,
+    })
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: phase 37 failed: {failed}")
+    print(f"phase 37 seconds: {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+    return {f"phase 37 MLMC lookback (eps {MLMC_EPS})":
+                lambda: mlmc_lookback_call(s0, r, sig, t, eps=MLMC_EPS,
+                                           device="cuda")}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -3112,6 +3483,12 @@ def main(argv=None) -> int:
     # Jarrow-Yildirim inflation (no kernel) ---------------------------------
     later.update({**_credit(torch, smi), **_cross_currency(torch, smi),
                   **_inflation(torch, smi)})
+
+    # -- 34-37: slice E3, the equity core on Black-Scholes (no kernel) -----
+    exotic_sim, exotic_calls = _equity_exotics(torch, smi)
+    later.update({**exotic_calls, **_multi_asset(torch, smi),
+                  **_american_hedging(torch, smi, exotic_sim),
+                  **_structured_is_mlmc(torch, smi)})
 
     if opts.profile:
         _profile(torch, setup, kb, sv, sv_kb, later)

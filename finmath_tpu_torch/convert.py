@@ -17,8 +17,12 @@ through ``bermudan_swaption_from_jax``, and a (calibrated) JAX
 and a survival curve (bootstrapped there), a CIR++ intensity, a
 cross-currency and a Jarrow-Yildirim model through
 ``survival_curve_from_jax``, ``cirpp_intensity_model_from_jax``,
-``cross_currency_model_from_jax`` and ``jarrow_yildirim_model_from_jax``
-(all read by attribute, without importing the JAX package).
+``cross_currency_model_from_jax`` and ``jarrow_yildirim_model_from_jax``;
+a Black-Scholes and a multi-asset Black-Scholes model through
+``black_scholes_model_from_jax`` and ``multi_asset_model_from_jax``, and
+an equity product (the exotics, rainbows, Bermudan, structured products,
+hedge and variance swap) through ``equity_product_from_jax`` (all read by
+attribute, without importing the JAX package).
 """
 
 from __future__ import annotations
@@ -171,3 +175,59 @@ def jarrow_yildirim_model_from_jax(model):
     return JarrowYildirimModel(x.domestic, x.foreign, float(model.cpi0),
                                x.fx_vols, x.rho_df, x.rho_dx, x.rho_fx,
                                cpi_vol_times=x.fx_vol_times)
+
+
+def black_scholes_model_from_jax(model):
+    """The port's ``BlackScholesModel`` with the spot, rate and volatility
+    (``.initial_value``, ``.risk_free_rate``, ``.volatility``) of another
+    package's."""
+    from .models.black_scholes import BlackScholesModel
+
+    return BlackScholesModel(float(model.initial_value),
+                             float(model.risk_free_rate),
+                             float(model.volatility))
+
+
+def multi_asset_model_from_jax(model):
+    """The port's ``MultiAssetBlackScholesModel`` with the spots, rate,
+    volatilities and correlation matrix of another package's."""
+    from .models.multi_asset import MultiAssetBlackScholesModel
+
+    return MultiAssetBlackScholesModel(
+        [float(s) for s in model.initial_values], float(model.risk_free_rate),
+        [float(v) for v in model.volatilities],
+        np.array(model.correlation, dtype=np.float64))
+
+
+#: the equity products ``equity_product_from_jax`` maps, by class name
+_EQUITY_PRODUCTS = {
+    "equity_products": ("DigitalOption", "AsianOption", "BarrierOption",
+                        "LookbackOption"),
+    "multi_asset": ("ExchangeOption", "RainbowOption", "BasketOption",
+                    "SpreadOption"),
+    "american": ("BermudanOption",),
+    "structured_products": ("ForwardStartOption", "CliquetOption",
+                            "CompoundOption", "ChooserOption",
+                            "AutocallableNote"),
+    "hedging": ("DeltaHedgedPortfolio", "VarianceSwap"),
+    "black_scholes": ("EuropeanOption",),
+}
+
+
+def equity_product_from_jax(product):
+    """The port's product of the same class name with the same attributes
+    as another package's (its terms: floats, lists, flags and names)."""
+    import importlib
+
+    name = type(product).__name__
+    for module, names in _EQUITY_PRODUCTS.items():
+        if name in names:
+            cls = getattr(importlib.import_module(
+                f"{__package__}.models.{module}"), name)
+            break
+    else:
+        raise ValueError(f"no equity product of the port is named {name!r}")
+    out = cls.__new__(cls)
+    out.__dict__.update({k: list(v) if isinstance(v, list) else v
+                         for k, v in vars(product).items()})
+    return out

@@ -10,6 +10,44 @@ from .calibration import (
     LevenbergMarquardt,
     LMResult,
 )
+from .american import (
+    BermudanOption,
+    crr_american_price,
+)
+from .equity_products import (
+    AsianOption,
+    BarrierOption,
+    DigitalOption,
+    LookbackOption,
+    price_portfolio,
+)
+from .structured_products import (
+    AutocallableNote,
+    ChooserOption,
+    CliquetOption,
+    CompoundOption,
+    ForwardStartOption,
+    autocallable_value_single_observation,
+)
+from .mlmc import (
+    MLMCResult,
+    mlmc_lookback_call,
+)
+from .importance_sampling import (
+    mc_european_price_importance_sampled,
+)
+from .hedging import (
+    DeltaHedgedPortfolio,
+    VarianceSwap,
+)
+from .multi_asset import (
+    BasketOption,
+    ExchangeOption,
+    MonteCarloMultiAssetBlackScholesModel,
+    MultiAssetBlackScholesModel,
+    RainbowOption,
+    SpreadOption,
+)
 from .sabr import (
     SABRCalibrationResult,
     SABRParams,
@@ -81,6 +119,30 @@ __all__ = [
     "BatchedLevenbergMarquardt",
     "LevenbergMarquardt",
     "LMResult",
+    "BermudanOption",
+    "crr_american_price",
+    "AsianOption",
+    "BarrierOption",
+    "DigitalOption",
+    "LookbackOption",
+    "price_portfolio",
+    "AutocallableNote",
+    "ChooserOption",
+    "CliquetOption",
+    "CompoundOption",
+    "ForwardStartOption",
+    "autocallable_value_single_observation",
+    "MLMCResult",
+    "mlmc_lookback_call",
+    "mc_european_price_importance_sampled",
+    "DeltaHedgedPortfolio",
+    "VarianceSwap",
+    "BasketOption",
+    "ExchangeOption",
+    "MonteCarloMultiAssetBlackScholesModel",
+    "MultiAssetBlackScholesModel",
+    "RainbowOption",
+    "SpreadOption",
     "SABRCalibrationResult",
     "SABRParams",
     "calibrate_sabr",

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ..ops.random_variable import ACC_DTYPE, FLOAT_DTYPE, RandomVariableTorch
-from ..utils.config import select_device
+from ..utils.config import select_device, to_device
 from .brownian_motion import BrownianMotion, key_for_seed
 from .process import EulerScheme, ProcessModel
 from .time_discretization import TimeDiscretization
@@ -114,7 +114,7 @@ class MonteCarloBlackScholesModel:
                 raise ValueError(f"time {t} not on the simulation grid")
             idx.append(ti)
         states = self.process._lazy_states()
-        rows = torch.as_tensor(idx, dtype=torch.long, device=states.device)
+        rows = to_device(idx, torch.long, states.device)
         return torch.exp(states[rows, asset_index])
 
     def get_numeraire(self, time: float) -> RandomVariableTorch:

@@ -42,3 +42,15 @@ def select_device(index: int | None = None) -> torch.device:
         index = int(raw)
     count = torch.cuda.device_count() if torch.cuda.is_available() else 0
     return torch.device("cuda", resolve_device_index(index, count))
+
+
+def to_device(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """Host values as a ``dtype`` tensor on ``device``, without waiting for
+    the device: on a CUDA device the copy goes from pinned memory and does
+    not block (a plain host-to-device copy synchronises the stream, which
+    stalls the host behind every queued launch)."""
+    t = torch.as_tensor(values, dtype=dtype)
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
