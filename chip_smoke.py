@@ -250,16 +250,36 @@ Phases, one line of output each (more for the kernel builds), in order:
     within 4 standard errors of Black-Scholes, its standard-error reduction
     printed; ``mlmc_lookback_call`` at eps 0.03 within 2.5 eps of the
     continuous closed form, its levels, samples and walls;
+38. ``bench.py:1616-1625``'s ``heston_qe_1m_x64`` and the Euler engine at
+    1M antithetic paths x 128 steps against the characteristic-function
+    prices (``tests/test_heston.py:113-121``'s bounds, E[V_T] within 3e-3
+    of the CIR mean); ``MonteCarloHestonModel`` at 1M x 100 on
+    ``tests/test_heston_facade.py``'s parameters (its bounds, the digital
+    cash parity within 1e-9 once the paths that land exactly on the strike
+    are counted, the peak memory); ``calibrate_heston``'s round trip in
+    host seconds;
+39. ``merton_1m_x16`` and ``variance_gamma_1m_x16`` (``bench.py:1627-1643``)
+    against the series and the Fourier prices, Bates at 1M x 96 against its
+    characteristic function, Bachelier and the displaced lognormal at 1M
+    paths within 4 standard errors, the Merton facade at 1M x 50;
+40. Dupire local vol on ``tests/test_local_vol.py``'s skewed surface at 1M
+    x 100 (the Gyongy round trip within 0.004) and the flat surface against
+    term-vol Black-Scholes; one step's nested ``jvp`` under
+    ``torch.cuda.set_sync_debug_mode("error")``;
+41. ``bench.py:1869 bench_slv`` at 409,600 x 100: the smile within 0.008,
+    E[V_1] within 0.004 of the CIR mean, the martingale, ``leverage_at``,
+    the wall, the peak memory and the device operations a step;
 6. with ``--profile`` only, last: device operations and busy time under
    ``torch.profiler`` for one ATM calibration, one engine Jacobian, one
    ATM kernel residual call, one stoch-vol kernel
    ``residuals_and_jacobian`` call and one reduced-path stoch-vol engine
-   Jacobian, and for phases 25-37 one swap and one 20-trade profile, one
+   Jacobian, and for phases 25-41 one swap and one 20-trade profile, one
    CVA ladder, one mixed-set profile, one IM profile, one SABR smile, the
    hybrid's and Hull-White's calls, one WWR CVA and one CIR++ simulation,
    one cross-currency and one Jarrow-Yildirim simulation, and phases
    34-37's book, bridge barrier, multi-asset simulation, LS put, delta
-   hedge and MLMC run, each against the same call's unprofiled wall.
+   hedge and MLMC run, and phases 38-41's engines and simulations, each
+   against the same call's unprofiled wall.
 
 Then the whole script's seconds, one JSON line with the eight kernels'
 numbers (``bound_ms`` is the least time of the same work on an
@@ -323,6 +343,10 @@ CREDIT_PATHS, XCCY_PATHS = 500_000, 1_000_000
 # sampling and the MLMC accuracy of phase 37
 EXOTIC_PATHS, EXOTIC_STEPS, MULTI_PATHS = 1_000_000, 250, 1_000_000
 AMERICAN_PATHS, STRUCTURED_PATHS, MLMC_EPS = 1_000_000, 1_000_000, 0.03
+# bench.py:1616-1643 bench_model_zoo's Heston, Merton and VG rows and the
+# rest of phases 38-40 at 1M paths; bench.py:1869 bench_slv's particles
+HESTON_PATHS, JUMP_PATHS, LOCAL_VOL_PATHS = 1_000_000, 1_000_000, 1_000_000
+SLV_PATHS = 409_600
 # the published H100 SXM peaks the bound is taken against
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 SPIN_CYCLES = 2_000_000       # about 1 ms of the card's clock
@@ -578,7 +602,7 @@ def _profile(torch, setup, kb, sv, sv_kb, later) -> None:
     calibration, of one call of each of its device stages, of one
     stoch-vol kernel ``residuals_and_jacobian`` call, of one call of
     the stoch-vol multistart's dominant stage, the reduced-path engine
-    Jacobian, and of the calls ``later`` names (phases 25-37). Each is
+    Jacobian, and of the calls ``later`` names (phases 25-41). Each is
     run once unprofiled (host wall, synchronised) and once under
     ``torch.profiler``; the device events of the profiled run (kernels,
     copies, memsets) give the device operation count and busy time, set
@@ -3054,6 +3078,429 @@ def _structured_is_mlmc(torch, smi) -> dict:
                                            device="cuda")}
 
 
+def _digital_parity(sim, strike, maturity, rate) -> dict:
+    """The digital cash parity of ``sim`` at ``strike``: call + put against
+    the discount factor. Both legs pay on a strict inequality (the JAX
+    package's ``_digital_kernel``), so a float32 path that lands exactly on
+    the strike pays in neither; the identity is call + put = df (1 - ties /
+    N), and ``parity_err`` is its gap."""
+    import math
+
+    from finmath_tpu_torch.models.equity_products import DigitalOption
+
+    c, _ = DigitalOption(maturity, strike).get_value_and_error(sim)
+    p, _ = DigitalOption(maturity, strike, is_call=False) \
+        .get_value_and_error(sim)
+    s_t = sim.get_asset_value(maturity).values
+    ties = int((s_t == strike).sum())
+    df = math.exp(-rate * maturity)
+    return {"digital_call_plus_put_minus_df": c + p - df,
+            "paths_on_the_strike": ties,
+            "parity_err": c + p - df * (1.0 - ties / s_t.numel())}
+
+
+def _heston(torch, smi) -> dict:
+    """Phase 38 (no kernel): ``bench.py:1616-1625``'s ``heston_qe_1m_x64``
+    (1M antithetic paths x 64 QE steps, T 1.5) and the Euler engine at 1M
+    x 128 against the characteristic-function prices under
+    ``tests/test_heston.py``'s bounds; the facade at 1M paths x 100 steps
+    on ``tests/test_heston_facade.py``'s parameters (its bounds, the
+    digital cash parity within 1e-9, the peak memory); the calibration
+    round trip of ``tests/test_heston.py:207-220`` in host seconds.
+    Returns the calls phase 6 profiles, by name."""
+    import math
+
+    from finmath_tpu_torch.models.black_scholes import EuropeanOption
+    from finmath_tpu_torch.models.heston import (
+        HestonParams, MonteCarloHestonModel, calibrate_heston,
+        heston_characteristic_prices, mc_heston_european_prices)
+    from finmath_tpu_torch.models.time_discretization import (
+        TimeDiscretization)
+
+    t_phase = time.perf_counter()
+    walls = {}
+    timed = _named_walls(torch, walls)
+    ks = np.array([80.0, 90.0, 100.0, 110.0, 125.0])
+    hp = HestonParams(100.0, 0.03, v0=0.04, kappa=1.5, theta=0.05, xi=0.6,
+                      rho=-0.7)
+    ref = heston_characteristic_prices(hp, 1.5, ks)
+    ev_cir = hp.theta + (hp.v0 - hp.theta) * math.exp(-hp.kappa * 1.5)
+
+    def engine(scheme, steps):
+        return lambda: mc_heston_european_prices(
+            hp, 1.5, ks, num_paths=HESTON_PATHS, num_steps=steps,
+            scheme=scheme, antithetic=True, device="cuda")
+
+    out = {"paths": HESTON_PATHS}
+    for name, scheme, steps in (("heston_qe_1m_x64", "qe", 64),
+                                ("heston_euler_1m_x128", "euler", 128)):
+        px, fwd, ev = timed(name, engine(scheme, steps))
+        out[name] = {"prices": px.tolist(), "cf": ref.tolist(),
+                     "max_abs_dev_vs_cf": float(np.abs(px - ref).max()),
+                     "max_rel_dev_vs_cf": float(np.abs(px - ref).max()
+                                                / ref.min()),
+                     "fwd_err": fwd - 100.0, "ev": ev, "ev_cir": ev_cir}
+
+    fp = HestonParams(100.0, 0.03, v0=0.04, kappa=1.5, theta=0.05, xi=0.4,
+                      rho=-0.6)
+    td = TimeDiscretization(initial=0.0, num_steps=100, step=0.01)
+    fks = [90.0, 100.0, 110.0]
+    f_ref = heston_characteristic_prices(fp, 1.0, fks)
+
+    def facade():
+        sim = MonteCarloHestonModel(td, HESTON_PATHS, fp, seed=17,
+                                    device="cuda")
+        return sim, [EuropeanOption(1.0, k).get_value(sim) for k in fks]
+
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    sim, eur = timed("heston_facade_1m_x100", facade)
+    peak = torch.cuda.max_memory_allocated()
+    fwd = float(sim.get_asset_value(1.0).get_average())
+    out["facade"] = {"european": eur, "cf": f_ref.tolist(),
+                     "fwd_err": fwd - 100.0 * math.exp(0.03),
+                     **_digital_parity(sim, 100.0, 1.0, 0.03),
+                     "max_memory_allocated_gb": peak / 1e9,
+                     "peak_above_live_gb": (peak - live) / 1e9}
+    del sim
+
+    mats = [0.5, 1.0, 2.0]
+    cp = HestonParams(100.0, 0.03, v0=0.04, kappa=1.5, theta=0.05, xi=0.4,
+                      rho=-0.6)
+    targets = [heston_characteristic_prices(cp, t, ks) for t in mats]
+    t0 = time.perf_counter()
+    res = calibrate_heston(100.0, 0.03, mats, [ks] * 3, targets,
+                           x0=HestonParams(100.0, 0.03, v0=0.09, kappa=0.5,
+                                           theta=0.09, xi=0.8, rho=-0.2))
+    out["calibration"] = {"host_s": time.perf_counter() - t0,
+                          "rms": res.rms_price_error,
+                          "iterations": res.iterations,
+                          "v0": res.params.v0, "rho": res.params.rho,
+                          "theta": res.params.theta}
+    out["walls"] = walls
+    print(f"phase 38 Heston ({smi}): " + json.dumps(out), flush=True)
+    qe, eu, fa = (out["heston_qe_1m_x64"], out["heston_euler_1m_x128"],
+                  out["facade"])
+    checks = {
+        "QE within 0.12 of the CF": qe["max_abs_dev_vs_cf"] < 0.12,
+        "QE forward within 0.15": abs(qe["fwd_err"]) < 0.15,
+        "QE E[V_T] within 3e-3 of the CIR mean":
+            abs(qe["ev"] - ev_cir) < 3e-3,
+        "Euler within 0.15 of the CF": eu["max_abs_dev_vs_cf"] < 0.15,
+        "Euler forward within 0.2": abs(eu["fwd_err"]) < 0.2,
+        "facade Europeans within 0.015 ref + 0.08": all(
+            abs(v - r) < 0.015 * r + 0.08 for v, r in zip(eur, f_ref)),
+        "facade martingale within 0.35": abs(fa["fwd_err"]) < 0.35,
+        "facade digital cash parity within 1e-9":
+            abs(fa["parity_err"]) < 1e-9,
+        "calibration rms below 1e-6": res.rms_price_error < 1e-6,
+        "calibration v0, rho, theta": (
+            abs(res.params.v0 / cp.v0 - 1) < 1e-3
+            and abs(res.params.rho / cp.rho - 1) < 1e-2
+            and abs(res.params.theta / cp.theta - 1) < 1e-2),
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: phase 38 failed: {failed}")
+    print(f"phase 38 seconds: {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+    return {"phase 38 heston QE (1M x 64)": engine("qe", 64),
+            "phase 38 heston Euler (1M x 128)": engine("euler", 128),
+            "phase 38 heston facade (1M x 100)": facade}
+
+
+def _jumps_gaussian(torch, smi) -> dict:
+    """Phase 39 (no kernel): ``bench.py:1627-1643``'s ``merton_1m_x16`` and
+    ``variance_gamma_1m_x16`` against the series and the Fourier prices
+    (``tests/test_merton.py:119``'s rtol 8e-3, ``tests/test_fourier_models
+    .py:122``'s 1.5e-2), Bates at 1M antithetic paths x 96 steps against
+    its CF (``tests/test_bates.py:83-86``), Bachelier and the displaced
+    lognormal at 1M paths within 4 standard errors of their closed forms,
+    and the Merton facade at 1M x 50 (the European within 1.5e-2 of the
+    series, the digital cash parity within 1e-9). Returns the calls phase 6
+    profiles, by name."""
+    import math
+
+    from finmath_tpu_torch.models.bachelier import (
+        BachelierParams, DisplacedLognormalParams, bachelier_analytic_price,
+        bachelier_terminal_std, displaced_analytic_price,
+        mc_bachelier_european_prices, mc_displaced_european_prices)
+    from finmath_tpu_torch.models.bates import (
+        BatesParams, bates_characteristic_prices, mc_bates_european_prices)
+    from finmath_tpu_torch.models.black_scholes import EuropeanOption
+    from finmath_tpu_torch.models.merton import (
+        MertonParams, MonteCarloMertonModel, mc_merton_european_prices,
+        merton_series_prices)
+    from finmath_tpu_torch.models.time_discretization import (
+        TimeDiscretization)
+    from finmath_tpu_torch.models.variance_gamma import (
+        VarianceGammaParams, mc_vg_european_prices, vg_analytic_prices)
+
+    t_phase = time.perf_counter()
+    walls = {}
+    timed = _named_walls(torch, walls)
+    ks = np.array([80.0, 90.0, 100.0, 110.0, 125.0])
+    n = JUMP_PATHS
+    mp = MertonParams(100.0, 0.05, 0.2, jump_intensity=0.6,
+                      jump_size_mean=-0.15, jump_size_std=0.25)
+    vp = VarianceGammaParams(100.0, 0.04, sigma=0.18, theta=-0.14, nu=0.25)
+    bp = BatesParams(100.0, 0.03, v0=0.04, kappa=1.5, theta=0.05, xi=0.6,
+                     rho=-0.7, jump_intensity=0.6, jump_size_mean=-0.12,
+                     jump_size_std=0.18)
+    gp = BachelierParams(100.0, 0.03, volatility=15.0)
+    dp = DisplacedLognormalParams(100.0, 0.03, 0.2, displacement=30.0)
+    calls = {
+        "merton_1m_x16": lambda: mc_merton_european_prices(
+            mp, 1.0, ks, num_paths=n, num_steps=16, antithetic=True,
+            device="cuda"),
+        "variance_gamma_1m_x16": lambda: mc_vg_european_prices(
+            vp, 1.25, ks, num_paths=n, num_steps=16, antithetic=True,
+            device="cuda"),
+        "bates_1m_x96": lambda: mc_bates_european_prices(
+            bp, 1.5, ks, num_paths=n, num_steps=96, antithetic=True,
+            device="cuda"),
+        "bachelier_1m": lambda: mc_bachelier_european_prices(
+            gp, 1.25, [-20.0, 80.0, 100.0, 120.0], num_paths=n, seed=6,
+            device="cuda"),
+        "displaced_1m": lambda: mc_displaced_european_prices(
+            dp, 1.25, ks, num_paths=n, seed=8, device="cuda"),
+    }
+    refs = {
+        "merton_1m_x16": merton_series_prices(mp, 1.0, ks),
+        "variance_gamma_1m_x16": vg_analytic_prices(vp, 1.25, ks),
+        "bates_1m_x96": bates_characteristic_prices(bp, 1.5, ks),
+        "bachelier_1m": bachelier_analytic_price(
+            gp, 1.25, [-20.0, 80.0, 100.0, 120.0]),
+        "displaced_1m": displaced_analytic_price(dp, 1.25, ks),
+    }
+    # a call payoff's spread is at most the terminal value's
+    se = {"bachelier_1m": math.exp(-0.03 * 1.25)
+          * bachelier_terminal_std(gp, 1.25) / math.sqrt(n),
+          "displaced_1m": math.exp(-0.03 * 1.25) * 130.0 * math.exp(
+              0.03 * 1.25) * math.sqrt(math.expm1(0.04 * 1.25))
+          / math.sqrt(n)}
+    out = {"paths": n}
+    for name, fn in calls.items():
+        res = timed(name, fn)
+        px = np.asarray(res[0])
+        out[name] = {"prices": px.tolist(), "reference": refs[name].tolist(),
+                     "max_rel_dev": float(np.max(np.abs(px - refs[name])
+                                                 / refs[name])),
+                     "max_abs_dev": float(np.max(np.abs(px - refs[name]))),
+                     "fwd": res[1]}
+        if len(res) == 3:
+            out[name]["ev"] = res[2]
+    td = TimeDiscretization(initial=0.0, num_steps=50, step=0.02)
+
+    def facade():
+        sim = MonteCarloMertonModel(td, n, mp, seed=9, device="cuda")
+        return sim, EuropeanOption(1.0, 100.0).get_value(sim)
+
+    sim, eur = timed("merton_facade_1m_x50", facade)
+    m_ref = refs["merton_1m_x16"][2]
+    out["merton_facade"] = {"european": eur, "series": m_ref,
+                            **_digital_parity(sim, 100.0, 1.0, 0.05)}
+    del sim
+    out["walls"] = walls
+    print(f"phase 39 jumps and Gaussian models ({smi}): " + json.dumps(out),
+          flush=True)
+    ev_cir = bp.theta + (bp.v0 - bp.theta) * math.exp(-bp.kappa * 1.5)
+    b = out["bates_1m_x96"]
+    checks = {
+        "Merton within rtol 8e-3 of the series":
+            out["merton_1m_x16"]["max_rel_dev"] < 8e-3,
+        "VG within rtol 1.5e-2 of the Fourier prices":
+            out["variance_gamma_1m_x16"]["max_rel_dev"] < 1.5e-2,
+        "Bates within rtol 1.2e-2 of the CF": b["max_rel_dev"] < 1.2e-2,
+        "Bates forward within 0.15": abs(b["fwd"] - 100.0) < 0.15,
+        "Bates E[V_T] within 3e-3 of the CIR mean":
+            abs(b["ev"] - ev_cir) < 3e-3,
+        "Bachelier within 4 standard errors":
+            out["bachelier_1m"]["max_abs_dev"] < 4 * se["bachelier_1m"],
+        "displaced within 4 standard errors":
+            out["displaced_1m"]["max_abs_dev"] < 4 * se["displaced_1m"],
+        "Merton facade European within 1.5e-2 of the series":
+            abs(eur - m_ref) < 1.5e-2 * m_ref,
+        "Merton facade digital cash parity within 1e-9":
+            abs(out["merton_facade"]["parity_err"]) < 1e-9,
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: phase 39 failed: {failed}")
+    print(f"phase 39 seconds: {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+    return {f"phase 39 {name}": fn for name, fn in calls.items()}
+
+
+def _local_vol(torch, smi) -> dict:
+    """Phase 40 (no kernel): ``tests/test_local_vol.py``'s skewed SSVI
+    surface at 1M paths x 100 steps (seed 12): the Black-implied vols of
+    ``european_call_values`` at strikes 80-120 within 0.004 of the surface
+    (the Gyongy round trip, ``:113-124``); the flat surface at 1M x 50
+    (seed 11) against term-vol Black-Scholes (``:103-111``); one model
+    step's local variance (the nested ``torch.func.jvp``) under
+    ``torch.cuda.set_sync_debug_mode("error")``, so a host synchronisation
+    raises. Returns the calls phase 6 profiles, by name."""
+    import math
+
+    from finmath_tpu_torch.models.analytic import (
+        black_implied_volatility, black_scholes_option_value)
+    from finmath_tpu_torch.models.local_vol import (
+        LocalVolatilityModel, MonteCarloLocalVolModel, SSVISurface,
+        european_call_values)
+    from finmath_tpu_torch.models.time_discretization import (
+        TimeDiscretization)
+
+    t_phase = time.perf_counter()
+    walls = {}
+    timed = _named_walls(torch, walls)
+    surf = SSVISurface(sigma0=0.22, sigma_inf=0.20, tau=2.0, rho=-0.65,
+                       eta=0.6, gamma=0.4)
+    flat = SSVISurface(sigma0=0.28, sigma_inf=0.18, tau=1.5, rho=0.0,
+                       eta=0.0)
+    td = TimeDiscretization(initial=0.0, num_steps=100, step=0.01)
+    model = LocalVolatilityModel(100.0, 0.03, surf, td)
+    strikes = [80.0, 90.0, 100.0, 110.0, 120.0]
+
+    state = model.initial_state(LOCAL_VOL_PATHS, "cuda") + 0.1 * torch.randn(
+        1, LOCAL_VOL_PATHS, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(1))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model.drift(7, state)
+        model.factor_loadings(7, state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+    def skew():
+        sim = MonteCarloLocalVolModel(td, LOCAL_VOL_PATHS, model, seed=12,
+                                      device="cuda")
+        return european_call_values(sim, strikes, [1.0])
+
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    vals = timed("local_vol_skew_1m_x100", skew)
+    peak = torch.cuda.max_memory_allocated()
+    fwd, df = 100.0 * math.exp(0.03), math.exp(-0.03)
+    iv_devs = [black_implied_volatility(fwd, k, 1.0, vals[0, j, 0] / df)
+               - surf.implied_volatility(math.log(k / fwd), 1.0)
+               for j, k in enumerate(strikes)]
+    ftd = TimeDiscretization(initial=0.0, num_steps=50, step=0.02)
+    fsim = MonteCarloLocalVolModel(
+        ftd, LOCAL_VOL_PATHS, LocalVolatilityModel(100.0, 0.03, flat, ftd),
+        seed=11, device="cuda")
+    fvals = european_call_values(fsim, [80.0, 100.0, 125.0], [1.0])
+    sig = math.sqrt(flat.theta(1.0))
+    flat_rows = [(float(fvals[0, j, 0]), float(fvals[0, j, 1]),
+                  black_scholes_option_value(100.0, 0.03, sig, 1.0, k))
+                 for j, k in enumerate([80.0, 100.0, 125.0])]
+    del fsim
+    out = {"paths": LOCAL_VOL_PATHS, "iv_devs": iv_devs,
+           "max_abs_iv_dev": max(abs(d) for d in iv_devs),
+           "flat_vs_black_scholes": flat_rows,
+           "max_memory_allocated_gb": peak / 1e9,
+           "peak_above_live_gb": (peak - live) / 1e9, "walls": walls,
+           "jvp_step_host_syncs": 0}
+    print(f"phase 40 Dupire local vol ({smi}): " + json.dumps(out),
+          flush=True)
+    checks = {
+        "Gyongy round trip within 0.004": out["max_abs_iv_dev"] < 0.004,
+        "flat surface within 4 se + 1e-3 of Black-Scholes": all(
+            abs(v - an) < 4 * e + 1e-3 * an for v, e, an in flat_rows),
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: phase 40 failed: {failed}")
+    print(f"phase 40 seconds: {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+    return {"phase 40 local vol simulation (1M x 100)": skew}
+
+
+def _slv(torch, smi) -> dict:
+    """Phase 41 (no kernel): ``bench.py:1869-1932 bench_slv``, the Heston-SLV
+    particle method at 409,600 paths x 100 steps (the skewed SSVI surface,
+    xi 0.8, rho -0.7, strikes 85, 100, 115, seeds from 21 on as in the
+    bench): the Black-implied smile within 0.008 of the surface
+    (``tests/test_slv.py:99-108``), E[V_1] within 0.004 of the CIR mean,
+    the martingale within 4 standard errors + 0.05, ``leverage_at(1.0)``,
+    the wall (a cold call, then the min of 3), the peak memory and the
+    device operations a step. Returns the calls phase 6 profiles, by
+    name."""
+    import math
+
+    from finmath_tpu_torch.models.analytic import black_implied_volatility
+    from finmath_tpu_torch.models.heston import HestonParams
+    from finmath_tpu_torch.models.local_vol import (SSVISurface,
+                                                    european_call_values)
+    from finmath_tpu_torch.models.slv import (HestonSLVModel,
+                                              MonteCarloHestonSLVModel)
+    from finmath_tpu_torch.models.time_discretization import (
+        TimeDiscretization)
+
+    t_phase = time.perf_counter()
+    walls = {}
+    timed = _named_walls(torch, walls)
+    surf = SSVISurface(sigma0=0.22, sigma_inf=0.20, tau=2.0, rho=-0.65,
+                       eta=0.6, gamma=0.4)
+    hp = HestonParams(100.0, 0.03, v0=0.04, kappa=1.5, theta=0.06, xi=0.8,
+                      rho=-0.7)
+    td = TimeDiscretization(initial=0.0, num_steps=100, step=0.01)
+    model = HestonSLVModel(hp, surf, td)
+    strikes = [85.0, 100.0, 115.0]
+    seeds = iter(range(21, 40))
+    last = {}
+
+    def run():
+        sim = MonteCarloHestonSLVModel(td, SLV_PATHS, model,
+                                       seed=next(seeds), device="cuda")
+        last["sim"] = sim
+        return european_call_values(sim, strikes, [1.0])
+
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    vals = timed("slv_particle_409600_x100", run)
+    peak = torch.cuda.max_memory_allocated()
+    sim = last["sim"]
+    fwd, df = 100.0 * math.exp(0.03), math.exp(-0.03)
+    iv_devs = [black_implied_volatility(fwd, k, 1.0, vals[0, j, 0] / df)
+               - surf.implied_volatility(math.log(k / fwd), 1.0)
+               for j, k in enumerate(strikes)]
+    v1 = float(sim.get_variance_value(1.0).get_average())
+    s1 = sim.get_asset_value(1.0)
+    ev_cir = hp.theta + (hp.v0 - hp.theta) * math.exp(-hp.kappa)
+    lev = sim.leverage_at(1.0, strikes)
+    ops = _device_busy(torch, lambda: MonteCarloHestonSLVModel(
+        td, SLV_PATHS, model, seed=99, device="cuda").process._lazy_states())
+    del sim, last["sim"]
+    out = {"paths": SLV_PATHS, "steps": 100, "iv_devs": iv_devs,
+           "max_abs_iv_dev": max(abs(d) for d in iv_devs),
+           "ev1": v1, "ev1_cir": ev_cir,
+           "martingale_err": float(s1.get_average()) - fwd,
+           "martingale_se": float(s1.get_standard_error()),
+           "leverage_at_1": lev.tolist(),
+           "max_memory_allocated_gb": peak / 1e9,
+           "peak_above_live_gb": (peak - live) / 1e9,
+           "device_ops_per_step": ops["device_ops"] / 100,
+           "simulation_profile": ops, "walls": walls}
+    print(f"phase 41 Heston-SLV ({smi}): " + json.dumps(out), flush=True)
+    checks = {
+        "smile within 0.008 of the surface": out["max_abs_iv_dev"] < 0.008,
+        "E[V_1] within 0.004 of the CIR mean": abs(v1 - ev_cir) < 0.004,
+        "martingale within 4 se + 0.05": abs(out["martingale_err"])
+            < 4 * out["martingale_se"] + 0.05,
+        "leverage finite and inside the clip": bool(
+            np.all(np.isfinite(lev)) and np.all(lev > model.leverage_min)
+            and np.all(lev < model.leverage_max)),
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: phase 41 failed: {failed}")
+    print(f"phase 41 seconds: {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+    return {"phase 41 SLV simulation (409,600 x 100)": run}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -3489,6 +3936,11 @@ def main(argv=None) -> int:
     later.update({**exotic_calls, **_multi_asset(torch, smi),
                   **_american_hedging(torch, smi, exotic_sim),
                   **_structured_is_mlmc(torch, smi)})
+
+    # -- 38-41: slice E4, stochastic volatility, jumps, the Gaussian models,
+    # Dupire local vol and Heston-SLV (no kernel) ---------------------------
+    later.update({**_heston(torch, smi), **_jumps_gaussian(torch, smi),
+                  **_local_vol(torch, smi), **_slv(torch, smi)})
 
     if opts.profile:
         _profile(torch, setup, kb, sv, sv_kb, later)

@@ -231,3 +231,77 @@ def equity_product_from_jax(product):
     out.__dict__.update({k: list(v) if isinstance(v, list) else v
                          for k, v in vars(product).items()})
     return out
+
+
+#: the slice's parameter dataclasses ``equity_model_from_jax`` maps, by
+#: class name, to their module in the port
+_EQUITY_PARAMS = {
+    "HestonParams": "heston", "MertonParams": "merton",
+    "VarianceGammaParams": "variance_gamma", "BatesParams": "bates",
+    "BachelierParams": "bachelier", "DisplacedLognormalParams": "bachelier",
+    "SSVISurface": "local_vol",
+}
+
+
+def equity_model_from_jax(obj):
+    """The port's counterpart of another package's stochastic-volatility,
+    jump, Gaussian or local-volatility object with the same fields: the
+    parameter dataclasses (``HestonParams``, ``MertonParams``,
+    ``VarianceGammaParams``, ``BatesParams``, ``BachelierParams``,
+    ``DisplacedLognormalParams``), ``SSVISurface``, and the models
+    ``HestonModel``, ``LocalVolatilityModel`` and ``HestonSLVModel`` (their
+    coefficient times and hat nodes copied as they are). A
+    ``DupireLocalVolSurface`` wraps a function of the other package and
+    raises."""
+    import dataclasses
+    import importlib
+
+    from .models import local_vol, slv
+    from .models.heston import HestonModel
+
+    name = type(obj).__name__
+    if name in _EQUITY_PARAMS:
+        cls = getattr(importlib.import_module(
+            f"{__package__}.models.{_EQUITY_PARAMS[name]}"), name)
+        return cls(**{f.name: float(getattr(obj, f.name))
+                      for f in dataclasses.fields(obj)})
+    if name == "HestonModel":
+        return HestonModel(equity_model_from_jax(obj.params))
+    if name not in ("LocalVolatilityModel", "HestonSLVModel"):
+        raise ValueError(f"no equity model of the port is named {name!r}")
+    surface = equity_model_from_jax(obj.surface)
+    coeff_times = np.asarray(obj._coeff_times, dtype=np.float32)
+    cls = getattr(local_vol if name == "LocalVolatilityModel" else slv, name)
+    out = cls.__new__(cls)
+    fields = ("dividend_yield", "min_vol", "max_vol", "denominator_floor",
+              "t_floor")
+    out.__dict__.update({k: float(getattr(obj, k)) for k in fields})
+    out.surface = surface
+    out._coeff_times = coeff_times
+    out._cache = local_vol._StepCache()
+    times = tuple(float(t) for t in coeff_times)
+    if name == "LocalVolatilityModel":
+        out.initial_value = float(obj.initial_value)
+        out.risk_free_rate = float(obj.risk_free_rate)
+        out._static_key = (
+            out.initial_value, out.risk_free_rate, out.dividend_yield,
+            surface, out.min_vol, out.max_vol, out.denominator_floor,
+            out.t_floor, times)
+        return out
+    if obj.axis_name is not None:
+        raise NotImplementedError(
+            "HestonSLVModel(axis_name=...): moments over a sharded path "
+            "axis are not ported yet")
+    out.params = equity_model_from_jax(obj.params)
+    out.mixing = float(obj.mixing)
+    out.leverage_min = float(obj.leverage_min)
+    out.leverage_max = float(obj.leverage_max)
+    out.axis_name = None
+    out._nodes_np = np.asarray(obj._nodes, dtype=np.float32)
+    out._nodes_by_device = {}
+    out._static_key = (
+        out.params, surface, out.dividend_yield, out.mixing,
+        int(out._nodes_np.size), float(out._nodes_np[-1]),
+        out.leverage_min, out.leverage_max, out.min_vol, out.max_vol,
+        out.t_floor, out.denominator_floor, None, times)
+    return out

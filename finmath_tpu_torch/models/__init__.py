@@ -110,6 +110,64 @@ from .inflation import (
     JarrowYildirimSimulation,
 )
 
+from .fourier import (
+    black_scholes_cf,
+    european_call_from_cf,
+    heston_cf,
+    merton_cf,
+    variance_gamma_cf,
+)
+from .heston import (
+    HestonCalibrationResult,
+    HestonModel,
+    HestonParams,
+    MonteCarloHestonModel,
+    calibrate_heston,
+    heston_characteristic_prices,
+    mc_heston_european_prices,
+)
+from .merton import (
+    MertonCalibrationResult,
+    MertonParams,
+    MonteCarloMertonModel,
+    calibrate_merton,
+    mc_merton_european_prices,
+    merton_series_prices,
+)
+from .variance_gamma import (
+    VarianceGammaCalibrationResult,
+    VarianceGammaParams,
+    calibrate_variance_gamma,
+    mc_vg_european_prices,
+    vg_analytic_prices,
+)
+from .bates import (
+    BatesParams,
+    MonteCarloBatesModel,
+    bates_cf,
+    bates_characteristic_prices,
+    mc_bates_european_prices,
+)
+from .bachelier import (
+    BachelierParams,
+    DisplacedLognormalParams,
+    bachelier_analytic_price,
+    displaced_analytic_price,
+    mc_bachelier_european_prices,
+    mc_displaced_european_prices,
+)
+from .local_vol import (
+    DupireLocalVolSurface,
+    LocalVolatilityModel,
+    MonteCarloLocalVolModel,
+    SSVISurface,
+    local_variance,
+)
+from .slv import (
+    HestonSLVModel,
+    MonteCarloHestonSLVModel,
+)
+
 __all__ = [
     "TimeDiscretization",
     "BrownianMotion",
@@ -186,4 +244,45 @@ __all__ = [
     "par_swap_rate",
     "JarrowYildirimModel",
     "JarrowYildirimSimulation",
+    "black_scholes_cf",
+    "european_call_from_cf",
+    "heston_cf",
+    "merton_cf",
+    "variance_gamma_cf",
+    "HestonCalibrationResult",
+    "HestonModel",
+    "HestonParams",
+    "MonteCarloHestonModel",
+    "calibrate_heston",
+    "heston_characteristic_prices",
+    "mc_heston_european_prices",
+    "MertonCalibrationResult",
+    "MertonParams",
+    "MonteCarloMertonModel",
+    "calibrate_merton",
+    "mc_merton_european_prices",
+    "merton_series_prices",
+    "VarianceGammaCalibrationResult",
+    "VarianceGammaParams",
+    "calibrate_variance_gamma",
+    "mc_vg_european_prices",
+    "vg_analytic_prices",
+    "BatesParams",
+    "MonteCarloBatesModel",
+    "bates_cf",
+    "bates_characteristic_prices",
+    "mc_bates_european_prices",
+    "BachelierParams",
+    "DisplacedLognormalParams",
+    "bachelier_analytic_price",
+    "displaced_analytic_price",
+    "mc_bachelier_european_prices",
+    "mc_displaced_european_prices",
+    "DupireLocalVolSurface",
+    "LocalVolatilityModel",
+    "MonteCarloLocalVolModel",
+    "SSVISurface",
+    "local_variance",
+    "HestonSLVModel",
+    "MonteCarloHestonSLVModel",
 ]

@@ -22,7 +22,10 @@ market (S0 100, K 110, r 5%, sigma 30%, T 1, 50 exercise dates).
   float32 regression whose decisions cascade.
 * On the port's own torch stream: ``tests/test_american.py``'s CRR bounds,
   the call equal to the European, one in-sample date equal to the
-  European; and the validation errors of the JAX module."""
+  European; and the validation errors of the JAX module.
+* On the Merton facade: the early-exercise premium of
+  ``tests/test_american.py:103``, on the JAX facade's matrix and the
+  port's own."""
 
 import math
 
@@ -245,3 +248,49 @@ def test_stochastic_numeraire_raises():
             is_deterministic=lambda: t == 0.0, get_average=lambda: 1.0))
     with pytest.raises(NotImplementedError, match="deterministic numeraire"):
         tam.BermudanOption([0.5, 1.0], K).get_value(facade)
+
+
+# -- the Merton facade (tests/test_american.py:103) --------------------------------
+
+MERTON = dict(initial_value=100.0, risk_free_rate=0.05, volatility=0.25,
+              jump_intensity=0.5, jump_size_mean=-0.2, jump_size_std=0.2)
+MERTON_EX = [i * 0.05 for i in range(1, 21)]
+
+
+def test_merton_early_exercise_premium():
+    """On the JAX Merton facade's asset matrix (its own stream, 20,000
+    paths, seed 21) the two packages' Longstaff-Schwartz values within the
+    file's 0.25 standard errors, and on the port's own Merton facade
+    (50,000 paths) the premium over the European beyond 2 standard
+    errors."""
+    from types import SimpleNamespace
+
+    from finmath_tpu.models import american as jam
+    from finmath_tpu.models import merton as jm
+    from finmath_tpu.models.time_discretization import (
+        TimeDiscretization as JTD)
+    from finmath_tpu.ops.random_variable import RandomVariableTPU
+    from finmath_tpu_torch.models import merton as tm
+    from finmath_tpu_torch.ops.random_variable import RandomVariableTorch
+
+    def model(rv):
+        return SimpleNamespace(numeraire=lambda t: rv(t, math.exp(0.05 * t)),
+                               initial_value=100.0)
+
+    jtd = JTD(initial=0.0, num_steps=20, step=0.05)
+    td = TimeDiscretization(initial=0.0, num_steps=20, step=0.05)
+    jsim = jm.MonteCarloMertonModel(jtd, PATHS, jm.MertonParams(**MERTON),
+                                    seed=21)
+    assets = np.asarray(jsim.get_asset_values(list(jtd.as_array()[1:])))
+    jopt = jam.BermudanOption(MERTON_EX, 110.0, is_call=False)
+    jv, je = jopt.get_value_and_error(
+        jax_facade(jtd, assets, model(RandomVariableTPU)))
+    v, _ = convert.equity_product_from_jax(jopt).get_value_and_error(
+        torch_facade(td, assets, model(RandomVariableTorch)))
+    assert abs(v - jv) < 0.25 * je, (v, jv, je)
+    sim = tm.MonteCarloMertonModel(td, 50_000, tm.MertonParams(**MERTON),
+                                   seed=21, device=CPU)
+    amer, err = tam.BermudanOption(MERTON_EX, 110.0, is_call=False) \
+        .get_value_and_error(sim)
+    eur = tbs.EuropeanOption(1.0, 110.0, is_call=False).get_value(sim)
+    assert amer > eur + 2 * err          # jumps deepen the premium

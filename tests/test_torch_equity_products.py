@@ -26,7 +26,10 @@ Two comparisons with the JAX package, both on the same
 Then the JAX tests' identities on the port's own torch stream, the one
 host transfer of ``price_portfolio`` (equal to the serial loop, also for
 the Hull-White TARN and Bermudan), the validation errors and the device
-rule."""
+rule. On the Merton facade (``tests/test_equity_products.py``'s
+fixture): the products on the JAX facade's matrix equal within 1e-9, the
+cash parity, the plain products and the Black-Scholes-only gates on the
+port's own facade."""
 
 import math
 from types import SimpleNamespace
@@ -454,3 +457,98 @@ def test_convert_models_and_every_product_class():
         assert vars(q) == vars(p)
     with pytest.raises(ValueError, match="no equity product"):
         convert.equity_product_from_jax(jmodel)
+
+
+# -- the Merton facade (tests/test_equity_products.py:79, 118, 123, 197, 263)
+
+MERTON = dict(initial_value=S0, risk_free_rate=R, volatility=0.2,
+              jump_intensity=0.5, jump_size_mean=-0.1, jump_size_std=0.2)
+MERTON_PATHS, MERTON_STEPS = 50_000, 20
+
+
+def merton_model(rv_class):
+    """The facade-surface model a ``MatrixFacade`` needs for a Merton
+    matrix: its numeraire (in ``rv_class``) and spot; no Black-Scholes
+    parameters, so the Black-Scholes-only features raise."""
+    return SimpleNamespace(
+        numeraire=lambda t: rv_class(t, math.exp(R * t)), initial_value=S0)
+
+
+def merton_grid():
+    return TimeDiscretization(initial=0.0, num_steps=MERTON_STEPS,
+                              step=T / MERTON_STEPS)
+
+
+@pytest.fixture(scope="module")
+def merton_matrices():
+    """The JAX Merton facade's asset matrix (its own stream, seed 7) in a
+    facade of each package, and the port's Merton facade (its own torch
+    stream)."""
+    from finmath_tpu.models import merton as jm
+    from finmath_tpu.models.time_discretization import (
+        TimeDiscretization as JTD)
+    from finmath_tpu.ops.random_variable import RandomVariableTPU
+    from finmath_tpu_torch.models import merton as tm
+    from finmath_tpu_torch.ops.random_variable import RandomVariableTorch
+
+    jtd = JTD(initial=0.0, num_steps=MERTON_STEPS, step=T / MERTON_STEPS)
+    jsim = jm.MonteCarloMertonModel(jtd, MERTON_PATHS,
+                                    jm.MertonParams(**MERTON), seed=7)
+    assets = np.asarray(jsim.get_asset_values(list(jtd.as_array()[1:])))
+    return dict(
+        jax=jax_facade(jtd, assets, merton_model(RandomVariableTPU)),
+        port=torch_facade(merton_grid(), assets,
+                          merton_model(RandomVariableTorch)),
+        own=tm.MonteCarloMertonModel(merton_grid(), MERTON_PATHS,
+                                     tm.MertonParams(**MERTON), seed=7,
+                                     device=CPU))
+
+
+MERTON_PRODUCTS = [
+    ("digital-call", "DigitalOption", (T, 100.0), {}),
+    ("digital-put", "DigitalOption", (T, 100.0, False), {}),
+    ("asian", "AsianOption", ([(i + 1) * T / 10 for i in range(10)], 100.0),
+     {}),
+    ("lookback-floating-call", "LookbackOption", (T, "floating-call"), {}),
+]
+
+
+@pytest.mark.parametrize("pid,name,args,kw", MERTON_PRODUCTS,
+                         ids=[p[0] for p in MERTON_PRODUCTS])
+def test_merton_products_on_the_same_asset_matrix(merton_matrices, pid,
+                                                  name, args, kw):
+    jp = jax_product(name, args, kw)
+    v, e = convert.equity_product_from_jax(jp).get_value_and_error(
+        merton_matrices["port"])
+    jv, je = jp.get_value_and_error(merton_matrices["jax"])
+    assert v == pytest.approx(jv, rel=1e-9)
+    assert e == pytest.approx(je, rel=1e-9)
+
+
+def test_merton_facade_cash_parity(merton_matrices):
+    sim = merton_matrices["own"]
+    c, _ = tep.DigitalOption(T, 100.0).get_value_and_error(sim)
+    p, _ = tep.DigitalOption(T, 100.0, is_call=False) \
+        .get_value_and_error(sim)
+    assert abs(c + p - math.exp(-R * T)) < 1e-9
+
+
+def test_merton_facade_plain_products_run(merton_matrices):
+    sim = merton_matrices["own"]
+    times = [(i + 1) * T / 10 for i in range(10)]
+    v, e = tep.AsianOption(times, 100.0).get_value_and_error(sim)
+    assert 0.0 < v < S0 and e < 0.2
+    v, e = tep.LookbackOption(T, "floating-call").get_value_and_error(sim)
+    assert v > 0 and e < 0.3
+
+
+@pytest.mark.parametrize("facade", ["own", "port"])
+def test_black_scholes_features_need_black_scholes(merton_matrices, facade):
+    sim = merton_matrices[facade]
+    times = [(i + 1) * T / 10 for i in range(10)]
+    with pytest.raises(NotImplementedError):
+        tep.AsianOption(times, 100.0, control_variate="geometric") \
+            .get_value(sim)
+    with pytest.raises(NotImplementedError):
+        tep.BarrierOption(T, 100.0, 130.0, "up-out",
+                          monitoring="bridge").get_value(sim)

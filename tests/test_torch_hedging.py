@@ -12,7 +12,10 @@ hedging.py``) against finmath_tpu's, on ``tests/test_hedging.py``'s market
 * End to end on the Mersenne paths: within 1e-6 of the value (measured at
   most 1.1e-8).
 * ``tests/test_hedging.py``'s bounds on the port's own torch stream, and
-  the Black-Scholes gate."""
+  the Black-Scholes gate.
+* On the Merton facade: the variance swap on the JAX facade's matrix,
+  the jump contribution and ordering of ``tests/test_hedging.py:97, 108``
+  and the hedge's gate (``:73``) on the port's own."""
 
 import math
 from types import SimpleNamespace
@@ -166,3 +169,59 @@ def test_needs_black_scholes_facade():
         thd.DeltaHedgedPortfolio(T, 100.0).get_value(facade)
     # the variance swap runs on any facade with a spot
     assert math.isfinite(thd.VarianceSwap(T).fair_strike(facade))
+
+
+# -- the Merton facade (tests/test_hedging.py:73, 97, 108) -------------------------
+
+def _merton(lam=0.8, mu_j=-0.12, sig_j=0.18, sigma=0.2):
+    return dict(initial_value=S0, risk_free_rate=R, volatility=sigma,
+                jump_intensity=lam, jump_size_mean=mu_j, jump_size_std=sig_j)
+
+
+def test_merton_variance_swap_and_hedge_gate():
+    """On the JAX Merton facade's asset matrix (its own stream, 50 steps,
+    20,000 paths, seed 9) the variance swap's fair strike equal in both
+    packages within 1e-9 relative; on the port's own Merton facade the
+    jump contribution sigma^2 + lam (mu_J^2 + sigma_J^2) within 15% (200,000
+    paths), the jump facade's strike above Black-Scholes' at the same
+    diffusion vol (100,000 paths), and the delta hedge gated to
+    Black-Scholes."""
+    from finmath_tpu.models import hedging as jhd
+    from finmath_tpu.models import merton as jm
+    from finmath_tpu.models.time_discretization import (
+        TimeDiscretization as JTD)
+    from finmath_tpu.ops.random_variable import RandomVariableTPU
+    from finmath_tpu_torch.models import merton as tm
+    from finmath_tpu_torch.ops.random_variable import RandomVariableTorch
+
+    def model(rv):
+        return SimpleNamespace(numeraire=lambda t: rv(t, math.exp(R * t)),
+                               initial_value=S0)
+
+    jtd = JTD(initial=0.0, num_steps=50, step=T / 50)
+    jsim = jm.MonteCarloMertonModel(jtd, PATHS, jm.MertonParams(**_merton()),
+                                    seed=9)
+    assets = np.asarray(jsim.get_asset_values(list(jtd.as_array()[1:])))
+    jk = jhd.VarianceSwap(T).fair_strike(jax_facade(jtd, assets,
+                                                    model(RandomVariableTPU)))
+    k = thd.VarianceSwap(T).fair_strike(torch_facade(
+        grid(50), assets, model(RandomVariableTorch)))
+    assert k == pytest.approx(jk, rel=1e-9)
+    sim = tm.MonteCarloMertonModel(grid(50), 200_000,
+                                   tm.MertonParams(**_merton()), seed=9,
+                                   device=CPU)
+    k = thd.VarianceSwap(T).fair_strike(sim)
+    expect = 0.2 ** 2 + 0.8 * (0.12 ** 2 + 0.18 ** 2)
+    assert abs(k - expect) < 0.15 * expect
+    sim = tm.MonteCarloMertonModel(grid(50), 100_000,
+                                   tm.MertonParams(**_merton(sigma=SIG)),
+                                   seed=9, device=CPU)
+    k_m = thd.VarianceSwap(T).fair_strike(sim)
+    k_b = thd.VarianceSwap(T).fair_strike(own_sim(50, seed=9,
+                                                  paths=100_000))
+    assert k_m > k_b
+    gate = tm.MonteCarloMertonModel(
+        grid(20), 10_000, tm.MertonParams(S0, R, 0.2, 0.5, -0.1, 0.2),
+        device=CPU)
+    with pytest.raises(NotImplementedError):
+        thd.DeltaHedgedPortfolio(T, 100.0).get_value(gate)

@@ -20,7 +20,10 @@ T 1, 50 steps).
   measured at most 6.0e-8) plus the payoff of the autocall paths whose
   comparison with a level flips, over N (measured: none).
 * The JAX tests' bounds and identities on the port's own torch stream,
-  and the validation errors of the JAX module."""
+  and the validation errors of the JAX module.
+* On the Heston facade (``tests/test_structured_products.py:96, 132``):
+  the cliquet on the JAX facade's matrix and on the port's own, and the
+  compound option's Black-Scholes gate."""
 
 import math
 
@@ -266,3 +269,43 @@ def test_inner_closed_forms_need_black_scholes(own_sim):
                     tsp.ChooserOption(0.5, T, 100.0)):
         with pytest.raises(NotImplementedError):
             product.get_value(facade)
+
+
+# -- the Heston facade (tests/test_structured_products.py:96, 132) -----------------
+
+HESTON = dict(initial_value=S0, risk_free_rate=R, v0=0.04, kappa=1.5,
+              theta=0.05, xi=0.4, rho=-0.6)
+
+
+def test_heston_facade_runs_cliquet_and_gates_compound():
+    """The cliquet on the JAX Heston facade's asset matrix (its own stream,
+    20 steps, 50,000 paths, seed 5) equal in both packages within 1e-9,
+    and on the port's own Heston facade finite with a standard error below
+    0.01; the compound option needs the Black-Scholes facade."""
+    from finmath_tpu.models import heston as jh
+    from finmath_tpu.models import structured_products as jsp
+    from finmath_tpu.models.time_discretization import (
+        TimeDiscretization as JTD)
+    from finmath_tpu_torch.models import heston as th
+
+    jtd = JTD(initial=0.0, num_steps=20, step=T / 20)
+    td = TimeDiscretization(initial=0.0, num_steps=20, step=T / 20)
+    jsim = jh.MonteCarloHestonModel(jtd, 50_000, jh.HestonParams(**HESTON),
+                                    seed=5)
+    assets = np.asarray(jsim.get_asset_values(list(jtd.as_array()[1:])))
+    jcliq = jsp.CliquetOption([0.25, 0.5, 0.75, 1.0], -0.05, 0.08)
+    jv, je = jcliq.get_value_and_error(jax_facade(jtd, assets, jsim.model))
+    cliq = convert.equity_product_from_jax(jcliq)
+    v, e = cliq.get_value_and_error(torch_facade(
+        td, assets, th.HestonModel(th.HestonParams(**HESTON))))
+    assert v == pytest.approx(jv, rel=1e-9)
+    assert e == pytest.approx(je, rel=1e-9)
+    sim = th.MonteCarloHestonModel(td, 50_000, th.HestonParams(**HESTON),
+                                   seed=5, device=CPU)
+    v, e = cliq.get_value_and_error(sim)
+    assert np.isfinite(v) and e < 0.01
+    small = th.MonteCarloHestonModel(
+        TimeDiscretization(initial=0.0, num_steps=4, step=0.25), 1_000,
+        th.HestonParams(**HESTON), device=CPU)
+    with pytest.raises(NotImplementedError):
+        tsp.CompoundOption(0.5, 5.0, T, 100.0).get_value(small)
