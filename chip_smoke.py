@@ -269,17 +269,45 @@ Phases, one line of output each (more for the kernel builds), in order:
 41. ``bench.py:1869 bench_slv`` at 409,600 x 100: the smile within 0.008,
     E[V_1] within 0.004 of the CIR mean, the martingale, ``leverage_at``,
     the wall, the peak memory and the device operations a step;
+42. ``bench.py:2007 bench_portfolio_credit``: the Gaussian copula on 125
+    names (hazards and betas from ``default_rng(1)``) at 1M antithetic
+    paths (seed 7), horizons 1-10 years, the 3-7% tranche and P(>= k) for
+    k = 1, 5, 10: the ETL at every horizon within 4 standard errors + 1e-6
+    of the exact recursion, P(>= k) at 5 years within 5 standard errors +
+    1e-4 of it, both monotone in t (``tests/test_portfolio_credit.py``'s
+    bounds); the walls and the peak memory;
+43. Schwartz-Smith on ``tests/test_commodity.py``'s model at 1M antithetic
+    paths x 24 monthly steps: the futures martingale (4 standard errors +
+    1e-9), calls and puts on the 2-year future against Black-76 and the
+    calendar spread against Margrabe (4.5 standard errors + 1e-6);
+44. full-revaluation market risk on ``tests/test_risk.py``'s convex book at
+    1M scenarios (ES > VaR > 0, the Euler allocation summing to the ES
+    within 1e-9), the delta book against delta-normal within 2%, the
+    historical estimator on 500 seeded days; SA-CCR EAD and KVA on phase
+    25's 10-year par-swap exposure profile at 50,000 paths (host);
+45. the PDE layer at the JAX package's shapes: one European call and put
+    (200 x 401) within 2e-3 of Black-Scholes, an 81-strike strip, a 32-vol
+    x 81-strike ladder (200 x 401 x 2,592; its bound at the test's strikes
+    90-110) and an 81-strike American put strip (400 x 801) within
+    ``tests/test_pde.py``'s bounds and of CRR, the digital (400 x 800), the flat and the skewed SSVI local-vol call (200 x
+    401; the flat within 4e-3 of Black-Scholes, the skewed within 4
+    standard errors + 0.02 of the port's local-vol Monte Carlo at 200,000
+    paths), vega by autograd within 2% of the closed form; the skewed call
+    on the card against the CPU within 1e-12 relative; the walls and the
+    device operations a step;
 6. with ``--profile`` only, last: device operations and busy time under
    ``torch.profiler`` for one ATM calibration, one engine Jacobian, one
    ATM kernel residual call, one stoch-vol kernel
    ``residuals_and_jacobian`` call and one reduced-path stoch-vol engine
-   Jacobian, and for phases 25-41 one swap and one 20-trade profile, one
+   Jacobian, and for phases 25-45 one swap and one 20-trade profile, one
    CVA ladder, one mixed-set profile, one IM profile, one SABR smile, the
    hybrid's and Hull-White's calls, one WWR CVA and one CIR++ simulation,
    one cross-currency and one Jarrow-Yildirim simulation, and phases
    34-37's book, bridge barrier, multi-asset simulation, LS put, delta
-   hedge and MLMC run, and phases 38-41's engines and simulations, each
-   against the same call's unprofiled wall.
+   hedge and MLMC run, phases 38-41's engines and simulations, and phases
+   42-45's copula statistics, Schwartz-Smith simulation, parametric VaR,
+   ladder and local-vol solve, each against the same call's unprofiled
+   wall.
 
 Then the whole script's seconds, one JSON line with the eight kernels'
 numbers (``bound_ms`` is the least time of the same work on an
@@ -347,6 +375,12 @@ AMERICAN_PATHS, STRUCTURED_PATHS, MLMC_EPS = 1_000_000, 1_000_000, 0.03
 # rest of phases 38-40 at 1M paths; bench.py:1869 bench_slv's particles
 HESTON_PATHS, JUMP_PATHS, LOCAL_VOL_PATHS = 1_000_000, 1_000_000, 1_000_000
 SLV_PATHS = 409_600
+# bench.py:2007 bench_portfolio_credit's paths (phase 42); the 1M-path
+# Schwartz-Smith simulation and market-risk scenarios of phases 43-44
+COPULA_PATHS, COMMODITY_PATHS, RISK_SCENARIOS = 1_000_000, 1_000_000, 1_000_000
+# phase 45: the strip's strikes, the ladder's vols (BENCHMARKS.md's
+# finite-difference shapes) and the local-vol Monte Carlo's paths
+PDE_STRIKES, PDE_VOLS, PDE_MC_PATHS = 81, 32, 200_000
 # the published H100 SXM peaks the bound is taken against
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 SPIN_CYCLES = 2_000_000       # about 1 ms of the card's clock
@@ -602,7 +636,7 @@ def _profile(torch, setup, kb, sv, sv_kb, later) -> None:
     calibration, of one call of each of its device stages, of one
     stoch-vol kernel ``residuals_and_jacobian`` call, of one call of
     the stoch-vol multistart's dominant stage, the reduced-path engine
-    Jacobian, and of the calls ``later`` names (phases 25-41). Each is
+    Jacobian, and of the calls ``later`` names (phases 25-45). Each is
     run once unprofiled (host wall, synchronised) and once under
     ``torch.profiler``; the device events of the profiled run (kernels,
     copies, memsets) give the device operation count and busy time, set
@@ -3501,6 +3535,486 @@ def _slv(torch, smi) -> dict:
     return {"phase 41 SLV simulation (409,600 x 100)": run}
 
 
+def _portfolio_credit(torch, smi) -> dict:
+    """Phase 42 (no kernel): ``bench.py:2007 bench_portfolio_credit``, the
+    one-factor Gaussian copula on 125 names (hazards U(0.005, 0.06) and
+    betas U(0.3, 0.7) from ``default_rng(1)``, recovery 0.4, notionals
+    1/125) at 1M antithetic paths (seed 7), horizons 1-10 years, the 3-7%
+    tranche, P(>= k) for k = 1, 5, 10: the ETL at every horizon within 4
+    standard errors + 1e-6 of the exact recursion
+    (``tests/test_portfolio_credit.py:167``), P(>= k) at 5 years within 5
+    standard errors + 1e-4 of it (``:177``), both monotone in t
+    (``:184-185``); the walls of the latent draw and of the statistics (a
+    cold call, then the min of 3) and the peak memory above what is live.
+    Returns the calls phase 6 profiles, by name."""
+    from finmath_tpu_torch.models.credit import SurvivalCurve
+    from finmath_tpu_torch.models.portfolio_credit import (
+        GaussianCopulaPortfolio, GaussianCopulaSimulation)
+
+    t_phase = time.perf_counter()
+    walls = {}
+    timed = _named_walls(torch, walls)
+    rng = np.random.default_rng(1)
+    hazards = rng.uniform(0.005, 0.06, 125)
+    betas = rng.uniform(0.3, 0.7, 125)
+    pf = GaussianCopulaPortfolio(
+        [SurvivalCurve([0.0], [h]) for h in hazards], betas=betas,
+        recoveries=0.4, notionals=np.full(125, 1 / 125))
+    times, ks = np.arange(1.0, 11.0), (1, 5, 10)
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    sim = timed("latent_125x1m", lambda: GaussianCopulaSimulation(
+        pf, num_paths=COPULA_PATHS, seed=7, device="cuda"))
+
+    def stats():
+        return sim.tranche_statistics(times, 0.03, 0.07, ks=ks)
+
+    st = timed("tranche_statistics_10_horizons", stats)
+    peak = torch.cuda.max_memory_allocated()
+    exact = np.array([pf.expected_tranche_loss(t, 0.03, 0.07)
+                      for t in times])
+    pk5 = np.array([pf.kth_to_default_probability(5.0, k) for k in ks])
+    pk_se = np.sqrt(pk5 * (1.0 - pk5) / COPULA_PATHS)
+    out = {"names": 125, "paths": COPULA_PATHS, "horizons": len(times),
+           "etl": st["etl"].tolist(), "etl_stderr": st["etl_stderr"].tolist(),
+           "etl_exact": exact.tolist(),
+           "etl_z": ((st["etl"] - exact) / st["etl_stderr"]).tolist(),
+           "kth_prob_5y": st["kth_prob"][4].tolist(),
+           "kth_prob_5y_exact": pk5.tolist(),
+           "max_memory_allocated_gb": peak / 1e9,
+           "peak_above_live_gb": (peak - live) / 1e9, "walls": walls}
+    print(f"phase 42 portfolio credit ({smi}): " + json.dumps(out),
+          flush=True)
+    checks = {
+        "ETL within 4 se + 1e-6 of the exact recursion": bool(np.all(
+            np.abs(st["etl"] - exact) < 4 * st["etl_stderr"] + 1e-6)),
+        "P(>= k) at 5y within 5 se + 1e-4 of the exact recursion": bool(
+            np.all(np.abs(st["kth_prob"][4] - pk5) < 5 * pk_se + 1e-4)),
+        "ETL and P(>= k) monotone in t": bool(
+            np.all(np.diff(st["etl"]) > -1e-15)
+            and np.all(np.diff(st["kth_prob"], axis=0) > -1e-15)),
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: phase 42 failed: {failed}")
+    print(f"phase 42 seconds: {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+    return {"phase 42 copula tranche statistics (125 x 1M, 10 horizons)":
+            stats}
+
+
+def _commodity(torch, smi) -> dict:
+    """Phase 43 (no kernel): Schwartz-Smith on ``tests/test_commodity.py``'s
+    model at 1M antithetic paths x 24 monthly steps (seed 2): the futures
+    martingale at 1 year for four maturities within 4 standard errors +
+    1e-9 (``:80``), calls and puts on the 2-year future within 4.5 standard
+    errors + 1e-6 of Black-76 (``:94, :100``), the calendar spread within
+    4.5 standard errors + 1e-6 of Margrabe and above the struck one
+    (``:106``), the spot's mean within 4 standard errors of the futures
+    price; the walls and the peak memory. Returns the calls phase 6
+    profiles, by name."""
+    import math
+
+    from finmath_tpu_torch.models.commodity import (SchwartzSmithModel,
+                                                    SchwartzSmithSimulation)
+    from finmath_tpu_torch.models.time_discretization import (
+        TimeDiscretization)
+
+    t_phase = time.perf_counter()
+    walls = {}
+    timed = _named_walls(torch, walls)
+    model = SchwartzSmithModel(chi0=0.1, xi0=math.log(60.0), kappa=1.5,
+                               sigma_chi=0.35, sigma_xi=0.15, rho=0.3,
+                               mu_star=0.01, lambda_chi=0.05)
+    td = TimeDiscretization(initial=0.0, num_steps=24, step=1 / 12)
+
+    def simulate():
+        return SchwartzSmithSimulation(model, td, num_paths=COMMODITY_PATHS,
+                                       seed=2, device="cuda")
+
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    sim = timed("simulation_1m_x24", simulate)
+    mats, strikes = [1.5, 2.0, 3.0, 5.0], [55.0, 65.0, 75.0]
+    fut, fut_se = timed("futures_4", lambda: sim.mc_futures_prices(1.0, mats))
+    calls, calls_se = timed("calls_3", lambda: sim.mc_option_on_future(
+        1.0, 2.0, strikes, 0.97))
+    puts, puts_se = timed("puts_3", lambda: sim.mc_option_on_future(
+        1.0, 2.0, strikes, 0.97, is_call=False))
+    spread, spread_se = timed("calendar_spread", lambda: sim.mc_calendar_spread(
+        1.0, 1.5, 2.0, 0.0, 0.97))
+    struck, _ = sim.mc_calendar_spread(1.0, 1.5, 2.0, 1.0, 0.97)
+    s1 = sim.spot(1.0)
+    peak = torch.cuda.max_memory_allocated()
+    f0 = model.futures_price(mats)
+    bl_c = [model.option_on_future(1.0, 2.0, k, 0.97) for k in strikes]
+    bl_p = [model.option_on_future(1.0, 2.0, k, 0.97, is_call=False)
+            for k in strikes]
+    mg = model.calendar_spread_margrabe(1.0, 1.5, 2.0, 0.97)
+    spot_mean, spot_se = s1.get_average(), s1.get_standard_error()
+    out = {"paths": COMMODITY_PATHS, "steps": 24,
+           "futures": fut.tolist(), "futures_se": fut_se.tolist(),
+           "futures_exact": f0.tolist(),
+           "calls": calls.tolist(), "calls_black76": bl_c,
+           "puts": puts.tolist(), "puts_black76": bl_p,
+           "spread": spread, "spread_se": spread_se, "margrabe": mg,
+           "struck_spread": struck, "spot_1y": spot_mean,
+           "max_memory_allocated_gb": peak / 1e9,
+           "peak_above_live_gb": (peak - live) / 1e9, "walls": walls}
+    print(f"phase 43 Schwartz-Smith ({smi}): " + json.dumps(out), flush=True)
+    checks = {
+        "futures martingale within 4 se + 1e-9": bool(
+            np.all(np.abs(fut - f0) < 4 * fut_se + 1e-9)),
+        "calls within 4.5 se + 1e-6 of Black-76": bool(
+            np.all(np.abs(calls - bl_c) < 4.5 * calls_se + 1e-6)),
+        "puts within 4.5 se + 1e-6 of Black-76": bool(
+            np.all(np.abs(puts - bl_p) < 4.5 * puts_se + 1e-6)),
+        "spread within 4.5 se + 1e-6 of Margrabe":
+            abs(spread - mg) < 4.5 * spread_se + 1e-6,
+        "struck spread below the unstruck": struck < spread,
+        "spot mean within 4 se of the futures price":
+            abs(spot_mean - float(model.futures_price(1.0))) < 4 * spot_se,
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: phase 43 failed: {failed}")
+    print(f"phase 43 seconds: {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+    return {"phase 43 Schwartz-Smith simulation (1M x 24)": simulate}
+
+
+def _market_risk_capital(torch, smi) -> dict:
+    """Phase 44 (no kernel): ``tests/test_risk.py``'s convex book (4 options
+    on 2 underlyings) at 1M scenarios (seed 5): ES > VaR > 0, the Euler
+    allocation summing to the ES within 1e-9 (``:83``), the short leg's
+    component negative, full revaluation below delta-normal (net long
+    gamma), vol shocks adding risk; the delta book at 1M scenarios within
+    2% of delta-normal (``:92``); the historical estimator on 500 days of
+    ``default_rng(0)`` returns; then SA-CCR EAD and KVA (host) on phase
+    25's 10-year par-swap exposure profile at 50,000 paths, finite and
+    positive (``tests/test_regulatory.py:233-236``). The walls and the peak
+    memory. Returns the calls phase 6 profiles, by name."""
+    from finmath_tpu_torch.models.curves import par_swap_rate
+    from finmath_tpu_torch.models.lmm import build_atm_calibration
+    from finmath_tpu_torch.models.lmm import exposure as xv
+    from finmath_tpu_torch.models.regulatory import (SACCRTrade, kva,
+                                                     saccr_ead_profile)
+    from finmath_tpu_torch.models.risk import MarketRiskEngine, OptionBook
+
+    t_phase = time.perf_counter()
+    walls = {}
+    timed = _named_walls(torch, walls)
+    cov = np.array([[0.04, 0.012], [0.012, 0.09]])
+    book = OptionBook(spots=[100.0, 50.0], rate=0.02,
+                      underlying_index=[0, 0, 1, 1],
+                      strikes=[100.0, 110.0, 50.0, 45.0],
+                      expiries=[0.5, 1.0, 0.25, 1.0],
+                      vols=[0.2, 0.22, 0.3, 0.28],
+                      notionals=[100.0, -50.0, 80.0, 40.0],
+                      is_call=[True, True, True, False])
+    eng = MarketRiskEngine(book, horizon=1 / 252, device="cuda")
+
+    def parametric():
+        return eng.parametric_mc(cov, num_scenarios=RISK_SCENARIOS,
+                                 quantile=0.99, seed=5)
+
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    rep = timed("parametric_1m", parametric)
+    peak = torch.cuda.max_memory_allocated()
+    vega = timed("parametric_vol_shocks_1m", lambda: eng.parametric_mc(
+        cov, num_scenarios=RISK_SCENARIOS, seed=5,
+        vol_covariance=np.diag([1.0, 1.0])))
+    dn_convex = eng.delta_normal_var(cov, 0.99)
+    delta_eng = MarketRiskEngine(
+        OptionBook(spots=[100.0], rate=0.02, underlying_index=[0],
+                   strikes=[20.0], expiries=[1.0], vols=[0.2],
+                   notionals=[100.0]), horizon=1 / 252, device="cuda")
+    cov1 = np.array([[0.04]])
+    drep = timed("delta_book_1m", lambda: delta_eng.parametric_mc(
+        cov1, num_scenarios=RISK_SCENARIOS, seed=7))
+    dn = delta_eng.delta_normal_var(cov1, 0.99)
+    hist = np.random.default_rng(0).multivariate_normal([0, 0], cov / 252,
+                                                        size=500)
+    hrep = timed("historical_500", lambda: eng.historical(hist,
+                                                          quantile=0.99))
+    # SA-CCR and KVA on phase 25's 10Y par payer swap profile
+    setup = build_atm_calibration(num_paths=EXPOSURE_PATHS, num_factors=1,
+                                  device="cuda")
+    model, p0 = setup.model, setup.covariance.initial_parameters
+    par = float(par_swap_rate(model.forward_curve, model.discount_curve,
+                              model.tenor_times[4:21]))
+    xeng = xv.SwapExposureEngine(model, first_index=4, last_index=20,
+                                 strike=par, num_paths=EXPOSURE_PATHS,
+                                 num_factors=1, quantiles=(0.95, 0.99),
+                                 device="cuda")
+    prof = xeng.profile(p0)
+    tenor = model.tenor_times
+    trades = [SACCRTrade(1.0, float(tenor[4]), float(tenor[20]))]
+    t0 = time.perf_counter()
+    ead = saccr_ead_profile(prof, trades)
+    kva_value = kva(prof, trades, counterparty_hazard_rate=0.02)
+    host_ms = (time.perf_counter() - t0) * 1e3
+
+    def report(r):
+        return {"var": r.var, "es": r.expected_shortfall,
+                "mean_pnl": r.mean_pnl, "stderr_var": r.stderr_var,
+                "component_es": r.component_es.tolist()}
+
+    out = {"scenarios": RISK_SCENARIOS, "convex": report(rep),
+           "convex_vol_shocks": report(vega), "delta_normal_convex": dn_convex,
+           "delta_book": report(drep), "delta_normal": dn,
+           "delta_book_gap": abs(drep.var - dn) / dn,
+           "historical_500": report(hrep),
+           "euler_identity_err": abs(float(np.sum(rep.component_es))
+                                     - rep.expected_shortfall),
+           "saccr_dates": len(prof.times), "ead": ead.tolist(),
+           "kva": kva_value, "saccr_kva_host_ms": host_ms,
+           "max_memory_allocated_gb": peak / 1e9,
+           "peak_above_live_gb": (peak - live) / 1e9, "walls": walls}
+    print(f"phase 44 market risk and capital ({smi}): " + json.dumps(out),
+          flush=True)
+    checks = {
+        "ES > VaR > 0": rep.expected_shortfall > rep.var > 0,
+        "Euler allocation sums to the ES within 1e-9":
+            out["euler_identity_err"] < 1e-9,
+        "the short leg's component negative": rep.component_es[1] < 0,
+        "convex book below delta-normal": rep.var < dn_convex,
+        "vol shocks add risk": vega.var > rep.var,
+        "delta book within 2% of delta-normal": out["delta_book_gap"] < 0.02,
+        "historical finite, ES >= VaR": bool(
+            np.isfinite(hrep.var) and hrep.expected_shortfall >= hrep.var),
+        "EAD finite, positive at the first date": bool(
+            ead[0] > 0.0 and np.all(np.isfinite(ead))),
+        "KVA finite and positive": bool(np.isfinite(kva_value)
+                                        and kva_value > 0.0),
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: phase 44 failed: {failed}")
+    print(f"phase 44 seconds: {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+    return {"phase 44 parametric VaR (1M scenarios)": parametric}
+
+
+def _pde(torch, smi) -> dict:
+    """Phase 45 (no kernel): the finite-difference layer at the JAX
+    package's shapes (``BENCHMARKS.md``, "Finite-difference layer"):
+    ``tests/test_pde.py``'s European call and put (200 x 401) within 2e-3
+    of Black-Scholes (``:45, :50``); an 81-strike strip (60-140) within the
+    strip's bound (``:134-137``) and a 32-vol (0.15-0.46) x 81-strike ladder
+    (200 x 401 x 2,592) within the ladder's (``:139-149``) over the test's
+    strike span 90-110, the error over the whole ladder printed (off that
+    span the low-vol, far out-of-the-money calls, held to an absolute
+    6e-3, carry the Crank-Nicolson kink's error); the American put (400 x
+    801) within 2e-3 of CRR at 4,000 steps (``:84-88``) and an 81-strike
+    American put strip (400 x 801) within 3e-3 of CRR at 2,000 steps at the
+    test's strikes 100 and 120 (``:146-149``), the gap over the strip
+    printed; the digital (400 x 801) within 2e-3 (``:68``); the flat SSVI
+    local-vol call within 4e-3 of Black-Scholes (``:251-263``) and the
+    skewed one within 4 standard errors + 0.02 of the port's local-vol
+    Monte Carlo at 200,000 paths (``:265-291``); vega by autograd (100 x
+    401) within 2% of the closed form (``:164-187``); the skewed call's
+    grid on the card against the same solve on the CPU within 1e-12 of
+    the largest value. The walls (a cold call, then the min of 3), the
+    peak memory, and the device operations a step of the call and of the
+    local-vol solve (from the profiles of a 20- and a 40-step solve).
+    Returns the calls phase 6 profiles, by name."""
+    import math
+    from statistics import NormalDist
+
+    from finmath_tpu_torch.models.american import crr_american_price
+    from finmath_tpu_torch.models.analytic import black_scholes_option_value
+    from finmath_tpu_torch.models.local_vol import (
+        LocalVolatilityModel, MonteCarloLocalVolModel, SSVISurface,
+        european_call_values)
+    from finmath_tpu_torch.models.pde import (
+        FDMAmericanPutOption, FDMBlackScholesModel, FDMDigitalOption,
+        FDMEuropeanCallOption, FDMEuropeanPutOption, FDMLocalVolatilityModel,
+        fdm_black_scholes_prices, theta_scheme_solve)
+    from finmath_tpu_torch.models.time_discretization import (
+        TimeDiscretization)
+
+    t_phase = time.perf_counter()
+    walls = {}
+    timed = _named_walls(torch, walls)
+    s0, r, sigma, mat, k = 100.0, 0.05, 0.30, 1.0, 110.0
+
+    def bs_model(nt, nx):
+        return FDMBlackScholesModel(
+            num_timesteps=nt, num_spacesteps=nx, num_standard_deviations=8.0,
+            center=s0, theta=0.5, initial_value=s0, risk_free_rate=r,
+            volatility=sigma)
+
+    def lv_model(surface, nsd, ref, nt=200):
+        return FDMLocalVolatilityModel(
+            num_timesteps=nt, num_spacesteps=400,
+            num_standard_deviations=nsd, theta=0.5, initial_value=s0,
+            risk_free_rate=r, surface=surface, reference_vol=ref)
+
+    def bs(vol, strike, is_call=True):
+        return black_scholes_option_value(s0, r, vol, mat, strike, is_call)
+
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    model = bs_model(200, 400)
+
+    def call():
+        return FDMEuropeanCallOption(mat, k).value(model, device="cuda")
+
+    call_v = timed("european_call_200x401", call)
+    put_v = FDMEuropeanPutOption(mat, k).value(model, device="cuda")
+    strikes = np.linspace(60.0, 140.0, PDE_STRIKES)
+    vols = (0.15 + 0.01 * np.arange(PDE_VOLS))[:, None]
+    strip = timed("strip_81_200x401", lambda: fdm_black_scholes_prices(
+        s0, r, sigma, mat, strikes, device="cuda"))
+
+    def ladder():
+        return fdm_black_scholes_prices(s0, r, vols, mat, strikes,
+                                        device="cuda")
+
+    lad = timed("ladder_32x81_200x401", ladder)
+    am_model = bs_model(400, 800)
+    am_put = timed("american_put_400x801", lambda: FDMAmericanPutOption(
+        mat, k).value(am_model, device="cuda"))
+    am_strip = timed("american_strip_81_400x801",
+                     lambda: fdm_black_scholes_prices(
+                         s0, r, sigma, mat, strikes, is_call=False,
+                         american=True, num_timesteps=400,
+                         num_spacesteps=800, device="cuda"))
+    digital = timed("digital_400x801", lambda: FDMDigitalOption(
+        mat, k).value(am_model, device="cuda"))
+    flat = lv_model(SSVISurface(sigma0=sigma, sigma_inf=sigma, tau=1.0,
+                                rho=0.0, eta=0.0, gamma=0.5), 8.0, sigma)
+    flat_v = timed("local_vol_flat_200x401", lambda: FDMEuropeanCallOption(
+        mat, k).value(flat, device="cuda"))
+    skew_surface = SSVISurface(sigma0=0.22, sigma_inf=0.32, tau=1.2,
+                               rho=-0.55, eta=0.8, gamma=0.45)
+    skew = lv_model(skew_surface, 9.0, 0.35)
+    lv_strikes = [90.0, 100.0, 110.0]
+
+    def skew_call():
+        return FDMEuropeanCallOption(mat, k).get_value(0.0, skew,
+                                                       device="cuda")
+
+    skew_grid = timed("local_vol_skew_200x401", skew_call)[1]
+    skew_v = [FDMEuropeanCallOption(mat, kk).value(skew, device="cuda")
+              for kk in lv_strikes]
+    td = TimeDiscretization(initial=0.0, num_steps=100, step=mat / 100)
+    mc = MonteCarloLocalVolModel(
+        td, num_paths=PDE_MC_PATHS,
+        model=LocalVolatilityModel(s0, r, skew_surface, td), seed=4242,
+        device="cuda")
+    mc_v = np.asarray(european_call_values(mc, lv_strikes, [mat]))
+    del mc
+    x = np.linspace(math.log(s0) - 3.0, math.log(s0) + 3.0, 401)
+    terminal = np.maximum(np.exp(x) - k, 0.0)
+    xq = math.log(s0)
+    idx = int(np.searchsorted(x, xq)) - 1
+    w = (xq - x[idx]) / (x[idx + 1] - x[idx])
+
+    def vega_run():
+        sig = torch.tensor(sigma, dtype=torch.float64, device="cuda",
+                           requires_grad=True)
+        ones = torch.ones(x.shape, dtype=torch.float64, device="cuda")
+
+        def coeff_fn(t):
+            del t
+            return ones * r - 0.5 * sig ** 2, ones * sig ** 2, ones * r
+
+        v = theta_scheme_solve(x, terminal, coeff_fn, mat, 100,
+                               device="cuda")
+        (v[idx] * (1 - w) + v[idx + 1] * w).backward()
+        return float(sig.grad)
+
+    vega = timed("vega_autograd_100x401", vega_run)
+    peak = torch.cuda.max_memory_allocated()
+    cpu_skew = FDMEuropeanCallOption(mat, k).get_value(0.0, skew,
+                                                       device="cpu")[1]
+    card_vs_cpu = float(np.max(np.abs(skew_grid - cpu_skew))
+                        / np.max(np.abs(cpu_skew)))
+
+    def ops_per_step(model_of):
+        # the profiled device operations of a 40-step solve less those of
+        # a 20-step one, over 20: the set-up and the factoring cancel
+        n = [_device_busy(torch, lambda m=model_of(nt): FDMEuropeanCallOption(
+            mat, k).value(m, device="cuda"))["device_ops"] for nt in (20, 40)]
+        return (n[1] - n[0]) / 20
+
+    ops = {"european_call": ops_per_step(lambda nt: bs_model(nt, 400)),
+           "local_vol_skew": ops_per_step(
+               lambda nt: lv_model(skew_surface, 9.0, 0.35, nt))}
+    d2 = (math.log(s0 / k) + (r - 0.5 * sigma ** 2) * mat) \
+        / (sigma * math.sqrt(mat))
+    digital_exact = math.exp(-r * mat) * NormalDist().cdf(d2)
+    crr = crr_american_price(s0, r, sigma, mat, k, is_call=False,
+                             num_steps=4000)
+    crr_strip = np.array([crr_american_price(s0, r, sigma, mat, kk,
+                                             is_call=False, num_steps=2000)
+                          for kk in strikes])
+    test_strikes = np.isin(strikes, (100.0, 120.0))
+    test_span = (strikes >= 90.0) & (strikes <= 110.0)
+    strip_bs = np.array([bs(sigma, kk) for kk in strikes])
+    ladder_bs = np.array([[bs(float(v), kk) for kk in strikes]
+                          for v in vols[:, 0]])
+    d1 = (math.log(s0 / k) + (r + 0.5 * sigma ** 2) * mat) \
+        / (sigma * math.sqrt(mat))
+    vega_exact = s0 * math.exp(-0.5 * d1 ** 2) / math.sqrt(2 * math.pi) \
+        * math.sqrt(mat)
+    am_gap = np.abs(am_strip - crr_strip) / crr_strip
+    out = {"call": call_v, "call_bs": bs(sigma, k),
+           "put": put_v, "put_bs": bs(sigma, k, False),
+           "strip_max_abs_err": float(np.max(np.abs(strip - strip_bs))),
+           "ladder_shape": list(lad.shape),
+           "ladder_max_abs_err": float(np.max(np.abs(lad - ladder_bs))),
+           "ladder_max_abs_err_90_110": float(np.max(np.abs(
+               lad - ladder_bs)[:, test_span])),
+           "american_put": am_put, "crr_4000": crr,
+           "american_strip_rel_gap_test_strikes": am_gap[test_strikes].tolist(),
+           "american_strip_max_rel_gap": float(np.max(am_gap)),
+           "american_strip_max_rel_gap_at": float(strikes[np.argmax(am_gap)]),
+           "digital": digital, "digital_exact": digital_exact,
+           "local_vol_flat": flat_v, "local_vol_skew": skew_v,
+           "local_vol_mc": mc_v[0, :, 0].tolist(),
+           "local_vol_mc_se": mc_v[0, :, 1].tolist(),
+           "vega": vega, "vega_exact": vega_exact,
+           "card_vs_cpu_rel": card_vs_cpu, "device_ops_per_step": ops,
+           "max_memory_allocated_gb": peak / 1e9,
+           "peak_above_live_gb": (peak - live) / 1e9, "walls": walls}
+    print(f"phase 45 PDE layer ({smi}): " + json.dumps(out), flush=True)
+    checks = {
+        "call within 2e-3 of Black-Scholes":
+            abs(call_v - bs(sigma, k)) < 2e-3 * bs(sigma, k),
+        "put within 2e-3 of Black-Scholes":
+            abs(put_v - bs(sigma, k, False)) < 2e-3 * bs(sigma, k, False),
+        "strip within rtol 4e-3, atol 2e-3": bool(np.all(
+            np.abs(strip - strip_bs) <= 2e-3 + 4e-3 * np.abs(strip_bs))),
+        "ladder within 6e-3 max(value, 1) at strikes 90-110": bool(np.all(
+            (np.abs(lad - ladder_bs) < 6e-3 * np.maximum(ladder_bs, 1.0))[
+                :, test_span])),
+        "American put within 2e-3 of CRR 4000": abs(am_put - crr)
+            < 2e-3 * crr,
+        "American strip within 3e-3 of CRR 2000 at 100 and 120": bool(
+            np.all(am_gap[test_strikes] < 3e-3)),
+        "digital within 2e-3": abs(digital - digital_exact) < 2e-3,
+        "flat local vol within 4e-3 of Black-Scholes":
+            abs(flat_v - bs(sigma, k)) < 4e-3 * bs(sigma, k),
+        "skewed local vol within 4 se + 0.02 of the Monte Carlo": bool(
+            np.all(np.abs(np.asarray(skew_v) - mc_v[0, :, 0])
+                   < 4.0 * mc_v[0, :, 1] + 0.02)),
+        "vega within 2% of the closed form":
+            abs(vega - vega_exact) < 2e-2 * vega_exact,
+        "card within 1e-12 of the CPU": card_vs_cpu < 1e-12,
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: phase 45 failed: {failed}")
+    print(f"phase 45 seconds: {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+    return {"phase 45 ladder (32 x 81, 200 x 401)": ladder,
+            "phase 45 local-vol call (200 x 401)": skew_call}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -3941,6 +4455,11 @@ def main(argv=None) -> int:
     # Dupire local vol and Heston-SLV (no kernel) ---------------------------
     later.update({**_heston(torch, smi), **_jumps_gaussian(torch, smi),
                   **_local_vol(torch, smi), **_slv(torch, smi)})
+
+    # -- 42-45: slice E5 (portfolio credit, Schwartz-Smith, market risk and
+    # SA-CCR capital) and the PDE layer (no kernel) -------------------------
+    later.update({**_portfolio_credit(torch, smi), **_commodity(torch, smi),
+                  **_market_risk_capital(torch, smi), **_pde(torch, smi)})
 
     if opts.profile:
         _profile(torch, setup, kb, sv, sv_kb, later)

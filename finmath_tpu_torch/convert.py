@@ -21,7 +21,11 @@ cross-currency and a Jarrow-Yildirim model through
 a Black-Scholes and a multi-asset Black-Scholes model through
 ``black_scholes_model_from_jax`` and ``multi_asset_model_from_jax``, and
 an equity product (the exotics, rainbows, Bermudan, structured products,
-hedge and variance swap) through ``equity_product_from_jax`` (all read by
+hedge and variance swap) through ``equity_product_from_jax``; a copula
+portfolio, a Schwartz-Smith model, an option book, an SA-CCR trade and the
+three FDM models through ``copula_portfolio_from_jax``,
+``schwartz_smith_model_from_jax``, ``option_book_from_jax``,
+``saccr_trade_from_jax`` and ``fdm_model_from_jax`` (all read by
 attribute, without importing the JAX package).
 """
 
@@ -305,3 +309,84 @@ def equity_model_from_jax(obj):
         out.leverage_min, out.leverage_max, out.min_vol, out.max_vol,
         out.t_floor, out.denominator_floor, None, times)
     return out
+
+
+def copula_portfolio_from_jax(portfolio):
+    """The port's ``GaussianCopulaPortfolio`` with the survival curves,
+    betas, recoveries and notionals (``.curves``, ``.betas``,
+    ``.recoveries``, ``.notionals``) of another package's."""
+    from .models.portfolio_credit import GaussianCopulaPortfolio
+
+    return GaussianCopulaPortfolio(
+        [survival_curve_from_jax(c) for c in portfolio.curves],
+        np.array(portfolio.betas, dtype=np.float64),
+        recoveries=np.array(portfolio.recoveries, dtype=np.float64),
+        notionals=np.array(portfolio.notionals, dtype=np.float64))
+
+
+def schwartz_smith_model_from_jax(model):
+    """The port's ``SchwartzSmithModel`` with the factors and parameters
+    (``.chi0``, ``.xi0``, ``.kappa``, ``.s_chi``, ``.s_xi``, ``.rho``,
+    ``.mu_star``, ``.lam``) of another package's."""
+    from .models.commodity import SchwartzSmithModel
+
+    return SchwartzSmithModel(
+        float(model.chi0), float(model.xi0), float(model.kappa),
+        float(model.s_chi), float(model.s_xi), float(model.rho),
+        mu_star=float(model.mu_star), lambda_chi=float(model.lam))
+
+
+def option_book_from_jax(book):
+    """The port's ``OptionBook`` with the spots, rate and instrument
+    arrays (``.spots``, ``.rate``, ``.idx``, ``.strikes``, ``.expiries``,
+    ``.vols``, ``.notionals``, ``.is_call``) of another package's."""
+    from .models.risk import OptionBook
+
+    return OptionBook(
+        np.array(book.spots, dtype=np.float64), float(book.rate),
+        np.array(book.idx, dtype=np.int64),
+        np.array(book.strikes, dtype=np.float64),
+        np.array(book.expiries, dtype=np.float64),
+        np.array(book.vols, dtype=np.float64),
+        np.array(book.notionals, dtype=np.float64),
+        is_call=np.array(book.is_call) != 0)
+
+
+def saccr_trade_from_jax(trade):
+    """The port's ``SACCRTrade`` with the notional, start, end, delta and
+    hedging set of another package's."""
+    from .models.regulatory import SACCRTrade
+
+    return SACCRTrade(float(trade.notional), float(trade.start),
+                      float(trade.end), float(trade.delta),
+                      str(trade.hedging_set))
+
+
+#: the FDM models ``fdm_model_from_jax`` maps, by class name
+_FDM_MODELS = ("FDMBlackScholesModel", "FDMConstantElasticityOfVarianceModel",
+               "FDMLocalVolatilityModel")
+
+
+def fdm_model_from_jax(model):
+    """The port's FDM model of the same class name with the same fields as
+    another package's (``FDMBlackScholesModel``,
+    ``FDMConstantElasticityOfVarianceModel``, ``FDMLocalVolatilityModel``;
+    the local-vol model's surface through ``equity_model_from_jax``)."""
+    import dataclasses
+
+    from .models import pde
+
+    name = type(model).__name__
+    if name not in _FDM_MODELS:
+        raise ValueError(f"no FDM model of the port is named {name!r}")
+    fields = {}
+    for f in dataclasses.fields(model):
+        value = getattr(model, f.name)
+        if f.name == "surface":
+            value = equity_model_from_jax(value)
+        elif isinstance(value, (int, np.integer)):
+            value = int(value)
+        else:
+            value = float(value)
+        fields[f.name] = value
+    return getattr(pde, name)(**fields)

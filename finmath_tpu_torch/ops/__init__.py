@@ -3,6 +3,7 @@ from .lazy import (RandomVariableTorchLazy, RandomVariableTorchLazyFactory,
 from .random_variable import (RandomVariable, RandomVariableTorch,
                               RandomVariableTorchFactory)
 from .random_variable_float import RandomVariableFloat, RandomVariableFloatFactory
+from .tridiagonal import tridiagonal_matvec, tridiagonal_solve
 
 __all__ = [
     "RandomVariable",
@@ -14,4 +15,6 @@ __all__ = [
     "RandomVariableFloatFactory",
     "averages",
     "flush",
+    "tridiagonal_matvec",
+    "tridiagonal_solve",
 ]
