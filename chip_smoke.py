@@ -295,6 +295,22 @@ Phases, one line of output each (more for the kernel builds), in order:
     paths), vega by autograd within 2% of the closed form; the skewed call
     on the card against the CPU within 1e-12 relative; the walls and the
     device operations a step;
+46. path-axis sharding over torch.distributed, each world spawned as child
+    processes (``parallel.launch``) and joined with a deadline: (a) an
+    NCCL world of one on ``cuda:0`` runs the ATM setup at full width
+    (100,000 paths, the 5,000-path Jacobian engine) meshed on the
+    unsharded engines' own increments, within the float64 reduction gap
+    of them (values 1e-12 relative, residuals and Jacobian 1e-9), the
+    kernel backend refusing the meshed engine, then the warm start and the
+    LM calibration on engine residuals (|mean_dev| < 2e-4); (b) a gloo
+    world of two ranks sharing the card (collectives staged through host
+    memory): the ATM residuals and Jacobian against (a)'s, bitwise-equal
+    parameters on both ranks after two LM iterations, the stoch-vol engine
+    at 81,920 Mersenne paths and the Black-Scholes facade at 1M x 100
+    (European, Asian, barrier, lookback) against the unsharded ones, and
+    ``mc_price_sharded`` at 1M paths within 4 standard errors of the
+    analytic price; the walls, the seconds in collectives and the peak
+    memory per rank (two ranks on one card are no scaling figure);
 6. with ``--profile`` only, last: device operations and busy time under
    ``torch.profiler`` for one ATM calibration, one engine Jacobian, one
    ATM kernel residual call, one stoch-vol kernel
@@ -4015,6 +4031,312 @@ def _pde(torch, smi) -> dict:
             "phase 45 local-vol call (200 x 401)": skew_call}
 
 
+# ---------------------------------------------------------------------------
+# phase 46: path-axis sharding over torch.distributed (no kernel)
+# ---------------------------------------------------------------------------
+
+MESH_BS_PATHS, MESH_BS_STEPS = 1_000_000, 100
+MESH_LM_ITERATIONS = 2
+MESH_JOIN_SECONDS = 300
+# the ranks import this file by its name (run as a script it is __main__)
+MODULE = os.path.splitext(os.path.basename(__file__))[0]
+
+
+def _mesh_atm_rank(mesh, increments, jac_increments, calibrate):
+    """Phase 46, on every rank: the ATM setup at full width with its two
+    engines meshed on the injected blocks (the 100,000-path residual
+    engine and the 5,000-path Jacobian engine): values, residuals and the
+    Jacobian at the initial parameters; with ``calibrate`` the analytic
+    warm start and the LM calibration on engine residuals, and whether the
+    kernel backend refuses the meshed engine; else two LM iterations from
+    the initial parameters."""
+    import dataclasses
+
+    import torch
+
+    from finmath_tpu_torch.models.lmm import (ATMKernelCalibration,
+                                              build_atm_calibration)
+    from finmath_tpu_torch.models.lmm.model import LMMValuationEngine
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    setup = build_atm_calibration(num_paths=PATHS, num_factors=1, seed=SEED,
+                                  jacobian_paths=JAC_PATHS, mesh=mesh)
+    meshed = setup.engine.mesh is mesh and setup.jacobian_engine.mesh is mesh
+    setup = dataclasses.replace(
+        setup,
+        engine=LMMValuationEngine(setup.model, setup.products, PATHS, 1,
+                                  SEED, increments=increments, mesh=mesh),
+        jacobian_engine=LMMValuationEngine(
+            setup.model, setup.products, JAC_PATHS, 1, SEED,
+            increments=jac_increments, mesh=mesh))
+    x0 = np.asarray(setup.covariance.initial_parameters)
+    out = {"meshed_setup": meshed,
+           "values": setup.engine.values(x0),
+           "residuals": setup.engine.residuals(x0),
+           "jacobian": setup.jacobian_engine.jacobian(x0)}
+    if calibrate:
+        try:
+            ATMKernelCalibration(setup.engine)
+            out["kernel_backend_refused"] = False
+        except ValueError:
+            out["kernel_backend_refused"] = True
+        t_cal = time.perf_counter()
+        result = setup.calibrate(warm_start="analytic")
+        out["calibration_s"] = time.perf_counter() - t_cal
+        dev = setup.deviations(result.parameters)
+        out.update(iterations=result.iterations,
+                   rms_dev=float(np.sqrt(np.mean(dev ** 2))),
+                   mean_dev=float(np.mean(dev)))
+    else:
+        result = setup.calibrate(max_iterations=MESH_LM_ITERATIONS)
+        out["lm_parameters"] = result.parameters
+    torch.cuda.synchronize()
+    out.update(rank=mesh.rank, device=str(mesh.device), backend=mesh.backend,
+               wall_s=time.perf_counter() - t0,
+               collective_s=mesh.seconds, collectives=mesh.calls,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return out
+
+
+def _mesh_pair_rank(mesh, increments, jac_increments):
+    """Phase 46 (b), on each of two gloo ranks sharing the card: the ATM
+    engines of (a) on half the block each, two LM iterations, the
+    stoch-vol engine at 81,920 Mersenne paths, the Black-Scholes facade at
+    1M x 100 with four products, and ``mc_price_sharded`` at 1M paths."""
+    import torch
+
+    from finmath_tpu_torch.models.lmm import build_benchmark_calibration
+    from finmath_tpu_torch.parallel import mc_price_sharded
+
+    out = _mesh_atm_rank(mesh, increments, jac_increments, calibrate=False)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    sv = build_benchmark_calibration(num_paths=SV_PATHS, seed=SV_SEED,
+                                     brownian="finmath_mersenne", mesh=mesh)
+    p0 = np.asarray(sv.covariance.initial_parameters)
+    out["sv_residuals"] = sv.engine.residuals(p0)
+    out["sv_jacobian"] = sv.engine.jacobian(p0)
+    del sv
+    sim = _mesh_bs_facade(mesh)
+    out["bs_prices"] = {name: p.get_value_and_error(sim)
+                        for name, p in _mesh_bs_products().items()}
+    out["bs_local_paths"] = int(sim.process._lazy_states().shape[-1])
+    del sim
+    s0, r, sigma, maturity, strike = BS_PARAMS
+    out["mc_price"] = float(mc_price_sharded(
+        mesh, BS_SEED, MESH_BS_PATHS, MESH_BS_STEPS, s0, r, sigma, maturity,
+        strike))
+    torch.cuda.synchronize()
+    out.update(wall_s=out["wall_s"] + time.perf_counter() - t0,
+               collective_s=mesh.seconds, collectives=mesh.calls,
+               peak_gb=max(out["peak_gb"],
+                           torch.cuda.max_memory_allocated() / 1e9))
+    return out
+
+
+def _mesh_bs_facade(mesh):
+    from finmath_tpu_torch.models.black_scholes import (
+        BlackScholesModel, MonteCarloBlackScholesModel)
+    from finmath_tpu_torch.models.time_discretization import (
+        TimeDiscretization)
+
+    td = TimeDiscretization(initial=0.0, num_steps=MESH_BS_STEPS,
+                            step=1.0 / MESH_BS_STEPS)
+    return MonteCarloBlackScholesModel(
+        td, MESH_BS_PATHS, BlackScholesModel(100.0, 0.05, 0.3), seed=5,
+        mesh=mesh, device="cuda")
+
+
+def _mesh_bs_products():
+    from finmath_tpu_torch.models.black_scholes import EuropeanOption
+    from finmath_tpu_torch.models.equity_products import (AsianOption,
+                                                          BarrierOption,
+                                                          LookbackOption)
+
+    return {"european_105": EuropeanOption(1.0, 105.0),
+            "asian": AsianOption([0.2, 0.6, 1.0], 100.0),
+            "barrier_up_out": BarrierOption(1.0, 100.0, 130.0, "up-out"),
+            "lookback_floating": LookbackOption(1.0, "floating-call")}
+
+
+def _call_payoff_stderr(s0, r, sigma, maturity, strike, paths) -> float:
+    """The standard error of the discounted call payoff's mean over
+    ``paths`` Black-Scholes paths, from the payoff's exact second moment."""
+    import math
+
+    def ncdf(x):
+        return 0.5 * (1.0 + math.erf(x / math.sqrt(2.0)))
+
+    vt = sigma * math.sqrt(maturity)
+    d1 = (math.log(s0 / strike) + (r + 0.5 * sigma * sigma) * maturity) / vt
+    d2 = d1 - vt
+    first = s0 * math.exp(r * maturity) * ncdf(d1) - strike * ncdf(d2)
+    second = (s0 * s0 * math.exp((2 * r + sigma * sigma) * maturity)
+              * ncdf(d1 + vt)
+              - 2 * strike * s0 * math.exp(r * maturity) * ncdf(d1)
+              + strike * strike * ncdf(d2))
+    return math.exp(-r * maturity) * math.sqrt(
+        (second - first * first) / paths)
+
+
+def _path_mesh(torch, smi) -> None:
+    """Phase 46 (no kernel): the meshed main path on the card, each world
+    spawned as child processes with a ``file://`` store in a temporary
+    directory and joined within ``MESH_JOIN_SECONDS``; a failing or hung
+    rank fails the phase.
+
+    (a) An NCCL world of one on ``cuda:0``: the ATM setup at full width
+    (80 libors, 144 products, 43 parameters, 100,000 paths, the 5,000-path
+    Jacobian engine, seed 31415) meshed on the unsharded engines' own
+    increments, against the unsharded engines: values within 1e-12
+    relative, residuals and the Jacobian within 1e-9; the kernel backend
+    refuses the meshed engine; the analytic warm start and the LM
+    calibration on engine residuals reach |mean_dev| < 2e-4.
+    (b) A gloo world of two ranks sharing the card (NCCL refuses two ranks
+    on one GPU; gloo stages each collective through host memory): the ATM
+    residuals and Jacobian on half the block each against (a)'s; two LM
+    iterations leave bitwise-equal parameters on both ranks; the stoch-vol
+    engine at 81,920 Mersenne paths against the unsharded engine on the
+    same stream (residuals and Jacobian within 1e-9); the Black-Scholes
+    facade at 1M x 100 (European 105, Asian, up-out barrier, floating
+    lookback) within 1e-9 relative of the unsharded facade;
+    ``mc_price_sharded`` at 1M x 100 within 4 standard errors of the
+    analytic price.
+    Printed: each world's walls, the seconds in collectives and the peak
+    device memory per rank, beside the card's name and power limit."""
+    from finmath_tpu_torch.models.analytic import black_scholes_option_value
+    from finmath_tpu_torch.models.lmm import (build_atm_calibration,
+                                              build_benchmark_calibration)
+    from finmath_tpu_torch.parallel.launch import start_world
+
+    t_phase = time.perf_counter()
+    setup = build_atm_calibration(num_paths=PATHS, num_factors=1, seed=SEED,
+                                  jacobian_paths=JAC_PATHS, device="cuda")
+    x0 = np.asarray(setup.covariance.initial_parameters)
+    blocks = dict(increments=setup.engine.increments.cpu().numpy(),
+                  jac_increments=setup.jacobian_engine.increments.cpu()
+                  .numpy())
+    plain = {"values": setup.engine.values(x0),
+             "residuals": setup.engine.residuals(x0),
+             "jacobian": setup.jacobian_engine.jacobian(x0)}
+    del setup
+
+    # each world's unsharded references run while its ranks start up
+    t0 = time.perf_counter()
+    with start_world(f"{MODULE}:_mesh_atm_rank", 1, backend="nccl",
+                     device="cuda:0",
+                     kwargs=dict(calibrate=True, **blocks)) as world:
+        sv = build_benchmark_calibration(num_paths=SV_PATHS, seed=SV_SEED,
+                                         brownian="finmath_mersenne",
+                                         device="cuda")
+        p0 = np.asarray(sv.covariance.initial_parameters)
+        sv_plain = (sv.engine.residuals(p0), sv.engine.jacobian(p0))
+        del sv
+        (a,) = world.join(MESH_JOIN_SECONDS)
+    a_join_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with start_world(f"{MODULE}:_mesh_pair_rank", 2, backend="gloo",
+                     device="cuda:0", kwargs=blocks) as world:
+        sim = _mesh_bs_facade(None)
+        bs_plain = {name: p.get_value_and_error(sim)
+                    for name, p in _mesh_bs_products().items()}
+        del sim
+        torch.cuda.empty_cache()
+        pair = world.join(MESH_JOIN_SECONDS)
+    b_join_s = time.perf_counter() - t0
+    s0, r, sigma, maturity, strike = BS_PARAMS
+    analytic = black_scholes_option_value(s0, r, sigma, maturity, strike)
+    stderr = _call_payoff_stderr(s0, r, sigma, maturity, strike,
+                                 MESH_BS_PATHS)
+
+    def gap(x, y):
+        return float(np.max(np.abs(np.asarray(x) - np.asarray(y))))
+
+    def rel_gap(x, y):
+        return float(np.max(np.abs(np.asarray(x) - np.asarray(y))
+                            / np.maximum(np.abs(np.asarray(y)), 1e-300)))
+
+    bs_rel = {name: max(rel_gap(rk["bs_prices"][name][0], v[0])
+                        for rk in pair)
+              for name, v in bs_plain.items()}
+    out = {
+        "a_nccl_world_1": {
+            "values_rel_gap": rel_gap(a["values"], plain["values"]),
+            "residuals_gap": gap(a["residuals"], plain["residuals"]),
+            "jacobian_gap": gap(a["jacobian"], plain["jacobian"]),
+            "iterations": a["iterations"], "rms_dev": a["rms_dev"],
+            "mean_dev": a["mean_dev"], "calibration_s": a["calibration_s"],
+            "rank_wall_s": a["wall_s"], "join_wall_s": a_join_s,
+            "collective_s": a["collective_s"],
+            "collectives": a["collectives"], "peak_gb": a["peak_gb"]},
+        "b_gloo_world_2": {
+            "residuals_gap_to_a": max(gap(rk["residuals"], a["residuals"])
+                                      for rk in pair),
+            "jacobian_gap_to_a": max(gap(rk["jacobian"], a["jacobian"])
+                                     for rk in pair),
+            "sv_residuals_gap": max(gap(rk["sv_residuals"], sv_plain[0])
+                                    for rk in pair),
+            "sv_jacobian_gap": max(gap(rk["sv_jacobian"], sv_plain[1])
+                                   for rk in pair),
+            "bs_rel_gap": bs_rel,
+            "bs_prices": {k: list(v) for k, v in pair[0]["bs_prices"].items()},
+            "bs_local_paths": [rk["bs_local_paths"] for rk in pair],
+            "mc_price": pair[0]["mc_price"], "mc_analytic": analytic,
+            "mc_stderr": stderr,
+            "rank_wall_s": [rk["wall_s"] for rk in pair],
+            "join_wall_s": b_join_s,
+            "collective_s": [rk["collective_s"] for rk in pair],
+            "collectives": [rk["collectives"] for rk in pair],
+            "peak_gb": [rk["peak_gb"] for rk in pair]},
+    }
+    print(f"phase 46 path-axis sharding ({smi}): " + json.dumps(out),
+          flush=True)
+    print("phase 46: two ranks sharing one card are a correctness check, "
+          "not a scaling figure; no multi-GPU speed-up is claimed",
+          flush=True)
+    checks = {
+        "(a) meshed setup": a["meshed_setup"],
+        "(a) NCCL on cuda:0": a["backend"] == "nccl"
+        and a["device"] == "cuda:0",
+        "(a) values within 1e-12 relative":
+            out["a_nccl_world_1"]["values_rel_gap"] < 1e-12,
+        "(a) residuals within 1e-9": out["a_nccl_world_1"]["residuals_gap"]
+        < 1e-9,
+        "(a) Jacobian within 1e-9": out["a_nccl_world_1"]["jacobian_gap"]
+        < 1e-9,
+        "(a) kernel backend refuses the mesh": a["kernel_backend_refused"],
+        "(a) |mean_dev| < 2e-4": abs(a["mean_dev"]) < 2e-4,
+        "(b) gloo ranks on cuda:0": all(
+            rk["backend"] == "gloo" and rk["device"] == "cuda:0"
+            for rk in pair),
+        "(b) ATM residuals within 1e-9 of (a)":
+            out["b_gloo_world_2"]["residuals_gap_to_a"] < 1e-9,
+        "(b) ATM Jacobian within 1e-9 of (a)":
+            out["b_gloo_world_2"]["jacobian_gap_to_a"] < 1e-9,
+        "(b) LM parameters bitwise equal on both ranks": bool(
+            np.array_equal(pair[0]["lm_parameters"],
+                           pair[1]["lm_parameters"])),
+        "(b) stoch-vol residuals within 1e-9":
+            out["b_gloo_world_2"]["sv_residuals_gap"] < 1e-9,
+        "(b) stoch-vol Jacobian within 1e-9":
+            out["b_gloo_world_2"]["sv_jacobian_gap"] < 1e-9,
+        "(b) Black-Scholes facade within 1e-9 relative":
+            max(bs_rel.values()) < 1e-9,
+        "(b) half the paths on each rank": all(
+            rk["bs_local_paths"] == MESH_BS_PATHS // 2 for rk in pair),
+        "(b) mc_price_sharded within 4 se of the analytic price":
+            abs(pair[0]["mc_price"] - analytic) < 4 * stderr
+            and pair[0]["mc_price"] == pair[1]["mc_price"],
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: phase 46 failed: {failed}")
+    print(f"phase 46 seconds: {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -4460,6 +4782,9 @@ def main(argv=None) -> int:
     # SA-CCR capital) and the PDE layer (no kernel) -------------------------
     later.update({**_portfolio_credit(torch, smi), **_commodity(torch, smi),
                   **_market_risk_capital(torch, smi), **_pde(torch, smi)})
+
+    # -- 46: path-axis sharding over torch.distributed (no kernel) ---------
+    _path_mesh(torch, smi)
 
     if opts.profile:
         _profile(torch, setup, kb, sv, sv_kb, later)

@@ -33,7 +33,12 @@ the Longstaff-Schwartz, tape-AAD and lazy-engine slice):
   and stoch-vol path-sweep kernels (CUDA C++ in ``csrc/``) and their plain
   PyTorch versions;
 * ``convert`` — parameter vectors and Brownian realizations carried over
-  from the JAX package as NumPy arrays.
+  from the JAX package as NumPy arrays;
+* ``parallel`` — the Monte-Carlo path axis split over torch.distributed
+  ranks (``mesh=`` on the LMM engine, both calibrations, the Euler scheme
+  and the equity facades, the regression and ``RandomVariableTorch``),
+  and ``parallel.launch``, which runs a function on every rank of a world
+  of child processes.
 
 Precision policy (unchanged from the reference): path data is float32;
 reductions, parameters and implied-vol inversion are float64. TF32 is

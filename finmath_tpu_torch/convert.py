@@ -26,7 +26,10 @@ portfolio, a Schwartz-Smith model, an option book, an SA-CCR trade and the
 three FDM models through ``copula_portfolio_from_jax``,
 ``schwartz_smith_model_from_jax``, ``option_book_from_jax``,
 ``saccr_trade_from_jax`` and ``fdm_model_from_jax`` (all read by
-attribute, without importing the JAX package).
+attribute, without importing the JAX package). Path-axis sharding carries
+nothing new across: a JAX ``Mesh`` has no counterpart to convert (the port
+builds its ``parallel.PathMesh`` from its own process group), and a meshed
+engine takes the same global realization as an unsharded one.
 """
 
 from __future__ import annotations

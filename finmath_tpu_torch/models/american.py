@@ -34,8 +34,9 @@ import torch
 
 from ..ops.conditional_expectation import _cholesky_solve_small
 from ..ops.random_variable import ACC_DTYPE, FLOAT_DTYPE
+from ..parallel.mesh import sharded_unsupported
 from ..utils.config import to_device
-from .equity_products import _f32
+from .equity_products import _f32, _mesh_of
 
 
 def _integer_pow(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -138,7 +139,9 @@ class BermudanOption:
         self.foresight_bias = foresight_bias
 
     def packed_value_and_error(self, model) -> torch.Tensor:
-        """[2] float64 (value, stderr) on the facade's device."""
+        """[2] float64 (value, stderr) on the facade's device; a meshed
+        facade raises (the regressions and the mean are local)."""
+        sharded_unsupported(_mesh_of(model), "BermudanOption")
         if hasattr(model, "get_asset_values"):
             assets = model.get_asset_values(self.exercise_times)
         else:

@@ -84,18 +84,23 @@ class BlackScholesModel(ProcessModel):
 class MonteCarloBlackScholesModel:
     """Simulation facade: model + Euler scheme + asset/numeraire accessors
     (the role of finmath's MonteCarloAssetModel). Without ``brownian``, the
-    increments are drawn on ``device`` (default ``select_device()``) from
-    ``seed``."""
+    increments are drawn on ``device`` (default: the mesh's, else
+    ``select_device()``) from ``seed``. ``mesh``: a ``parallel.PathMesh``
+    (``EulerScheme``): each rank simulates its block of the same paths and
+    the products' means and errors are global."""
 
     def __init__(self, time_discretization: TimeDiscretization, num_paths: int,
                  model: BlackScholesModel, seed: int = 3141,
                  brownian=None, mesh=None, device=None):
+        if device is None and mesh is not None:
+            device = getattr(mesh, "device", None)
         self.model = model
         self.brownian = brownian or BrownianMotion(
             time_discretization, 1, num_paths, seed, device=device
         )
         self.process = EulerScheme(model, self.brownian, mesh=mesh,
                                    device=device)
+        self.mesh = self.process.mesh
 
     def get_asset_value(self, time: float, asset_index: int = 0) -> RandomVariableTorch:
         ti = self.process.time_discretization.get_time_index(time)
@@ -158,15 +163,14 @@ class EuropeanOption:
         return float(out[0]), float(out[1])
 
     def packed_value_and_error(self, model) -> torch.Tensor:
-        """[2] float64 (value, stderr) on the device, no host transfer."""
+        """[2] float64 (value, stderr) on the device, no host transfer
+        (global under a meshed facade)."""
+        from .equity_products import _mean_and_stderr
+
         rv = self.get_value_random_variable(model)
         if rv.is_deterministic():
             return torch.tensor([rv.get_average(), 0.0], dtype=ACC_DTYPE)
-        pay = rv.values.to(ACC_DTYPE)
-        n = pay.shape[-1]
-        mean = torch.sum(pay) / n
-        var = torch.sum((pay - mean) ** 2) / (n - 1)
-        return torch.stack([mean, torch.sqrt(var / n)])
+        return _mean_and_stderr(rv.values, rv.mesh)
 
     getValue = get_value
 

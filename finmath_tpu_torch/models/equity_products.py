@@ -13,6 +13,13 @@ with that surface serves. Its ``packed_value_and_error`` returns the
 host transfer; ``get_value_and_error`` copies that tensor to the host once,
 and ``price_portfolio`` copies a whole book's ``[N, 2]`` once.
 
+Under a meshed facade (its ``mesh``, a ``parallel.PathMesh``) the asset
+matrices are this rank's block of the paths and every payoff mean and
+standard error is global: a float64 all-reduce of the sum, then of the
+squared deviations from the global mean (``_mean_and_stderr``). Products
+whose path reductions are not routed through the mesh raise
+``NotImplementedError`` on a meshed facade.
+
 Precision, as in the JAX package: path data stays float32 (the payoffs
 are float32 where the JAX function computes them in float32), the payoff
 means and standard errors, the discount factors and the geometric
@@ -40,13 +47,25 @@ from ..ops.random_variable import ACC_DTYPE, FLOAT_DTYPE
 from ..utils.config import to_device
 
 
-def _mean_and_stderr(pay: torch.Tensor) -> torch.Tensor:
-    """Packed [2] float64 (mean, MC standard error) of a [paths] payoff."""
+def _mean_and_stderr(pay: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Packed [2] float64 (mean, MC standard error) of a [paths] payoff;
+    under ``mesh`` over every rank's block (two-pass: the global mean,
+    then the global sum of squared deviations)."""
     n = pay.shape[-1]
     p = pay.to(ACC_DTYPE)
-    mean = torch.sum(p) / n
-    var = torch.sum((p - mean) ** 2) / (n - 1)
+    if mesh is None:
+        mean = torch.sum(p) / n
+        var = torch.sum((p - mean) ** 2) / (n - 1)
+    else:
+        n *= mesh.world_size
+        mean = mesh.all_reduce(torch.sum(p)) / n
+        var = mesh.all_reduce(torch.sum((p - mean) ** 2)) / (n - 1)
     return torch.stack([mean, torch.sqrt(var / n)])
+
+
+def _mesh_of(model):
+    """The facade's ``PathMesh``, or None (facades without one)."""
+    return getattr(model, "mesh", None)
 
 
 def _deterministic_dfs(model, times) -> np.ndarray:
@@ -122,10 +141,10 @@ class _Product:
         return self.get_value(model)
 
 
-def _digital_kernel(s_t, df: float, strike, is_call: bool):
+def _digital_kernel(s_t, df: float, strike, is_call: bool, mesh=None):
     sign = 1.0 if is_call else -1.0
     pay = (sign * (s_t - strike) > 0.0).to(ACC_DTYPE) * df
-    return _mean_and_stderr(pay)
+    return _mean_and_stderr(pay, mesh)
 
 
 class DigitalOption(_Product):
@@ -142,22 +161,22 @@ class DigitalOption(_Product):
         s_t = model.get_asset_value(self.maturity).values
         df = _deterministic_dfs(model, [self.maturity])[0]
         return _digital_kernel(s_t, float(df), _f32(self.strike, s_t),
-                               self.is_call)
+                               self.is_call, _mesh_of(model))
 
 
 def _asian_kernel(assets, df: float, strike, is_call: bool,
-                  geometric: bool):
+                  geometric: bool, mesh=None):
     sign = 1.0 if is_call else -1.0
     if geometric:
         avg = torch.exp(torch.mean(torch.log(assets.to(ACC_DTYPE)), dim=0))
     else:
         avg = torch.mean(assets.to(ACC_DTYPE), dim=0)
     pay = torch.clamp_min(sign * (avg - strike), 0.0) * df
-    return _mean_and_stderr(pay)
+    return _mean_and_stderr(pay, mesh)
 
 
 def _asian_cv_kernel(assets, df: float, strike, geo_value: float,
-                     is_call: bool):
+                     is_call: bool, mesh=None):
     """Arithmetic Asian with the geometric Asian as control variate
     (beta fixed at 1): the corrected estimator is unbiased with the
     residual (arith - geo) variance."""
@@ -167,7 +186,7 @@ def _asian_cv_kernel(assets, df: float, strike, geo_value: float,
     geo = torch.exp(torch.mean(torch.log(a64), dim=0))
     pay_a = torch.clamp_min(sign * (arith - strike), 0.0) * df
     pay_g = torch.clamp_min(sign * (geo - strike), 0.0) * df
-    out = _mean_and_stderr(pay_a - pay_g)
+    out = _mean_and_stderr(pay_a - pay_g, mesh)
     return torch.stack([out[0] + geo_value, out[1]])
 
 
@@ -214,14 +233,15 @@ class AsianOption(_Product):
             geo = geometric_asian_option_value(
                 bs.initial_value, bs.risk_free_rate, bs.volatility,
                 self.averaging_times, self.strike, self.is_call)
-            return _asian_cv_kernel(assets, df, strike, geo, self.is_call)
+            return _asian_cv_kernel(assets, df, strike, geo, self.is_call,
+                                    _mesh_of(model))
         return _asian_kernel(assets, df, strike, self.is_call,
-                             self.average == "geometric")
+                             self.average == "geometric", _mesh_of(model))
 
 
 def _barrier_bridge_kernel(assets_with_s0, df: float, strike, barrier,
                            up: bool, knock_in: bool, is_call: bool,
-                           inv_var_dt, rebate: float = 0.0):
+                           inv_var_dt, rebate: float = 0.0, mesh=None):
     """Brownian-bridge corrected barrier (lognormal dynamics).
     assets_with_s0: [T+1, paths] float32 INCLUDING the t=0 row; inv_var_dt:
     [T] float32 1/(sigma^2 dt) per step on the device. Survival of an
@@ -241,12 +261,12 @@ def _barrier_bridge_kernel(assets_with_s0, df: float, strike, barrier,
     vanilla = torch.clamp_min(sign * (assets_with_s0[-1] - strike), 0.0)
     alive = (1.0 - survival) if knock_in else survival
     pay = vanilla * alive + rebate * (1.0 - alive)
-    return _mean_and_stderr(pay.to(ACC_DTYPE) * df)
+    return _mean_and_stderr(pay.to(ACC_DTYPE) * df, mesh)
 
 
 def _barrier_discrete_kernel(assets, df: float, strike, barrier,
                              up: bool, knock_in: bool, is_call: bool,
-                             rebate: float):
+                             rebate: float, mesh=None):
     sign = 1.0 if is_call else -1.0
     vanilla = torch.clamp_min(sign * (assets[-1] - strike), 0.0)
     gap = assets - barrier
@@ -254,7 +274,7 @@ def _barrier_discrete_kernel(assets, df: float, strike, barrier,
     del gap
     alive = (breached if knock_in else ~breached).to(FLOAT_DTYPE)
     pay = vanilla * alive + rebate * (1.0 - alive)
-    return _mean_and_stderr(pay.to(ACC_DTYPE) * df)
+    return _mean_and_stderr(pay.to(ACC_DTYPE) * df, mesh)
 
 
 class BarrierOption(_Product):
@@ -302,13 +322,15 @@ class BarrierOption(_Product):
                             FLOAT_DTYPE, assets.device)
             return _barrier_bridge_kernel(
                 _with_spot_row(assets, bs.initial_value), df, strike,
-                barrier, up, knock_in, self.is_call, inv, self.rebate)
+                barrier, up, knock_in, self.is_call, inv, self.rebate,
+                _mesh_of(model))
         return _barrier_discrete_kernel(assets, df, strike, barrier, up,
-                                        knock_in, self.is_call, self.rebate)
+                                        knock_in, self.is_call, self.rebate,
+                                        _mesh_of(model))
 
 
 def _lookback_kernel(assets, s0: float, df: float, strike: float,
-                     kind: str, fixed: bool):
+                     kind: str, fixed: bool, mesh=None):
     """The extremum over the t=0 spot and ``assets`` ([T, paths]) is taken
     in float32 (exact: no accumulation); the payoff and its reduction are
     float64."""
@@ -319,7 +341,7 @@ def _lookback_kernel(assets, s0: float, df: float, strike: float,
     else:
         ext = torch.clamp_max(torch.amin(assets, dim=0), s0).to(ACC_DTYPE)
         pay = torch.clamp_min(strike - ext, 0.0) if fixed else (s_t - ext)
-    return _mean_and_stderr(pay * df)
+    return _mean_and_stderr(pay * df, mesh)
 
 
 class LookbackOption(_Product):
@@ -354,7 +376,8 @@ class LookbackOption(_Product):
         kind = "min" if self.lookback_type in ("floating-call",
                                                "fixed-put") else "max"
         return _lookback_kernel(assets, s0, df, self.strike, kind,
-                                self.lookback_type.startswith("fixed"))
+                                self.lookback_type.startswith("fixed"),
+                                _mesh_of(model))
 
 
 # ---------------------------------------------------------------------------

@@ -24,9 +24,11 @@ import numpy as np
 import torch
 
 from ..ops.random_variable import ACC_DTYPE, FLOAT_DTYPE
+from ..parallel.mesh import sharded_unsupported
 from ..utils.config import to_device
 from .equity_products import (_black_scholes_of, _deterministic_dfs, _f32,
-                              _grid_times_up_to, _spot_of, _with_spot_row)
+                              _grid_times_up_to, _mesh_of, _spot_of,
+                              _with_spot_row)
 
 
 def _delta_coefficients(times, r: float, sigma: float, maturity: float):
@@ -94,6 +96,7 @@ class DeltaHedgedPortfolio:
     def simulate(self, model) -> dict:
         from .analytic import black_scholes_option_value
 
+        sharded_unsupported(_mesh_of(model), "DeltaHedgedPortfolio")
         bs = _black_scholes_of(
             model, "the BS delta hedge needs a Black-Scholes facade")
         times = _grid_times_up_to(model, self.maturity)
@@ -140,6 +143,7 @@ class VarianceSwap:
         self.maturity = float(maturity)
 
     def _packed(self, model) -> np.ndarray:
+        sharded_unsupported(_mesh_of(model), "VarianceSwap")
         times = _grid_times_up_to(model, self.maturity)
         assets = model.get_asset_values(times)
         df = float(_deterministic_dfs(model, [self.maturity])[0])

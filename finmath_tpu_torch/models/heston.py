@@ -398,7 +398,7 @@ def _no_mesh(mesh, what: str) -> None:
     if mesh is not None:
         raise NotImplementedError(
             f"{what}(mesh=...): path-axis sharding over torch.distributed "
-            "is not ported yet")
+            "is not ported for it yet (sharding step F2)")
 
 
 class MonteCarloHestonModel:
@@ -408,20 +408,25 @@ class MonteCarloHestonModel:
     stochastic volatility unchanged. ``get_asset_values`` gathers the
     [dates, paths] matrix with one index; ``asset_index`` 1 gives the raw
     variance (no transform). Without ``brownian``, the increments are
-    drawn on ``device`` (default ``select_device()``) from ``seed``."""
+    drawn on ``device`` (default: the mesh's, else ``select_device()``)
+    from ``seed``. ``mesh``: a ``parallel.PathMesh`` (``EulerScheme``):
+    each rank simulates its block of the same paths."""
 
     def __init__(self, time_discretization: TimeDiscretization,
                  num_paths: int, model, seed: int = 3141,
                  brownian=None, mesh=None, *, device=None):
         from .brownian_motion import BrownianMotion
 
-        _no_mesh(mesh, "MonteCarloHestonModel")
+        if device is None and mesh is not None:
+            device = getattr(mesh, "device", None)
         if isinstance(model, HestonParams):
             model = HestonModel(model)
         self.model = model
         self.brownian = brownian or BrownianMotion(
             time_discretization, 2, num_paths, seed, device=device)
-        self.process = EulerScheme(model, self.brownian, device=device)
+        self.process = EulerScheme(model, self.brownian, mesh=mesh,
+                                   device=device)
+        self.mesh = self.process.mesh
 
     def get_asset_value(self, time: float,
                         asset_index: int = 0) -> RandomVariableTorch:

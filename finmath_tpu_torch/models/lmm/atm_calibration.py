@@ -153,6 +153,7 @@ def build_atm_calibration(num_paths: int = 10_000, num_factors: int = 1,
                           model_type: str = "NORMAL",
                           discount_curve: Optional[DiscountCurve] = None,
                           calibration_product_type: str = "MONTECARLO",
+                          mesh=None,
                           jacobian_paths: Optional[int] = None,
                           device=None, dtype=torch.float32,
                           antithetic: bool = False) -> ATMCalibrationSetup:
@@ -161,6 +162,9 @@ def build_atm_calibration(num_paths: int = 10_000, num_factors: int = 1,
     ``model_type``: NORMAL | DISPLACED (ref. :296-306);
     ``calibration_product_type``: MONTECARLO (SwaptionSimple) | ANALYTIC
     (SwaptionGeneralizedAnalyticApproximation) — ref. :108-118, :505-521;
+    ``mesh``: a ``parallel.PathMesh`` over which both Monte-Carlo engines
+    split their paths (the device is then the mesh's; every rank runs the
+    same calibration on the same all-reduced residuals and Jacobians);
     ``dtype``: the engines' path dtype (float64: the parity engine);
     ``antithetic``: antithetic sampling in the engines."""
     dc = discount_curve or get_calibrated_eur_curve()
@@ -214,11 +218,11 @@ def build_atm_calibration(num_paths: int = 10_000, num_factors: int = 1,
     elif calibration_product_type == "MONTECARLO":
         engine = LMMValuationEngine(model, products, num_paths, num_factors,
                                     seed, device=device, dtype=dtype,
-                                    antithetic=antithetic)
+                                    mesh=mesh, antithetic=antithetic)
         if jacobian_paths is not None and jacobian_paths < num_paths:
             jacobian_engine = LMMValuationEngine(
                 model, products, jacobian_paths, num_factors, seed,
-                device=device, dtype=dtype, antithetic=antithetic)
+                device=device, dtype=dtype, mesh=mesh, antithetic=antithetic)
     else:
         raise ValueError(
             f"unknown calibration_product_type {calibration_product_type}"

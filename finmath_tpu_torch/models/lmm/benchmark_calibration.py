@@ -120,25 +120,36 @@ class BenchmarkCalibrationSetup:
         """Reduced-path engine (num_paths/4, at least 8,192, never more
         than the main engine's) for the exploration phase of
         ``calibrate_multistart``: basins are located on a quarter of the
-        paths, only the winner is polished at full resolution. An injected
-        realization restricts to its path prefix (for the finmath Mersenne
-        stream, generated path-outer, the first k paths ARE the k-path
-        realization); the engine's own draw is made anew from the same
-        seed. Where no reduction is possible it is the main engine."""
+        paths, only the winner is polished at full resolution. The path
+        count is rounded down to the engine's unit: the mesh's world size,
+        times 2 under antithetic sampling (whole mirror pairs on every
+        rank). An injected realization restricts to its path prefix (for
+        the finmath Mersenne stream, generated path-outer, the first k
+        paths ARE the k-path realization; under a mesh the ranks gather the
+        global realization for it); the engine's own draw is made anew
+        from the same seed. Where no reduction is possible it is the main
+        engine."""
         if self._sweep_engine is None:
             eng = self.engine
             paths = min(eng.num_paths, max(eng.num_paths // 4, 8_192))
+            unit = 1 if eng.mesh is None else eng.mesh.world_size
             if eng.antithetic:
-                paths -= paths % 2       # whole mirror pairs
+                unit *= 2
+            paths = max(paths - paths % unit, unit)
             if paths == eng.num_paths:
                 self._sweep_engine = eng
                 return eng
-            inc = eng.increments[:, :, :paths] if eng.injected else None
+            inc = None
+            if eng.injected:
+                inc = (eng.increments if eng.mesh is None
+                       else eng.mesh.all_gather(eng.increments))
+                inc = inc[:, :, :paths]
             self._sweep_engine = LMMValuationEngine(
                 self.model, list(eng.products), paths, eng.num_factors,
                 eng.seed, device=eng.device, increments=inc,
                 scheme=eng.scheme, dtype=eng.dtype,
-                collect_dtype=eng.collect_dtype, antithetic=eng.antithetic)
+                collect_dtype=eng.collect_dtype, mesh=eng.mesh,
+                path_axis=eng.path_axis, antithetic=eng.antithetic)
         return self._sweep_engine
 
     def set_increments(self, inc):
@@ -463,8 +474,9 @@ def build_benchmark_calibration(num_paths: int = 8192, num_factors: int = 5,
 
     ``scaling_exponent``/``martingale_correction``: the stochastic-vol
     scaling convention (see LIBORCovarianceModelStochasticVolatility).
-    ``engine_options`` go to the engine (``scheme``, ``collect_dtype``;
-    ``mesh`` raises until the sharding slice)."""
+    ``engine_options`` go to the engine (``scheme``, ``collect_dtype``,
+    ``mesh``: a ``parallel.PathMesh`` over whose ranks the paths are split,
+    the injected streams included)."""
     fc = ForwardCurveFromForwards(FIXING_TIMES, FORWARD_RATES, DT)
     dc = DiscountCurveFromForwardCurve(fc, horizon=50.0)
 

@@ -63,6 +63,7 @@ import torch
 
 from ...ops.conditional_expectation import regression_fit, regression_predict
 from ...ops.random_variable import ACC_DTYPE
+from ...parallel.mesh import check_mesh, sharded_unsupported
 from .model import (
     LIBORMarketModelTorch,
     LMMValuationEngine,
@@ -583,7 +584,7 @@ class NettingSetExposureEngine:
 
     ``dtype``: the path dtype (None: float32; float64 is the parity
     engine). ``mesh=`` raises ``NotImplementedError`` until the sharding
-    slice (the engine's own check); ``path_axis`` is its companion and
+    slice's second step (F2); ``path_axis`` is its companion and
     unused until then. ``increments=`` passes through to the engine.
 
     ``csa``: optional credit-support annex: EE/ENE/PFE become the RESIDUAL
@@ -599,6 +600,7 @@ class NettingSetExposureEngine:
                  quantiles: Sequence[float] = (0.95, 0.99), dtype=None,
                  mesh=None, path_axis: str = "paths",
                  csa: Optional[CSA] = None, *, device=None):
+        sharded_unsupported(check_mesh(mesh), "NettingSetExposureEngine")
         n = model.num_libors
         trades = list(trades)
         if not trades:

@@ -27,8 +27,9 @@ sqrt(dt), passed with ``sqrt_dt = 1``), so kernel and engine agree to the
 float32-collection envelope with no second draw.
 
 Scope guards in ``__init__`` pin each kernel's hard-coded dynamics to the
-engine's configuration and fail loudly otherwise (the engine itself is
-single-device, plain Monte Carlo).
+engine's configuration and fail loudly otherwise; a meshed engine is
+refused (the kernels are single-device, as the JAX backends are), and a
+meshed calibration takes its residuals from the engine.
 """
 
 from __future__ import annotations
@@ -57,6 +58,9 @@ class _KernelBackend:
 
     def __init__(self, engine: LMMValuationEngine):
         model = engine.model
+        if engine.mesh is not None:
+            raise ValueError(f"{self._name} is single-device: build it on "
+                             "an engine without a mesh")
         if model.measure != "spot" or model.state_space != "normal":
             raise ValueError(f"{self._name}: spot/NORMAL only")
         if engine.scheme != "euler" or engine.dtype != torch.float32:

@@ -10,7 +10,8 @@ spot or terminal measure, NORMAL (optionally with a displaced or blended
 local volatility, optionally with stochastic volatility) or LOGNORMAL
 state space, the Euler or predictor-corrector scheme, any simulation grid
 that refines the tenor grid, float32 or float64 paths, antithetic
-sampling; one device (``mesh=`` raises until the sharding slice).
+sampling; one device, or the path axis split over the ranks of a
+``parallel.PathMesh`` (``mesh=``).
 
 One call simulates every path once and values all products from the same
 ensemble: path state is ``[libors, paths]`` in the path dtype (float32 by
@@ -21,7 +22,11 @@ default). The time loop is a Python loop; ``jacobian`` is
 differences), so the loop stays free of in-place updates on tensors that
 carry tangents; ``residuals_batched`` / ``jacobian_batched`` are
 ``torch.func.vmap`` of the same functions, and ``forward_deltas`` reverse
-mode through the sweep.
+mode through the sweep. Under a mesh each rank simulates its block of the
+paths and the expectations are summed over the ranks between two halves:
+the local path sums, and the replicated rest (division by the paths,
+numeraire adjustment, implied-vol inversion); forward-mode Jacobians are
+taken of each half, never through a collective (``parallel.mesh``).
 
 Spot-measure drift, NORMAL state space (forwards evolved directly):
   dL_i = lambda_i . (sum_{j=m+1..i} delta_j lambda_j / (1+delta_j L_j)) dt
@@ -46,6 +51,8 @@ import numpy as np
 import torch
 from torch.func import jacfwd, vmap
 
+from ...parallel.mesh import (check_mesh, rank_seed, replicated,
+                              sum_over_ranks)
 from ...utils.config import select_device
 from ..curves import DiscountCurve, ForwardCurve, par_swap_rate
 from ..time_discretization import TimeDiscretization
@@ -290,18 +297,30 @@ class LMMValuationEngine:
       j > i and the P(T_e, T_n) numeraire, values scaled by P(0, T_n)),
       ``state_space`` ("normal" or "lognormal": log-Euler with the L_j
       numerator in the drift and the -|lambda|^2 / 2 Ito term) and
-      simulation grid (any grid refining the tenor grid)."""
+      simulation grid (any grid refining the tenor grid);
+    * ``mesh``: a ``parallel.PathMesh``: the paths are split over its
+      ranks (``num_paths`` divisible by the world size, and each rank's
+      block even under antithetic sampling), every rank holds its block
+      of the realization on the mesh's device (the default ``device``;
+      another raises), and every public result is the same on every rank.
+      The engine's own draw is then rank r's block of ``num_paths / W``
+      paths from ``torch.Generator(device).manual_seed(rank_seed(seed,
+      r))``; injected increments are the global ``[S, F', num_paths]``
+      array, of which rank r keeps ``[..., r n:(r + 1) n]`` (JAX's
+      ``P(None, None, axis)``), so the meshed engine prices the unsharded
+      engine's paths. ``path_axis`` labels the mesh's axis, as in the JAX
+      engine. Every call runs one all-reduce, and a delta ladder one more
+      for each backward sweep; ``pathwise_values`` is single-device."""
 
     def __init__(self, model: LIBORMarketModelTorch,
                  products: Sequence[SwaptionProduct],
                  num_paths: int, num_factors: int, seed: int = 31415, *,
                  device=None, increments=None, scheme: str = "euler",
                  dtype: torch.dtype = torch.float32, collect_dtype=None,
-                 mesh=None, antithetic: bool = False):
-        if mesh is not None:
-            raise NotImplementedError(
-                "path-axis sharding comes with the sharding slice "
-                "(torch.distributed)")
+                 mesh=None, path_axis: str = "paths",
+                 antithetic: bool = False):
+        self.mesh = check_mesh(mesh)
+        self.path_axis = path_axis
         if scheme not in ("euler", "predictor_corrector"):
             raise ValueError(f"unknown scheme {scheme!r}")
         if dtype not in (torch.float32, torch.float64):
@@ -321,9 +340,21 @@ class LMMValuationEngine:
                 "antithetic and injected increments are mutually exclusive: "
                 "the injected realization defines every path")
         self.model = model
-        self.device = torch.device(device) if device is not None \
-            else select_device()
         self.num_paths = int(num_paths)
+        if self.mesh is None:
+            self._local_paths, self._block = self.num_paths, slice(None)
+            self.device = torch.device(device) if device is not None \
+                else select_device()
+        else:
+            self._local_paths = self.mesh.local_count(self.num_paths)
+            self._block = self.mesh.local_slice(self.num_paths)
+            if self.antithetic and self._local_paths % 2:
+                raise ValueError("antithetic sampling requires an even "
+                                 "per-rank path count")
+            self.device = self.mesh.device
+            if device is not None and torch.device(device) != self.device:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"device {self.device}")
         self.num_factors = int(num_factors)
         cov_factors = getattr(model.covariance, "num_factors", None)
         if cov_factors is not None and int(cov_factors) != self.num_factors:
@@ -452,17 +483,21 @@ class LMMValuationEngine:
                     f"engine needs [steps in {shape[0]}..{S}, "
                     f"factors={rng_factors}, paths={self.num_paths}]")
             self._inc_shape, self._inc_dtype = tuple(src.shape), src.dtype
-            # a copy the engine owns: set_increments overwrites it in place
-            self.increments = src[:shape[0]].to(
+            # a copy the engine owns (this rank's block under a mesh):
+            # set_increments overwrites it in place
+            self.increments = src[:shape[0], :, self._block].to(
                 device=dev, dtype=dtype, copy=True).contiguous()
         else:
-            gen = torch.Generator(device=dev).manual_seed(self.seed)
+            seed = (self.seed if self.mesh is None
+                    else rank_seed(self.seed, self.mesh.rank))
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            local = shape[:2] + (self._local_paths,)
             if self.antithetic:
-                half = (shape[0], rng_factors, self.num_paths // 2)
+                half = local[:2] + (self._local_paths // 2,)
                 z = torch.randn(half, generator=gen, dtype=f32, device=dev)
                 z = torch.cat([z, -z], dim=2)
             else:
-                z = torch.randn(shape, generator=gen, dtype=f32, device=dev)
+                z = torch.randn(local, generator=gen, dtype=f32, device=dev)
             self.increments = (z.to(dtype)
                                * self._p["dts"][:shape[0], None, None].sqrt())
 
@@ -471,7 +506,9 @@ class LMMValuationEngine:
         """Swap the injected realization for another of the same shape and
         dtype (NumPy or tensor), in place: everything built on the engine's
         ``increments`` (a kernel backend's realization 0, for one) prices
-        the new paths. Only for an engine built with ``increments=``."""
+        the new paths. Only for an engine built with ``increments=``; under
+        a mesh ``inc`` is the global array and each rank keeps its
+        block."""
         if not self.injected:
             raise ValueError(
                 "engine was built without injected increments; build with "
@@ -485,7 +522,8 @@ class LMMValuationEngine:
             raise ValueError(
                 f"replacement increments dtype {new.dtype} != engine's "
                 f"{self._inc_dtype}")
-        self.increments.copy_(new[:self.increments.shape[0]])
+        self.increments.copy_(
+            new[:self.increments.shape[0], :, self._block])
 
     def _params(self, params) -> torch.Tensor:
         x = torch.as_tensor(params, dtype=torch.float64).to(self.device)
@@ -594,7 +632,8 @@ class LMMValuationEngine:
         nothing the engine computes."""
         t, tp = self._t, self._p
         cov = self.model.covariance
-        n, paths, F = self.model.num_libors, self.num_paths, self.num_factors
+        n, F = self.model.num_libors, self.num_factors
+        paths = self._local_paths
         dtype, cd = self.dtype, self.collect_dtype
         spot = self.model.measure == "spot"
         lognormal = self.model.state_space == "lognormal"
@@ -712,18 +751,42 @@ class LMMValuationEngine:
                 step_hook(s, N_old, N, dw)
         return outs
 
-    def _values(self, params: torch.Tensor, fwd0=None,
-                grad_safe: bool = False) -> torch.Tensor:
-        """Monte-Carlo values [P] (terminal scale and numeraire adjustment
-        applied). With ``fwd0`` the terminal P(0, T_n) is formed from it,
-        so it differentiates too."""
-        t = self._t
-        paths = self.num_paths
+    def _local_sums(self, params: torch.Tensor, fwd0=None,
+                    grad_safe: bool = False) -> torch.Tensor:
+        """This rank's path sums ``[P + E]`` float64: payoff / numeraire
+        per product, then 1 / numeraire per exercise event."""
         raws, invs = zip(*self._simulate_collect(
             params, lambda e, j, L, N: self._collect(self._events[j], L, N,
                                                      grad_safe),
             fwd0=fwd0, grad_safe=grad_safe))
-        raw = torch.cat(raws) / paths                              # [P]
+        return torch.cat(raws + (torch.stack(invs),))
+
+    def _values(self, params: torch.Tensor, fwd0=None,
+                grad_safe: bool = False) -> torch.Tensor:
+        """Monte-Carlo values [P] (terminal scale and numeraire adjustment
+        applied). With ``fwd0`` the terminal P(0, T_n) is formed from it,
+        so it differentiates too. Under a mesh the sums are all-reduced in
+        between, and reverse mode gives every rank the full gradient of
+        ``params`` and ``fwd0`` (``parallel.mesh.replicated``)."""
+        if self.mesh is None:
+            return self._from_sums(
+                self._local_sums(params, fwd0, grad_safe), fwd0)
+        mesh = self.mesh
+
+        def local(x):
+            return replicated(x, mesh) if x.requires_grad else x
+
+        sums = self._local_sums(local(params),
+                                None if fwd0 is None else local(fwd0),
+                                grad_safe)
+        return self._from_sums(sum_over_ranks(sums, mesh), fwd0)
+
+    def _from_sums(self, sums: torch.Tensor, fwd0=None) -> torch.Tensor:
+        """Values [P] from the path sums over every path ``[P + E]``."""
+        t = self._t
+        paths = self.num_paths
+        P = len(self.products)
+        raw = sums[:P] / paths                                     # [P]
         terminal = self.model.measure == "terminal"
         if terminal:
             p0 = self._p0_terminal if fwd0 is None else torch.prod(
@@ -731,7 +794,7 @@ class LMMValuationEngine:
             raw = raw * p0
         if not self.model.use_numeraire_adjustment:
             return raw
-        mean_inv = torch.stack(invs)[t["ev_of"]] / paths           # [P]
+        mean_inv = sums[P:][t["ev_of"]] / paths                    # [P]
         if terminal:
             mean_inv = mean_inv * p0
         return raw * torch.where(mean_inv > 0.0, t["df_ex"] / mean_inv, 0.0)
@@ -747,6 +810,32 @@ class LMMValuationEngine:
     def _residuals(self, params: torch.Tensor) -> torch.Tensor:
         t = self._t
         return t["weight"] * (self._quotes(self._values(params)) - t["target"])
+
+    def _residuals_from_sums(self, sums: torch.Tensor) -> torch.Tensor:
+        t = self._t
+        return t["weight"] * (self._quotes(self._from_sums(sums))
+                              - t["target"])
+
+    def _local_sums_and_jacobian(self, x: torch.Tensor):
+        """This rank's sums ``[P + E]`` and their forward-mode Jacobian
+        ``[P + E, n_params]``, from one pass."""
+        def sums(p):
+            s = self._local_sums(p)
+            return s, s
+
+        J, s = jacfwd(sums, has_aux=True)(x)
+        return s, J
+
+    def _meshed_jacobian(self, S: torch.Tensor, J_s: torch.Tensor,
+                         batched: bool) -> torch.Tensor:
+        """The residual Jacobian from local sums and their Jacobian (a
+        leading batch axis when ``batched``): ONE all-reduce of both
+        together, then the chain rule through the replicated rest; no
+        collective runs inside a transform."""
+        both = self.mesh.all_reduce(torch.cat([S[..., None], J_s], dim=-1))
+        S, J_s = both[..., 0], both[..., 1:]
+        post = jacfwd(self._residuals_from_sums)
+        return torch.matmul(vmap(post)(S) if batched else post(S), J_s)
 
     # ------------------------------------------------------------------
     # public API: NumPy (or tensor) in, NumPy out
@@ -764,8 +853,13 @@ class LMMValuationEngine:
 
     def jacobian(self, params) -> np.ndarray:
         """d residuals / d params [P, n_params], forward-mode through the
-        whole simulation."""
-        return jacfwd(self._residuals)(self._params(params)).cpu().numpy()
+        whole simulation (under a mesh: of the local sums, all-reduced,
+        then the chain rule through the replicated rest)."""
+        x = self._params(params)
+        if self.mesh is None:
+            return jacfwd(self._residuals)(x).cpu().numpy()
+        return self._meshed_jacobian(*self._local_sums_and_jacobian(x),
+                                     batched=False).cpu().numpy()
 
     def pathwise_values(self, params) -> np.ndarray:
         """Per-path value contributions ``[P, paths]`` float64, whose row
@@ -773,7 +867,10 @@ class LMMValuationEngine:
         adjustment included): the decomposition behind the f32-vs-f64
         parity check, where the paths that decorrelate between the two
         precisions are found by their contribution gap. Holds ``[P,
-        paths]`` float64 on the device."""
+        paths]`` float64 on the device. Single-device: raises under a
+        mesh."""
+        if self.mesh is not None:
+            raise ValueError("pathwise_values is a single-device diagnostic")
         t = self._t
         contribs, invs = zip(*self._simulate_collect(
             self._params(params),
@@ -842,13 +939,20 @@ class LMMValuationEngine:
 
     def residuals_batched(self, params_batch) -> np.ndarray:
         """Residuals for a ``[B, n_params]`` batch -> ``[B, P]``."""
-        return vmap(self._residuals)(
-            self._params_batch(params_batch)).cpu().numpy()
+        X = self._params_batch(params_batch)
+        if self.mesh is None:
+            return vmap(self._residuals)(X).cpu().numpy()
+        S = self.mesh.all_reduce(vmap(self._local_sums)(X))
+        return vmap(self._residuals_from_sums)(S).cpu().numpy()
 
     def jacobian_batched(self, params_batch) -> np.ndarray:
         """Jacobians for a ``[B, n_params]`` batch -> ``[B, P, n_params]``."""
-        return vmap(jacfwd(self._residuals))(
-            self._params_batch(params_batch)).cpu().numpy()
+        X = self._params_batch(params_batch)
+        if self.mesh is None:
+            return vmap(jacfwd(self._residuals))(X).cpu().numpy()
+        return self._meshed_jacobian(
+            *vmap(self._local_sums_and_jacobian)(X),
+            batched=True).cpu().numpy()
 
     @property
     def targets(self) -> np.ndarray:

@@ -48,7 +48,8 @@ from torch.func import jvp
 from ..ops.random_variable import ACC_DTYPE, FLOAT_DTYPE, RandomVariableTorch
 from ..utils.config import to_device
 from .brownian_motion import BrownianMotion
-from .heston import _grid_rows, _no_mesh
+from ..parallel.mesh import sharded_unsupported
+from .heston import _grid_rows
 from .process import EulerScheme, ProcessModel
 from .time_discretization import TimeDiscretization
 
@@ -320,18 +321,24 @@ class LocalVolatilityModel(ProcessModel):
 class MonteCarloLocalVolModel:
     """Simulation facade (the ``MonteCarloBlackScholesModel`` surface),
     so every equity product prices under local volatility unchanged.
-    Without ``brownian``, the increments are drawn on ``device`` (default
-    ``select_device()``) from ``seed``."""
+    Without ``brownian``, the increments are drawn on ``device`` (default:
+    the mesh's, else ``select_device()``) from ``seed``. ``mesh``: a
+    ``parallel.PathMesh`` (``EulerScheme``): each rank simulates its block
+    of the same paths (the local volatility is pathwise, so no reduction
+    crosses the ranks during the simulation)."""
 
     def __init__(self, time_discretization: TimeDiscretization,
                  num_paths: int, model: LocalVolatilityModel,
                  seed: int = 3141, brownian: BrownianMotion = None,
                  mesh=None, *, device=None):
-        _no_mesh(mesh, "MonteCarloLocalVolModel")
+        if device is None and mesh is not None:
+            device = getattr(mesh, "device", None)
         self.model = model
         self.brownian = brownian or BrownianMotion(
             time_discretization, 1, num_paths, seed, device=device)
-        self.process = EulerScheme(model, self.brownian, device=device)
+        self.process = EulerScheme(model, self.brownian, mesh=mesh,
+                                   device=device)
+        self.mesh = self.process.mesh
 
     def get_asset_value(self, time: float,
                         asset_index: int = 0) -> RandomVariableTorch:
@@ -381,6 +388,7 @@ def european_call_values(model, strikes: Sequence[float],
     surface."""
     from .equity_products import _deterministic_dfs
 
+    sharded_unsupported(getattr(model, "mesh", None), "european_call_values")
     assets = model.get_asset_values([float(t) for t in expiries])
     dfs = _deterministic_dfs(model, expiries)
     return _vanilla_grid_kernel(

@@ -32,7 +32,7 @@ import torch
 from ..ops.random_variable import ACC_DTYPE, FLOAT_DTYPE, RandomVariableTorch
 from .analytic import _norm_cdf, black_scholes_option_value
 from .brownian_motion import BrownianMotion
-from .equity_products import _f32, _mean_and_stderr, _Product
+from .equity_products import _f32, _mean_and_stderr, _mesh_of, _Product
 from .process import EulerScheme, ProcessModel
 from .time_discretization import TimeDiscretization
 
@@ -124,18 +124,21 @@ class MonteCarloMultiAssetBlackScholesModel:
     MonteCarloBlackScholesModel's surface plus the ``[assets, paths]``
     gather the rainbow products read. Without ``brownian``, the increments
     are drawn on ``device`` (default ``select_device()``) from ``seed``.
-    ``mesh=`` raises ``NotImplementedError`` (path-axis sharding is a
-    later slice of the port)."""
+    ``mesh``: a ``parallel.PathMesh`` (``EulerScheme``): each rank
+    simulates its block of the paths and the products' means are global."""
 
     def __init__(self, time_discretization: TimeDiscretization,
                  num_paths: int, model: MultiAssetBlackScholesModel,
                  seed: int = 3141, brownian=None, mesh=None, device=None):
+        if device is None and mesh is not None:
+            device = getattr(mesh, "device", None)
         self.model = model
         self.brownian = brownian or BrownianMotion(
             time_discretization, model.get_number_of_factors(),
             num_paths, seed, device=device)
         self.process = EulerScheme(model, self.brownian, mesh=mesh,
                                    device=device)
+        self.mesh = self.process.mesh
 
     def get_asset_value(self, time: float,
                         asset_index: int = 0) -> RandomVariableTorch:
@@ -177,9 +180,9 @@ def _df(model, maturity: float) -> float:
 # Rainbow products (a few device operations over the [assets, paths] gather)
 # ---------------------------------------------------------------------------
 
-def _exchange_kernel(s1, s2, df: float):
+def _exchange_kernel(s1, s2, df: float, mesh=None):
     pay = torch.clamp_min(s1 - s2, 0.0)
-    return _mean_and_stderr(pay.to(ACC_DTYPE) * df)
+    return _mean_and_stderr(pay.to(ACC_DTYPE) * df, mesh)
 
 
 class ExchangeOption(_Product):
@@ -195,14 +198,15 @@ class ExchangeOption(_Product):
         """[2] float64 (value, stderr) on the facade's device."""
         assets = model.get_all_asset_values(self.maturity)
         return _exchange_kernel(assets[self.i1], assets[self.i2],
-                                _df(model, self.maturity))
+                                _df(model, self.maturity), _mesh_of(model))
 
 
-def _rainbow_kernel(assets, df: float, strike, on_max: bool, is_call: bool):
+def _rainbow_kernel(assets, df: float, strike, on_max: bool, is_call: bool,
+                    mesh=None):
     ext = torch.amax(assets, dim=0) if on_max else torch.amin(assets, dim=0)
     sign = 1.0 if is_call else -1.0
     pay = torch.clamp_min(sign * (ext - strike), 0.0)
-    return _mean_and_stderr(pay.to(ACC_DTYPE) * df)
+    return _mean_and_stderr(pay.to(ACC_DTYPE) * df, mesh)
 
 
 class RainbowOption(_Product):
@@ -229,11 +233,12 @@ class RainbowOption(_Product):
             assets = torch.stack([assets[i] for i in self.asset_indices])
         return _rainbow_kernel(
             assets, _df(model, self.maturity), _f32(self.strike, assets),
-            self.kind.endswith("max"), self.kind.startswith("call"))
+            self.kind.endswith("max"), self.kind.startswith("call"),
+            _mesh_of(model))
 
 
 def _basket_kernel(assets, weights, df: float, strike: float,
-                   is_call: bool, geometric: bool):
+                   is_call: bool, geometric: bool, mesh=None):
     w = weights[:, None]
     if geometric:
         basket = torch.exp(torch.sum(w * torch.log(assets.to(ACC_DTYPE)),
@@ -242,11 +247,11 @@ def _basket_kernel(assets, weights, df: float, strike: float,
         basket = torch.sum(w * assets.to(ACC_DTYPE), dim=0)
     sign = 1.0 if is_call else -1.0
     pay = torch.clamp_min(sign * (basket - strike), 0.0)
-    return _mean_and_stderr(pay * df)
+    return _mean_and_stderr(pay * df, mesh)
 
 
 def _basket_cv_kernel(assets, weights, df: float, strike: float,
-                      geo_value: float, is_call: bool):
+                      geo_value: float, is_call: bool, mesh=None):
     """Arithmetic basket with the exact geometric basket as control
     variate (the same construction as the Asian control variate)."""
     w = weights[:, None]
@@ -256,7 +261,7 @@ def _basket_cv_kernel(assets, weights, df: float, strike: float,
     sign = 1.0 if is_call else -1.0
     pay_a = torch.clamp_min(sign * (arith - strike), 0.0) * df
     pay_g = torch.clamp_min(sign * (geo - strike), 0.0) * df
-    out = _mean_and_stderr(pay_a - pay_g)
+    out = _mean_and_stderr(pay_a - pay_g, mesh)
     return torch.stack([out[0] + geo_value, out[1]])
 
 
@@ -303,14 +308,14 @@ class BasketOption(_Product):
                 m.correlation, self.weights, self.maturity, self.strike,
                 self.is_call)
             return _basket_cv_kernel(assets, w, df, self.strike, geo,
-                                     self.is_call)
+                                     self.is_call, _mesh_of(model))
         return _basket_kernel(assets, w, df, self.strike, self.is_call,
-                              self.average == "geometric")
+                              self.average == "geometric", _mesh_of(model))
 
 
-def _spread_kernel(s1, s2, df: float, strike: float):
+def _spread_kernel(s1, s2, df: float, strike: float, mesh=None):
     pay = torch.clamp_min(s1.to(ACC_DTYPE) - s2.to(ACC_DTYPE) - strike, 0.0)
-    return _mean_and_stderr(pay * df)
+    return _mean_and_stderr(pay * df, mesh)
 
 
 class SpreadOption(_Product):
@@ -328,7 +333,8 @@ class SpreadOption(_Product):
         """[2] float64 (value, stderr) on the facade's device."""
         assets = model.get_all_asset_values(self.maturity)
         return _spread_kernel(assets[self.i1], assets[self.i2],
-                              _df(model, self.maturity), self.strike)
+                              _df(model, self.maturity), self.strike,
+                              _mesh_of(model))
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..ops.random_variable import FLOAT_DTYPE, RandomVariableTorch
+from ..parallel.mesh import check_mesh
 from ..utils.config import select_device
 from .time_discretization import TimeDiscretization
 
@@ -84,18 +85,25 @@ class EulerScheme:
 
     The full path history is computed once (lazily) and cached on the
     device, mirroring finmath's process cache. ``device`` defaults to the
-    Brownian motion's, else ``select_device()``; host increments (the
-    Mersenne and host drivers) are uploaded there. Path-axis sharding
-    (``mesh=``) comes with a later slice of the port.
+    Brownian motion's (under a mesh, the mesh's), else ``select_device()``;
+    host increments (the Mersenne and host drivers) are uploaded there.
+
+    ``mesh``: a ``parallel.PathMesh``. Every rank then takes the Brownian
+    motion's GLOBAL increments, the same stream as without a mesh, and
+    keeps its block of the paths (``[..., r n:(r + 1) n]``), so the meshed
+    and the unsharded scheme simulate the same paths; the increments cost
+    W times their memory over the ranks. ``get_process_value`` returns the
+    block as a meshed ``RandomVariableTorch``, whose reductions are
+    global. A path count that the world size does not divide raises
+    ``ValueError`` at the first simulation, as in the JAX package.
     """
 
     def __init__(self, model: ProcessModel, brownian, mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "EulerScheme(mesh=...): path-axis sharding over "
-                "torch.distributed is not ported yet")
+        self.mesh = check_mesh(mesh)
         self._model = model
         self._brownian = brownian
+        if device is None and self.mesh is not None:
+            device = self.mesh.device
         if device is None:
             device = getattr(brownian, "device", None)
         self._device = (torch.device(device) if device is not None
@@ -114,9 +122,13 @@ class EulerScheme:
         if self._states is None:
             td = self.time_discretization
             num_paths = self._brownian.get_number_of_paths()
+            inc = torch.as_tensor(self._brownian.increments)
+            if self.mesh is not None:
+                block = self.mesh.local_slice(num_paths)
+                num_paths = block.stop - block.start
+                inc = inc[:, :, block]
             init = self._model.initial_state(num_paths, self._device)
-            inc = torch.as_tensor(self._brownian.increments).to(
-                device=self._device, dtype=FLOAT_DTYPE)
+            inc = inc.to(device=self._device, dtype=FLOAT_DTYPE)
             self._states = euler_scan(self._model, init, inc,
                                       td.get_step_sizes())
         return self._states
@@ -127,8 +139,8 @@ class EulerScheme:
             component, states[time_index, component]
         )
         return RandomVariableTorch.of(
-            self.time_discretization.get_time(time_index), vals
-        )
+            self.time_discretization.get_time(time_index), vals,
+            mesh=self.mesh)
 
     def get_numeraire(self, time: float) -> RandomVariableTorch:
         return self._model.numeraire(time)

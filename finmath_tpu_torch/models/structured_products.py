@@ -25,10 +25,11 @@ import numpy as np
 import torch
 
 from ..ops.random_variable import ACC_DTYPE, FLOAT_DTYPE
+from ..parallel.mesh import sharded_unsupported
 from .analytic import _norm_cdf, black_scholes_option_value
 from .equity_products import (_Product, _black_scholes_of,
                               _deterministic_dfs, _f32, _mean_and_stderr,
-                              _spot_of, _with_spot_row)
+                              _mesh_of, _spot_of, _with_spot_row)
 
 
 # ---------------------------------------------------------------------------
@@ -200,6 +201,7 @@ class ForwardStartOption(_Product):
 
     def packed_value_and_error(self, model) -> torch.Tensor:
         """[2] float64 (value, stderr) on the facade's device."""
+        sharded_unsupported(_mesh_of(model), "ForwardStartOption")
         assets = model.get_asset_values([self.start_time, self.maturity])
         df = float(_deterministic_dfs(model, [self.maturity])[0])
         return _forward_start_kernel(assets[0], assets[1], df,
@@ -227,6 +229,7 @@ class CliquetOption(_Product):
 
     def packed_value_and_error(self, model) -> torch.Tensor:
         """[2] float64 (value, stderr) on the facade's device."""
+        sharded_unsupported(_mesh_of(model), "CliquetOption")
         assets = model.get_asset_values(self.reset_times)
         df = float(_deterministic_dfs(model, [self.reset_times[-1]])[0])
         return _cliquet_kernel(
@@ -258,6 +261,7 @@ class CompoundOption(_Product):
 
     def packed_value_and_error(self, model) -> torch.Tensor:
         """[2] float64 (value, stderr) on the facade's device."""
+        sharded_unsupported(_mesh_of(model), "CompoundOption")
         bs = self._bs(model)
         s_t1 = model.get_asset_value(self.t1).values
         df1 = float(_deterministic_dfs(model, [self.t1])[0])
@@ -398,6 +402,7 @@ class AutocallableNote(_Product):
 
     def packed_value_and_error(self, model) -> torch.Tensor:
         """[2] float64 (value, stderr) on the facade's device."""
+        sharded_unsupported(_mesh_of(model), "AutocallableNote")
         assets = model.get_asset_values(self.dates)
         dfs = [float(x) for x in _deterministic_dfs(model, self.dates)]
         ref = (self.reference_level if self.reference_level is not None
@@ -427,6 +432,7 @@ class ChooserOption(_Product):
 
     def packed_value_and_error(self, model) -> torch.Tensor:
         """[2] float64 (value, stderr) on the facade's device."""
+        sharded_unsupported(_mesh_of(model), "ChooserOption")
         bs = _black_scholes_of(
             model, "chooser valuation closes the branches in Black-Scholes "
                    "form; use a Black-Scholes facade")

@@ -37,19 +37,25 @@ def _cholesky_solve_small(gram: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor
     return torch.where(info == 0, beta, torch.nan)
 
 
-def regression_fit(basis: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def regression_fit(basis: torch.Tensor, y: torch.Tensor,
+                   mesh=None) -> torch.Tensor:
     """basis [B, paths], y [paths] -> float64 coefficients beta [B].
 
     Normal equations with Tikhonov jitter ``1e-12 * trace(gram)`` in
     float64 (B is a handful of basis functions, paths is large). Exposed
     apart from prediction so that a Longstaff-Schwartz policy can be
     fitted on one path set and applied to an independent one (the
-    out-of-sample lower bound of the Bermudan pricer). The JAX package's
-    sharded variant (moments summed over the devices' path shards before
-    the solve) comes with the sharding slice of the port."""
+    out-of-sample lower bound of the Bermudan pricer). ``mesh``: a
+    ``parallel.PathMesh`` whose ranks each hold one block of the paths;
+    the Gram matrix and the right-hand side are then summed over the ranks
+    (one float64 all-reduce) before the solve, so every rank fits the same
+    global regression (the JAX package's ``axis_name``)."""
     X = basis.to(ACC_DTYPE)                          # [B, paths]
     gram = X @ X.T                                   # [B, B]
     rhs = X @ y.to(ACC_DTYPE)                        # [B]
+    if mesh is not None:
+        both = mesh.all_reduce(torch.cat([gram, rhs[:, None]], dim=1))
+        gram, rhs = both[:, :-1], both[:, -1]
     eye = torch.eye(gram.shape[0], dtype=ACC_DTYPE, device=gram.device)
     return _cholesky_solve_small(gram + 1e-12 * torch.trace(gram) * eye, rhs)
 
@@ -73,7 +79,8 @@ class MonteCarloConditionalExpectationRegression:
     The regression runs on the device of the target's realizations when
     they are a tensor, else on that of the first stochastic
     ``RandomVariableTorch`` basis function, else on ``device`` (default
-    ``select_device()``)."""
+    ``select_device()``). A target under a mesh (``RandomVariableTorch.mesh``)
+    is fitted globally over the ranks, and the fit carries the mesh."""
 
     def __init__(self, basis_functions: Sequence[RandomVariable], device=None):
         if not basis_functions:
@@ -106,9 +113,11 @@ class MonteCarloConditionalExpectationRegression:
         target = RandomVariableTorch.from_random_variable(rv, device)
         if target.is_deterministic():
             return target
-        fitted = regression_fit_predict(
-            self._basis_matrix(device, target.size()), target.values)
-        return RandomVariableTorch.of(target.get_filtration_time(), fitted)
+        basis = self._basis_matrix(device, target.values.shape[0])
+        fitted = regression_predict(
+            basis, regression_fit(basis, target.values, mesh=target.mesh))
+        return RandomVariableTorch.of(target.get_filtration_time(), fitted,
+                                      mesh=target.mesh)
 
     getConditionalExpectation = get_conditional_expectation
 

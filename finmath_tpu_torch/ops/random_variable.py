@@ -27,6 +27,14 @@ missed the parity sweep's 2.5e-7 bound against the float oracle on an H100
 on every device. Values that come from the host
 (NumPy, lists) are uploaded to ``device=``, which defaults to
 ``select_device()``; a tensor keeps its device.
+
+A variable may carry a ``parallel.PathMesh`` (``mesh=``): its tensor is
+then this rank's block of the path axis, the other ranks hold the rest,
+and every operation's result carries the mesh on (two different meshes
+raise). Its reductions are global: sums, means and the two-pass variance
+all-reduce in float64, min and max all-reduce, ``size`` counts every
+rank's paths, and the quantiles, the histogram, ``get`` and
+``get_realizations`` work on the realizations gathered in path order.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from ..parallel.mesh import check_mesh
 from ..utils.config import select_device
 from ._api import (
     TYPE_PRIORITY_TPU,
@@ -72,6 +81,20 @@ def _maximum(a, b):
     return torch.clamp_min(a, b)
 
 
+def _joint_mesh(*operands):
+    """The mesh of the operands that carry one (None if none does); two
+    different meshes raise ``ValueError``."""
+    found = None
+    for x in operands:
+        m = getattr(x, "mesh", None)
+        if m is None:
+            continue
+        if found is not None and m is not found:
+            raise ValueError("operands live on two different meshes")
+        found = m
+    return found
+
+
 def _exp_rounded(v: torch.Tensor) -> torch.Tensor:
     """exp of a float32 tensor, computed in float64 and rounded to float32
     (within half an ULP but for double rounding)."""
@@ -91,10 +114,12 @@ class RandomVariableTorch(RandomVariable):
     ``values`` is either a Python float (deterministic fast path, no device
     work) or a rank-1 ``float32`` tensor. ``device`` is where host values
     are uploaded (default ``select_device()``); a deterministic variable
-    remembers it for the operations that upload another operand.
+    remembers it for the operations that upload another operand. ``mesh``:
+    the ``parallel.PathMesh`` whose ranks hold the other blocks of the
+    path axis (module docstring).
     """
 
-    __slots__ = ("_time", "_values", "_device")
+    __slots__ = ("_time", "_values", "_device", "_mesh")
 
     _TYPE_PRIORITY = TYPE_PRIORITY_TPU
 
@@ -102,11 +127,12 @@ class RandomVariableTorch(RandomVariable):
     # construction
     # ------------------------------------------------------------------
     def __init__(self, time: float = 0.0, values=None, value: float = None,
-                 device=None):
+                 device=None, mesh=None):
         if values is None and value is not None:
             values = value
         if values is None:
             raise ValueError("RandomVariableTorch requires a value or values")
+        self._mesh = check_mesh(mesh)
         self._time = float(time)
         self._device = torch.device(device) if device is not None else None
         if _is_scalar(values):
@@ -132,12 +158,14 @@ class RandomVariableTorch(RandomVariable):
             raise TypeError(f"unsupported values type: {type(values)}")
 
     @classmethod
-    def of(cls, time: float, values, device=None) -> "RandomVariableTorch":
+    def of(cls, time: float, values, device=None,
+           mesh=None) -> "RandomVariableTorch":
         """Wrap existing values without copying (trusted internal path)."""
         rv = object.__new__(cls)
         rv._time = float(time)
         rv._values = values
         rv._device = None if isinstance(values, torch.Tensor) else device
+        rv._mesh = mesh
         return rv
 
     @classmethod
@@ -166,6 +194,27 @@ class RandomVariableTorch(RandomVariable):
         return not isinstance(self._values, torch.Tensor)
 
     @property
+    def mesh(self):
+        """The ``PathMesh`` whose ranks hold the other blocks of the path
+        axis, or None."""
+        return getattr(self, "_mesh", None)
+
+    def _global(self, local: torch.Tensor, op: str = "sum",
+                mesh=None) -> torch.Tensor:
+        """A path-axis reduction of this rank's block completed over the
+        ranks of ``mesh`` (default: this variable's)."""
+        mesh = self.mesh if mesh is None else mesh
+        return local if mesh is None else mesh.all_reduce(local, op)
+
+    def _gathered(self) -> "RandomVariableTorch":
+        """The variable over every rank's paths, in path order, without a
+        mesh (itself when it has none)."""
+        if self.mesh is None or self.is_deterministic():
+            return self
+        return RandomVariableTorch.of(self._time,
+                                      self.mesh.all_gather(self._values))
+
+    @property
     def device(self) -> torch.device:
         """The values' device; for a deterministic variable, the device its
         operations upload to (``select_device()`` unless one was given)."""
@@ -174,9 +223,11 @@ class RandomVariableTorch(RandomVariable):
         return self._device if self._device is not None else select_device()
 
     def size(self) -> int:
+        """The number of paths (over every rank under a mesh)."""
         if self.is_deterministic():
             return 1
-        return int(self._values.shape[0])
+        n = int(self._values.shape[0])
+        return n if self.mesh is None else n * self.mesh.world_size
 
     def double_value(self) -> float:
         if not self.is_deterministic():
@@ -187,13 +238,16 @@ class RandomVariableTorch(RandomVariable):
         """Single realization (one device fetch)."""
         if self.is_deterministic():
             return float(self._values)
+        if self.mesh is not None:
+            return self._gathered().get(index)
         return float(self._values[index])
 
     def get_realizations(self) -> np.ndarray:
-        """Host copy of all realizations (synchronizes)."""
+        """Host copy of all realizations (synchronizes; under a mesh
+        every rank's, in path order)."""
         if self.is_deterministic():
             raise ValueError("getRealizations on a deterministic random variable")
-        return self._values.detach().cpu().numpy()
+        return self._gathered()._values.detach().cpu().numpy()
 
     @property
     def values(self):
@@ -254,8 +308,9 @@ class RandomVariableTorch(RandomVariable):
     def _new_time(self, other: "RandomVariable") -> float:
         return max(self._time, other.get_filtration_time())
 
-    def _of(self, time: float, values) -> "RandomVariableTorch":
-        return type(self).of(time, values, self._device)
+    def _of(self, time: float, values, *operands) -> "RandomVariableTorch":
+        return type(self).of(time, values, self._device,
+                             _joint_mesh(self, *operands))
 
     # ------------------------------------------------------------------
     # unary ops
@@ -375,7 +430,7 @@ class RandomVariableTorch(RandomVariable):
         o_det, o_vals = self._dev(other)
         if self.is_deterministic() and o_det:
             return self._of(new_time, _det_eval(scalar_fn, self._values, o_vals))
-        return self._of(new_time, array_fn(self._values, o_vals))
+        return self._of(new_time, array_fn(self._values, o_vals), other)
 
     # ------------------------------------------------------------------
     # fused financial ops (ref. the accrue/discount/addProduct kernels)
@@ -392,7 +447,7 @@ class RandomVariableTorch(RandomVariable):
         p = float(period_length)
         if self.is_deterministic() and r_det:
             return self._of(new_time, float(self._values) * (1.0 + float(r) * p))
-        return self._of(new_time, self._values * (1.0 + r * p))
+        return self._of(new_time, self._values * (1.0 + r * p), rate)
 
     def discount(self, rate: "RandomVariable", period_length: float):
         """self / (1 + rate * periodLength)."""
@@ -408,7 +463,7 @@ class RandomVariableTorch(RandomVariable):
             return self._of(
                 new_time,
                 _det_eval(lambda s, rr: s / (1.0 + rr * p), self._values, r))
-        return self._of(new_time, self._values / (1.0 + r * p))
+        return self._of(new_time, self._values / (1.0 + r * p), rate)
 
     def add_product(self, factor1: "RandomVariable", factor2):
         """self + factor1 * factor2 (factor2 scalar or RV)."""
@@ -425,7 +480,7 @@ class RandomVariableTorch(RandomVariable):
             f2_det, f2 = True, float(factor2)
         if self.is_deterministic() and f1_det and f2_det:
             return self._of(new_time, float(self._values) + float(f1) * float(f2))
-        return self._of(new_time, self._values + f1 * f2)
+        return self._of(new_time, self._values + f1 * f2, factor1, factor2)
 
     def add_ratio(self, numerator: "RandomVariable", denominator: "RandomVariable"):
         """self + numerator / denominator."""
@@ -452,7 +507,8 @@ class RandomVariableTorch(RandomVariable):
                 new_time,
                 _det_eval(lambda s, nn, dd: s + sign * nn / dd,
                           self._values, n, d))
-        return self._of(new_time, self._values + sign * (n / d))
+        return self._of(new_time, self._values + sign * (n / d), numerator,
+                        denominator)
 
     def add_sum_product(
         self,
@@ -480,13 +536,14 @@ class RandomVariableTorch(RandomVariable):
         )
         if self.is_deterministic():
             chosen = value_if_nonneg if float(self._values) >= 0 else value_if_neg
-            return self._of(new_time, self._dev(chosen)[1])
+            return self._of(new_time, self._dev(chosen)[1], chosen)
         _, a = self._dev(value_if_nonneg)
         _, b = self._dev(value_if_neg)
         dev = self._values.device
         a = torch.as_tensor(a, dtype=FLOAT_DTYPE, device=dev)
         b = torch.as_tensor(b, dtype=FLOAT_DTYPE, device=dev)
-        return self._of(new_time, torch.where(self._values >= 0, a, b))
+        return self._of(new_time, torch.where(self._values >= 0, a, b),
+                        value_if_nonneg, value_if_neg)
 
     def ge_zero(self):
         """Indicator of self >= 0 (helper used by choose delegation)."""
@@ -508,7 +565,8 @@ class RandomVariableTorch(RandomVariable):
         out = function(*[v for _, v in operands])
         dev = next(v.device for det, v in operands if not det)
         return self._of(new_time,
-                        torch.as_tensor(out, dtype=FLOAT_DTYPE, device=dev))
+                        torch.as_tensor(out, dtype=FLOAT_DTYPE, device=dev),
+                        *args)
 
     # ------------------------------------------------------------------
     # reductions: float32 input, float64 accumulation
@@ -519,17 +577,22 @@ class RandomVariableTorch(RandomVariable):
     def get_average(self, probabilities: "RandomVariable" = None) -> float:
         if probabilities is not None:
             # expectation under the given measure: sum(x_i * p_i), no 1/n
+            mesh = _joint_mesh(self, probabilities)
             p_det, p = self._dev(probabilities)
             if self.is_deterministic():
                 if p_det:
                     return float(self._values) * float(p)
-                return float(self._values) * float(torch.sum(p, dtype=ACC_DTYPE))
+                return float(self._values) * float(self._global(
+                    torch.sum(p, dtype=ACC_DTYPE), mesh=mesh))
             if p_det:
-                return float(p) * float(torch.sum(self._values, dtype=ACC_DTYPE))
-            return float(torch.sum(self._acc() * p.to(ACC_DTYPE)))
+                return float(p) * float(self._global(
+                    torch.sum(self._values, dtype=ACC_DTYPE)))
+            return float(self._global(
+                torch.sum(self._acc() * p.to(ACC_DTYPE)), mesh=mesh))
         if self.is_deterministic():
             return float(self._values)
-        return float(torch.sum(self._values, dtype=ACC_DTYPE)) / self.size()
+        return float(self._global(
+            torch.sum(self._values, dtype=ACC_DTYPE))) / self.size()
 
     def get_variance(self, probabilities: "RandomVariable" = None) -> float:
         if self.is_deterministic():
@@ -538,11 +601,12 @@ class RandomVariableTorch(RandomVariable):
             mean = self.get_average(probabilities)
             _, p = self._dev(probabilities)
             dev = self._acc() - mean
-            return float(torch.sum(dev * dev * torch.as_tensor(
-                p, dtype=ACC_DTYPE, device=dev.device)))
+            return float(self._global(torch.sum(dev * dev * torch.as_tensor(
+                p, dtype=ACC_DTYPE, device=dev.device)),
+                mesh=_joint_mesh(self, probabilities)))
         mean = self.get_average()
         dev = self._acc() - mean
-        return float(torch.sum(dev * dev)) / self.size()
+        return float(self._global(torch.sum(dev * dev))) / self.size()
 
     def get_sample_variance(self) -> float:
         n = self.size()
@@ -563,17 +627,22 @@ class RandomVariableTorch(RandomVariable):
     def get_min(self) -> float:
         if self.is_deterministic():
             return float(self._values)
-        return float(torch.min(self._values))
+        return float(self._global(torch.min(self._values), "min"))
 
     def get_max(self) -> float:
         if self.is_deterministic():
             return float(self._values)
-        return float(torch.max(self._values))
+        return float(self._global(torch.max(self._values), "max"))
 
     def get_quantile(self, quantile: float, probabilities: "RandomVariable" = None) -> float:
-        """Sorted on the device."""
+        """Sorted on the device (under a mesh: the gathered
+        realizations)."""
         if self.is_deterministic():
             return float(self._values)
+        if self.mesh is not None:
+            if isinstance(probabilities, RandomVariableTorch):
+                probabilities = probabilities._gathered()
+            return self._gathered().get_quantile(quantile, probabilities)
         if probabilities is not None:
             order = torch.argsort(self._values)
             p_det, p = self._dev(probabilities)
@@ -596,6 +665,8 @@ class RandomVariableTorch(RandomVariable):
         finmath convention."""
         if self.is_deterministic():
             return float(self._values)
+        if self.mesh is not None:
+            return self._gathered().get_quantile_expectation(q_start, q_end)
         if q_start > q_end:
             return self.get_quantile_expectation(q_end, q_start)
         n = self.size()
@@ -612,8 +683,11 @@ class RandomVariableTorch(RandomVariable):
         Two forms as in finmath: explicit interval points -> array of
         len(points)+1 frequencies (outer bins are open); or
         (numberOfPoints, standardDeviations) -> [2][n] array of mid points
-        and frequencies.
+        and frequencies. Under a mesh: of the gathered realizations.
         """
+        if self.mesh is not None and not self.is_deterministic():
+            return self._gathered().get_histogram(
+                interval_points, number_of_points, standard_deviations)
         if interval_points is not None:
             pts = np.asarray(interval_points, dtype=np.float64)
             if self.is_deterministic():

@@ -44,6 +44,28 @@ def select_device(index: int | None = None) -> torch.device:
     return torch.device("cuda", resolve_device_index(index, count))
 
 
+def rank_device() -> torch.device:
+    """The CUDA device of a rank of a meshed computation: ``cuda:{local
+    rank}``, the local rank being ``LOCAL_RANK`` from the environment (as
+    ``torchrun`` sets it), else the process group's rank modulo the
+    visible devices. Raises without a CUDA device, as ``select_device``
+    does; a CPU rank passes ``device="cpu"``."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is visible; pass device=\"cpu\" explicitly to "
+            "run a rank on the CPU")
+    raw = os.environ.get("LOCAL_RANK")
+    if raw is not None:
+        local_rank = int(raw)
+    else:
+        import torch.distributed as dist
+
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        local_rank = rank % torch.cuda.device_count()
+    return torch.device(
+        "cuda", resolve_device_index(local_rank, torch.cuda.device_count()))
+
+
 def to_device(values, dtype: torch.dtype, device) -> torch.Tensor:
     """Host values as a ``dtype`` tensor on ``device``, without waiting for
     the device: on a CUDA device the copy goes from pinned memory and does
