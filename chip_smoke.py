@@ -311,6 +311,23 @@ Phases, one line of output each (more for the kernel builds), in order:
     ``mc_price_sharded`` at 1M paths within 4 standard errors of the
     analytic price; the walls, the seconds in collectives and the peak
     memory per rank (two ranks on one card are no scaling figure);
+47. path-axis sharding of the XVA engines, the hybrid and the rates,
+    credit, FX, inflation, copula, commodity and market-risk simulations,
+    worlds as in phase 46: (a) an NCCL world of one runs phase 25's swap
+    profile (80 libors, 50,000 paths, 19 dates) and its 80-bucket CVA
+    ladder meshed on the unsharded engine's increments, within 1e-12 of
+    it (the PFE too; the CVA 1e-10 relative, the ladder rtol 1e-6 / atol
+    1e-10); (b) a gloo world of two ranks on the card runs, each against
+    the unsharded port on the same normals, the swap profile and ladder,
+    the 20-trade set and its IM, phase 27's mixed set with and without a
+    CSA (50,000 paths each), phase 29's hybrid on the ranks' own streams
+    (100,000 paths; against the unsharded hybrid fed their draws),
+    Hull-White with a TARN and a Bermudan (1M), the WWR CVA (500,000),
+    cross-currency with its exposure engine and Jarrow-Yildirim (1M
+    each), the copula on 125 names (1M), Schwartz-Smith (1M x 24) and the
+    VaR report (1M scenarios), at ``tests/test_torch_exposure_mesh.py``'s
+    and the JAX mesh tests' bounds; each part's gap, rank wall,
+    collectives, seconds in them and peak memory a rank;
 6. with ``--profile`` only, last: device operations and busy time under
    ``torch.profiler`` for one ATM calibration, one engine Jacobian, one
    ATM kernel residual call, one stoch-vol kernel
@@ -4337,6 +4354,580 @@ def _path_mesh(torch, smi) -> None:
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 47: path-axis sharding of the XVA engines, the hybrid and the rates,
+# credit, FX, inflation, copula, commodity and market-risk simulations (no
+# kernel)
+# ---------------------------------------------------------------------------
+
+F2_PATHS = {"exposure": EXPOSURE_PATHS, "hybrid": HYBRID_PATHS,
+            "hull_white": HW_PATHS, "wwr": CREDIT_PATHS,
+            "xccy": XCCY_PATHS, "inflation": XCCY_PATHS,
+            "copula": 1_000_000, "commodity": 1_000_000,
+            "risk": 1_000_000}
+F2_HAZARD = 0.012
+# the paths of each rank's block whose state histories phase 47 compares
+# bit for bit with the unsharded port's
+F2_HISTORY_PATHS = 4_096
+
+
+def _f2_profile(p) -> dict:
+    out = {"ee": p.ee, "ene": p.ene, "forward_value": p.forward_value}
+    out.update({f"pfe_{q}": v for q, v in p.pfe.items()})
+    return out
+
+
+def _f2_exposure(part, mesh, blocks):
+    """Phase 47's exposure parts on the card (``mesh=None``: the unsharded
+    port): phase 25's 10Y par payer swap (19 dates, quantiles 0.95 and
+    0.99) with the 80-bucket CVA ladder, phase 25's 20-trade set with its
+    IM profile, and phase 27's mixed set (two swaps, a European and a
+    Bermudan swaption) without and with a zero-threshold one-date-lag CSA,
+    each on the given block of increments."""
+    from finmath_tpu_torch.models.curves import par_swap_rate
+    from finmath_tpu_torch.models.lmm import build_atm_calibration
+    from finmath_tpu_torch.models.lmm import exposure as xv
+
+    setup = build_atm_calibration(num_paths=8, num_factors=1, device="cuda")
+    model, p0 = setup.model, setup.covariance.initial_parameters
+    kw = dict(num_paths=EXPOSURE_PATHS, num_factors=1, mesh=mesh,
+              increments=blocks[part],
+              device=None if mesh is not None else "cuda")
+    if part == "swap":
+        par = float(par_swap_rate(model.forward_curve, model.discount_curve,
+                                  model.tenor_times[4:21]))
+        eng = xv.SwapExposureEngine(model, first_index=4, last_index=20,
+                                    strike=par, quantiles=(0.95, 0.99), **kw)
+        out = _f2_profile(eng.profile(p0))
+        out["cva"], out["cva_deltas"] = eng.cva_forward_deltas(
+            p0, hazard_rate=F2_HAZARD)
+        return out
+    if part == "netting_set":
+        rng = np.random.default_rng(7)
+        trades = []
+        for k in range(20):
+            first = int(rng.integers(1, 20))
+            last = int(rng.integers(first + 1, 40))
+            trades.append(xv.SwapTrade(
+                first, last, float(rng.uniform(0.0, 0.02)),
+                payer=bool(k % 2), notional=float(rng.uniform(0.5, 2.0))))
+        eng = xv.NettingSetExposureEngine(model, trades, **kw)
+        out = _f2_profile(eng.profile(p0))
+        im = eng.im_profile(p0)
+        out.update(expected_im=im.expected_im,
+                   expected_im_tmoney=im.expected_im_tmoney)
+        return out
+    x_, m_ = 8, 8
+    strike = float(par_swap_rate(model.forward_curve, model.discount_curve,
+                                 model.tenor_times[x_:x_ + m_ + 1]))
+    mixed = [xv.SwapTrade(2, 16, 0.006, payer=False, notional=1.5),
+             xv.SwapTrade(1, 12, 0.02, payer=True),
+             xv.SwaptionTrade(x_, m_, strike),
+             xv.BermudanSwaptionTrade((x_, x_ + 2, x_ + 4), x_ + m_, strike)]
+    out = _f2_profile(xv.NettingSetExposureEngine(model, mixed,
+                                                  **kw).profile(p0))
+    csa = xv.NettingSetExposureEngine(
+        model, mixed, csa=xv.CSA(threshold=0.0, mta=0.0, margin_lag=1),
+        **kw).profile(p0)
+    out.update({f"csa_{k}": v for k, v in _f2_profile(csa).items()})
+    return out
+
+
+def _f2_hybrid(mesh, draws=None):
+    """Phase 29's two-asset hybrid (equity and FX under the ATM setup's
+    rates) at ``HYBRID_PATHS``: the martingale errors, a 10Y call, a
+    three-trade book's profile and the five-date autocallable. Under a mesh
+    on the ranks' own streams (antithetic), returning this rank's draws;
+    without one on the given ``draws`` (every rank's, in rank order)."""
+    from finmath_tpu_torch.models.curves import DiscountCurve
+    from finmath_tpu_torch.models.lmm import build_atm_calibration
+    from finmath_tpu_torch.models.lmm import hybrid as hy
+
+    setup = build_atm_calibration(num_paths=8, num_factors=1, device="cuda")
+    model, p0 = setup.model, setup.covariance.initial_parameters
+    n = model.num_libors
+    ft = np.arange(0.5, model.tenor_times[-1] + 0.01, 0.5)
+    foreign = DiscountCurve(list(ft), list(np.exp(-0.01 * ft)))
+    kw = (dict(mesh=mesh, antithetic=True) if mesh is not None else
+          dict(device="cuda", increments=draws[0], equity_normals=draws[1]))
+    h = hy.HybridAssetLMM(model, [100.0, 1.10], [0.20, 0.10],
+                          rate_correlations=[0.3, -0.2],
+                          dividend_yields=[0.01, foreign],
+                          observation_indices=range(1, n),
+                          num_paths=F2_PATHS["hybrid"], num_factors=1,
+                          seed=SEED, **kw)
+    book = [hy.EquityForwardTrade(0, 20, 100.0),
+            hy.EquityOptionTrade(0, 40, 110.0),
+            hy.EquityForwardTrade(1, 30, 1.10, notional=-50.0)]
+    out = _f2_profile(hy.HybridExposureEngine(
+        h, book, quantiles=(0.95,)).profile(p0))
+    out["martingale_errors"] = h.martingale_errors(p0)
+    out["call_10y"] = np.asarray(h.european_option_value(p0, 20, 100.0))
+    out["note"] = np.asarray(hy.HybridAutocallableNote(
+        h, [2, 4, 6, 8, 10], [105.0] * 5, [0.04] * 5, 70.0,
+        coupon_levels=[80.0] * 5, memory=True).get_value_and_error(p0))
+    if mesh is not None:
+        out["draws"] = (h.engine.increments.cpu().numpy(),
+                        h.equity_normals.cpu().numpy())
+    return out
+
+
+def _f2_history(mesh, paths, *states):
+    """The first ``F2_HISTORY_PATHS`` paths of this rank's block of each
+    state tensor (path axis last) on the host; under ``mesh=None`` the
+    unsharded port's paths at the offsets of the blocks of a world of two,
+    in rank order."""
+    if mesh is not None:
+        return [s[..., :F2_HISTORY_PATHS].cpu().numpy() for s in states]
+    local = paths // 2
+    return [np.concatenate([s[..., r * local:r * local + F2_HISTORY_PATHS]
+                            .cpu().numpy() for r in range(2)], axis=-1)
+            for s in states]
+
+
+def _f2_rates(part, mesh):
+    """Phase 47's rates parts (every one on the unmeshed stream, so the
+    unsharded port with ``mesh=None`` simulates the same paths): phase 30's
+    Hull-White model with a swaption, a TARN and a Bermudan; a WWR CVA on
+    Hull-White x CIR++; phase 32's cross-currency model with its FX
+    options, CCS legs and a two-trade exposure profile, and
+    ``tests/test_inflation.py``'s Jarrow-Yildirim model; phase 42's copula;
+    phase 43's Schwartz-Smith model; ``tests/test_risk.py``'s convex book's
+    parametric VaR report. A standard error's key ends in ``_stderr``;
+    ``history`` holds samples of the state (``_f2_history``)."""
+    from finmath_tpu_torch.models.curves import DiscountCurve
+    from finmath_tpu_torch.models.hull_white import HullWhiteModel
+    from finmath_tpu_torch.models.time_discretization import (
+        TimeDiscretization)
+
+    dev = None if mesh is not None else "cuda"
+    paths = F2_PATHS[part]
+    t_grid = np.arange(0.0, 31.0)
+    dc = DiscountCurve(t_grid, np.exp(-0.03 * t_grid))
+    if part == "hull_white":
+        from finmath_tpu_torch.models.hull_white import HullWhiteSimulation
+        from finmath_tpu_torch.models.hw_bermudan import BermudanSwaption
+        from finmath_tpu_torch.models.tarn import TargetRedemptionNote
+
+        pil = np.array([0.5, 1.0, 2.0, 3.0, 5.0, 7.0, 10.0, 15.0, 20.0])
+        z = np.array([0.010, 0.012, 0.015, 0.017, 0.020, 0.022, 0.024,
+                      0.025, 0.0255])
+        hw = HullWhiteModel(DiscountCurve(list(pil), list(np.exp(-z * pil))),
+                            0.12, [0.010, 0.014, 0.008],
+                            vol_times=[0.0, 2.0, 5.0])
+        sim = HullWhiteSimulation(
+            hw, TimeDiscretization(initial=0.0, num_steps=20, step=0.5),
+            num_paths=paths, seed=7, antithetic=True, mesh=mesh, device=dev)
+        tarn = TargetRedemptionNote(np.arange(1, 9) * 1.0,
+                                    np.arange(1, 9) * 1.0 + 0.5, 0.06, 0.06,
+                                    multiplier=2.0)
+        tv, te = (float(x) for x in tarn.get_value_and_error(sim))
+        bv, be = (float(x) for x in BermudanSwaption(
+            [1.0, 2.0, 3.0, 4.0, 5.0], 6.0, 0.02).get_value_and_error(sim))
+        return {"swaption": sim.mc_swaption_price(
+                    2.0, [3.0, 3.5, 4.0, 4.5, 5.0], 0.02),
+                "bond_10y": sim.mc_bond_price(10.0),
+                "tarn": tv, "tarn_stderr": te,
+                "bermudan": bv, "bermudan_stderr": be,
+                "history": _f2_history(mesh, paths, sim._xs, sim._ys)}
+    if part == "wwr":
+        from finmath_tpu_torch.models.credit import (
+            CIRPPIntensityModel, SurvivalCurve, WrongWayRiskCVAEngine,
+            par_swap_rate)
+
+        pay = np.arange(1, 21) * 0.5
+        res = WrongWayRiskCVAEngine(
+            HullWhiteModel(dc, 0.1, 0.01),
+            CIRPPIntensityModel(SurvivalCurve([0.0], [0.015]), kappa=0.5,
+                                theta=0.015, sigma=0.08, y0=0.01),
+            pay, par_swap_rate(dc, pay), num_paths=paths, correlation=0.6,
+            recovery=0.4, seed=31, antithetic=True, substeps=4, mesh=mesh,
+            device=dev).compute()
+        return {"cva": res.cva, "cva_independent": res.cva_independent,
+                "contributions": res.contributions,
+                "expected_survival": res.expected_survival}
+    if part == "xccy":
+        from finmath_tpu_torch.models.cross_currency import (
+            CCSTrade, CrossCurrencyExposureEngine, CrossCurrencySimulation,
+            FXForwardTrade)
+
+        dc_f = DiscountCurve(t_grid, np.exp(-0.01 * t_grid))
+        sim = CrossCurrencySimulation(
+            _xccy_model(dc, dc_f),
+            TimeDiscretization(initial=0.0, num_steps=20, step=0.5),
+            num_paths=paths, seed=5, antithetic=True, mesh=mesh, device=dev)
+        fwd, prices, stderr = sim.mc_fx_option_prices(5.0, [1.0, 1.25, 1.5])
+        out = _f2_profile(CrossCurrencyExposureEngine(
+            sim, [CCSTrade(tuple(np.arange(1, 11) * 1.0)),
+                  FXForwardTrade(4.0, 1.3, notional=-0.5)],
+            quantiles=(0.95, 0.99)).profile())
+        out.update(fx_forward=fwd, fx_prices=prices, fx_stderr=stderr,
+                   ccs=np.asarray(sim.mc_ccs_legs(np.arange(1, 11) * 1.0)),
+                   history=_f2_history(mesh, paths, sim._hist))
+        return out
+    if part == "inflation":
+        from finmath_tpu_torch.models.inflation import (
+            JarrowYildirimModel, JarrowYildirimSimulation)
+
+        jy = JarrowYildirimModel(
+            HullWhiteModel(dc, 0.1, 0.01),
+            HullWhiteModel(DiscountCurve(t_grid, np.exp(-0.01 * t_grid)),
+                           0.05, 0.006),
+            cpi_initial=100.0, cpi_vol=0.012, rho_nr=0.3, rho_ni=-0.1,
+            rho_ri=0.2)
+        sim = JarrowYildirimSimulation(
+            jy, TimeDiscretization(initial=0.0, num_steps=20, step=0.5),
+            num_paths=paths, seed=3, antithetic=True, mesh=mesh, device=dev)
+        yoy, yoy_se = sim.mc_yoy_forward(3.0, 4.0)
+        return {"zcis": sim.mc_zcis_value(5.0, jy.zcis_par_rate(5.0)),
+                "yoy": yoy, "yoy_stderr": yoy_se,
+                "history": _f2_history(mesh, paths, sim.sim._hist)}
+    if part == "copula":
+        from finmath_tpu_torch.models.credit import SurvivalCurve
+        from finmath_tpu_torch.models.portfolio_credit import (
+            GaussianCopulaPortfolio, GaussianCopulaSimulation)
+
+        rng = np.random.default_rng(1)
+        hazards = rng.uniform(0.005, 0.06, 125)
+        betas = rng.uniform(0.3, 0.7, 125)
+        pf = GaussianCopulaPortfolio(
+            [SurvivalCurve([0.0], [h]) for h in hazards], betas=betas,
+            recoveries=0.4, notionals=np.full(125, 1 / 125))
+        sim = GaussianCopulaSimulation(pf, num_paths=paths, seed=7,
+                                       antithetic=True, mesh=mesh,
+                                       device=dev)
+        st = sim.tranche_statistics(np.arange(1.0, 11.0), 0.03, 0.07,
+                                    ks=(1, 5, 10))
+        return {"etl": st["etl"], "etl_stderr": st["etl_stderr"],
+                "kth_prob": st["kth_prob"],
+                "history": _f2_history(mesh, paths, sim._lat)}
+    if part == "commodity":
+        from finmath_tpu_torch.models.commodity import (
+            SchwartzSmithModel, SchwartzSmithSimulation)
+
+        sim = SchwartzSmithSimulation(
+            SchwartzSmithModel(chi0=0.1, xi0=3.0, kappa=1.5, sigma_chi=0.25,
+                               sigma_xi=0.15, rho=0.3, mu_star=0.02,
+                               lambda_chi=0.05),
+            TimeDiscretization(initial=0.0, num_steps=24, step=1.0 / 12.0),
+            num_paths=paths, seed=2, antithetic=True, mesh=mesh, device=dev)
+        f, fse = sim.mc_futures_prices(1.0, [1.5, 2.0, 3.0, 5.0])
+        o, ose = sim.mc_option_on_future(1.0, 2.0, [20.0, 25.0])
+        sp, sp_se = sim.mc_calendar_spread(1.0, 2.0, 3.0)
+        return {"futures": f, "futures_stderr": fse, "options": o,
+                "options_stderr": ose, "spread": sp, "spread_stderr": sp_se,
+                "history": _f2_history(mesh, paths, sim._chis, sim._xis)}
+    from finmath_tpu_torch.models.risk import MarketRiskEngine, OptionBook
+
+    book = OptionBook(spots=[100.0, 50.0], rate=0.02,
+                      underlying_index=[0, 0, 1, 1],
+                      strikes=[100.0, 110.0, 50.0, 45.0],
+                      expiries=[0.5, 1.0, 0.25, 1.0],
+                      vols=[0.2, 0.22, 0.3, 0.28],
+                      notionals=[100.0, -50.0, 80.0, 40.0],
+                      is_call=[True, True, True, False])
+    rep = MarketRiskEngine(book, mesh=mesh, device=dev).parametric_mc(
+        np.array([[0.04, 0.012], [0.012, 0.09]]), num_scenarios=paths,
+        seed=5, vol_covariance=np.diag([0.25, 0.16]))
+    return {"var": rep.var, "es": rep.expected_shortfall,
+            "component_es": rep.component_es, "stderr_var": rep.stderr_var,
+            "mean_pnl": rep.mean_pnl}
+
+
+F2_EXPOSURE_PARTS = ("swap", "netting_set", "mixed")
+F2_RATES_PARTS = ("hull_white", "wwr", "xccy", "inflation", "copula",
+                  "commodity", "risk")
+
+
+def _f2_timed(torch, mesh, fn):
+    """``fn()`` and its rank wall, collectives, seconds in them and peak
+    device memory."""
+    calls, seconds = mesh.calls, mesh.seconds
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {"wall_s": time.perf_counter() - t0,
+                 "collectives": mesh.calls - calls,
+                 "collective_s": mesh.seconds - seconds,
+                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _mesh_f2_rank(mesh, blocks, parts):
+    """Phase 47, on every rank: each part of ``parts`` meshed, with its
+    numbers."""
+    import torch
+
+    t0 = time.perf_counter()
+    out, stats = {}, {}
+    for part in parts:
+        if part in F2_EXPOSURE_PARTS:
+            fn = (lambda p=part: _f2_exposure(p, mesh, blocks))
+        elif part == "hybrid":
+            fn = (lambda: _f2_hybrid(mesh))
+        else:
+            fn = (lambda p=part: _f2_rates(p, mesh))
+        out[part], stats[part] = _f2_timed(torch, mesh, fn)
+    return {"results": out, "stats": stats, "rank": mesh.rank,
+            "device": str(mesh.device), "backend": mesh.backend,
+            "wall_s": time.perf_counter() - t0, "collectives": mesh.calls,
+            "collective_s": mesh.seconds}
+
+
+def _f2_gap(got, want, rel=False) -> float:
+    """The largest gap between two results (dicts of arrays and floats),
+    absolute or relative to ``want``."""
+    gaps = [0.0]
+    for k, w in want.items():
+        if k in ("draws", "history"):
+            continue
+        g, w = (np.asarray(got[k], dtype=np.float64),
+                np.asarray(w, dtype=np.float64))
+        d = np.abs(g - w)
+        if rel:
+            d = d / np.maximum(np.abs(w), 1e-300)
+        gaps.append(float(np.max(d)))
+    return max(gaps)
+
+
+def _f2_equal(got, want, keys) -> bool:
+    return all(np.array_equal(np.asarray(got[k]), np.asarray(want[k]))
+               for k in keys)
+
+
+def _path_mesh_f2(torch, smi) -> None:
+    """Phase 47 (no kernel): the F2 engines meshed on the card, each world
+    spawned as in phase 46 and joined within ``MESH_JOIN_SECONDS``; a
+    failing or hung rank fails the phase.
+
+    (a) An NCCL world of one on ``cuda:0``: phase 25's 10Y par payer swap
+    profile at full width (80 libors, ``EXPOSURE_PATHS`` = 50,000 paths, 19
+    dates, quantiles 0.95 and 0.99) meshed on the unsharded engine's
+    increments, against the unsharded engine: EE, ENE, forward value and
+    PFE within 1e-12, the CVA within 1e-10 relative and its 80-bucket
+    ladder within rtol 1e-6 / atol 1e-10.
+    (b) A gloo world of two ranks sharing the card, each part against the
+    unsharded port on the card on the same normals, at ``F2_PATHS``: the
+    swap profile and ladder, the 20-trade set and its IM, the mixed set
+    with and without a CSA (50,000 paths); the hybrid (100,000 paths, the
+    ranks' own streams, against the unsharded hybrid fed their draws); the
+    Hull-White swaption, TARN and Bermudan (1M), the WWR CVA (500,000),
+    cross-currency and Jarrow-Yildirim (1M each), the copula on 125 names
+    (1M), Schwartz-Smith (1M x 24) and the VaR report (1M scenarios), all
+    on the unmeshed stream. Bounds: ``tests/test_torch_exposure_mesh.py``'s
+    for the exposure parts and the hybrid; ``tests/test_torch_rates_mesh.py``'s
+    for the rest: every mean within 1e-12 relative, every standard error
+    within 1e-9, the PFE, the VaR report and samples of the state
+    histories (``F2_HISTORY_PATHS`` paths of each block) bit for bit.
+    Printed: each part's gap, rank wall, collectives and their seconds,
+    and peak device memory per rank, beside the card's name and power
+    limit."""
+    from finmath_tpu_torch.models.curves import par_swap_rate
+    from finmath_tpu_torch.models.lmm import build_atm_calibration
+    from finmath_tpu_torch.models.lmm import exposure as xv
+    from finmath_tpu_torch.parallel.launch import start_world
+
+    t_phase = time.perf_counter()
+    # the unsharded engines' own increments: the blocks both sides price
+    setup = build_atm_calibration(num_paths=8, num_factors=1, device="cuda")
+    model = setup.model
+    par = float(par_swap_rate(model.forward_curve, model.discount_curve,
+                              model.tenor_times[4:21]))
+    blocks = {"swap": xv.SwapExposureEngine(
+        model, first_index=4, last_index=20, strike=par,
+        num_paths=EXPOSURE_PATHS, num_factors=1,
+        device="cuda").engine.increments.cpu().numpy()}
+    for part, last in (("netting_set", 40), ("mixed", 16)):
+        blocks[part] = xv.NettingSetExposureEngine(
+            model, [xv.SwapTrade(1, last, 0.01)], num_paths=EXPOSURE_PATHS,
+            num_factors=1, device="cuda").engine.increments.cpu().numpy()
+    del setup
+
+    t0 = time.perf_counter()
+    with start_world(f"{MODULE}:_mesh_f2_rank", 1, backend="nccl",
+                     device="cuda:0",
+                     kwargs=dict(blocks={"swap": blocks["swap"]},
+                                 parts=("swap",))) as world:
+        plain = {"swap": _f2_exposure("swap", None, blocks)}
+        (a,) = world.join(MESH_JOIN_SECONDS)
+    a_join_s = time.perf_counter() - t0
+
+    parts = F2_EXPOSURE_PARTS + ("hybrid",) + F2_RATES_PARTS
+    t0 = time.perf_counter()
+    with start_world(f"{MODULE}:_mesh_f2_rank", 2, backend="gloo",
+                     device="cuda:0",
+                     kwargs=dict(blocks=blocks, parts=parts)) as world:
+        plain_s = {}
+        for part in F2_EXPOSURE_PARTS[1:] + F2_RATES_PARTS:
+            t1 = time.perf_counter()
+            plain[part] = (_f2_exposure(part, None, blocks)
+                           if part in F2_EXPOSURE_PARTS
+                           else _f2_rates(part, None))
+            torch.cuda.synchronize()
+            plain_s[part] = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+        pair = world.join(MESH_JOIN_SECONDS)
+    b_join_s = time.perf_counter() - t0
+    draws = tuple(np.concatenate([rk["results"]["hybrid"]["draws"][i]
+                                  for rk in pair], axis=-1) for i in (0, 1))
+    t1 = time.perf_counter()
+    plain["hybrid"] = _f2_hybrid(None, draws)
+    plain_s["hybrid"] = time.perf_counter() - t1
+    del draws
+
+    ra, pa = a["results"]["swap"], plain["swap"]
+    pfe_keys = [k for k in pa if k.startswith("pfe_")]
+    rows = ("ee", "ene", "forward_value")
+
+    def rows_gap(got, want, keys=rows + tuple(pfe_keys)):
+        return max(_f2_gap({k: got[k] for k in keys},
+                           {k: want[k] for k in keys}), 0.0)
+
+    def ladder_ok(got, want):
+        return bool(np.all(np.abs(got["cva_deltas"] - want["cva_deltas"])
+                           <= 1e-10 + 1e-6 * np.abs(want["cva_deltas"])))
+
+    out = {"a_nccl_world_1": {
+        "swap_rows_pfe_gap": rows_gap(ra, pa),
+        "swap_pfe_bitwise": _f2_equal(ra, pa, pfe_keys),
+        "cva_rel_gap": abs(ra["cva"] - pa["cva"]) / abs(pa["cva"]),
+        "ladder_gap": _f2_gap({"d": ra["cva_deltas"]},
+                              {"d": pa["cva_deltas"]}),
+        "rank_wall_s": a["wall_s"], "join_wall_s": a_join_s,
+        "collectives": a["collectives"], "collective_s": a["collective_s"],
+        "peak_gb": a["stats"]["swap"]["peak_gb"]}}
+    b = {"parts": {}, "join_wall_s": b_join_s,
+         "rank_wall_s": [rk["wall_s"] for rk in pair],
+         "collectives": [rk["collectives"] for rk in pair],
+         "collective_s": [rk["collective_s"] for rk in pair]}
+    for part in parts:
+        want = plain[part]
+        entry = {"paths": F2_PATHS.get(part, EXPOSURE_PATHS),
+                 "gap": max(_f2_gap(rk["results"][part], want)
+                            for rk in pair),
+                 "rel_gap": max(_f2_gap(rk["results"][part], want, rel=True)
+                                for rk in pair),
+                 "unsharded_s": plain_s.get(part)}
+        if part in F2_EXPOSURE_PARTS + ("hybrid",):
+            # each output's own gap, absolute and relative
+            entry["by_key"] = {
+                k: [max(_f2_gap({k: rk["results"][part][k]}, {k: w},
+                                rel=rel) for rk in pair)
+                    for rel in (False, True)]
+                for k, w in want.items()}
+        for key in ("wall_s", "collectives", "collective_s", "peak_gb"):
+            entry[key] = [rk["stats"][part][key] for rk in pair]
+        b["parts"][part] = entry
+    out["b_gloo_world_2"] = b
+    print(f"phase 47 path-axis sharding F2 ({smi}): " + json.dumps(out),
+          flush=True)
+
+    r0, r1 = (rk["results"] for rk in pair)
+
+    def every(check):
+        return all(check(rk["results"]) for rk in pair)
+
+    def within(part, keys, atol=0.0, rtol=0.0):
+        want = plain[part]
+        return every(lambda r: all(np.all(
+            np.abs(np.asarray(r[part][k], dtype=np.float64)
+                   - np.asarray(want[k], dtype=np.float64))
+            <= atol + rtol * np.abs(np.asarray(want[k], dtype=np.float64)))
+            for k in keys))
+
+    def history_ok(part):
+        want = plain[part]["history"]
+        h = F2_HISTORY_PATHS
+        return all(np.array_equal(g, w[..., rk["rank"] * h:
+                                       (rk["rank"] + 1) * h])
+                   for rk in pair
+                   for g, w in zip(rk["results"][part]["history"], want))
+
+    def rates_ok(part):
+        """``tests/test_torch_rates_mesh.py``'s bounds: means 1e-12
+        relative, standard errors 1e-9, the PFE and the state histories
+        bit for bit."""
+        want = plain[part]
+        errs = tuple(k for k in want if k.endswith("_stderr"))
+        pfes = tuple(k for k in want if k.startswith("pfe_"))
+        means = tuple(k for k in want
+                      if k not in errs + pfes + ("history",))
+        return (within(part, means, rtol=1e-12)
+                and within(part, errs, rtol=1e-9)
+                and every(lambda r: _f2_equal(r[part], want, pfes))
+                and ("history" not in want or history_ok(part)))
+
+    hyb_pfe = [k for k in plain["hybrid"] if k.startswith("pfe_")]
+    checks = {
+        "(a) NCCL on cuda:0": a["backend"] == "nccl"
+        and a["device"] == "cuda:0",
+        "(a) swap EE, ENE, forward value and PFE within 1e-12":
+            out["a_nccl_world_1"]["swap_rows_pfe_gap"] < 1e-12,
+        "(a) CVA within 1e-10 relative":
+            out["a_nccl_world_1"]["cva_rel_gap"] < 1e-10,
+        "(a) CVA ladder within rtol 1e-6 / atol 1e-10": ladder_ok(ra, pa),
+        "(b) gloo ranks on cuda:0": all(
+            rk["backend"] == "gloo" and rk["device"] == "cuda:0"
+            for rk in pair),
+        "(b) every rank returns the same results": all(
+            _f2_gap(r1[p], r0[p]) == 0.0 for p in parts),
+        "(b) swap rows and PFE within 1e-12":
+            within("swap", rows + tuple(pfe_keys), atol=1e-12),
+        "(b) swap CVA 1e-10 relative, ladder rtol 1e-6 / atol 1e-10":
+            within("swap", ("cva",), rtol=1e-10)
+            and every(lambda r: ladder_ok(r["swap"], plain["swap"])),
+        "(b) 20-trade set within 1e-12, its IM within 1e-9":
+            within("netting_set", rows + tuple(pfe_keys), atol=1e-12)
+            and within("netting_set", ("expected_im", "expected_im_tmoney"),
+                       atol=1e-9),
+        "(b) mixed set with and without a CSA within 1e-8, PFE 1e-7":
+            within("mixed", rows + tuple(f"csa_{k}" for k in rows),
+                   atol=1e-8)
+            and within("mixed", tuple(pfe_keys)
+                       + tuple(f"csa_{k}" for k in pfe_keys), atol=1e-7),
+        "(b) hybrid on the ranks' draws: values 1e-12 relative, rows 1e-9, "
+        "PFE 1e-10 relative":
+            within("hybrid", ("call_10y", "note"), rtol=1e-12)
+            and within("hybrid", ("martingale_errors",), atol=1e-12)
+            and within("hybrid", rows, atol=1e-9)
+            and within("hybrid", tuple(hyb_pfe), rtol=1e-10),
+        "(b) hybrid results finite": every(
+            lambda r: all(np.all(np.isfinite(np.asarray(v, dtype=float)))
+                          for k, v in r["hybrid"].items() if k != "draws")),
+        "(a) swap PFE bit for bit": out["a_nccl_world_1"]["swap_pfe_bitwise"],
+        "(b) swap and 20-trade set PFE bit for bit": every(
+            lambda r: _f2_equal(r["swap"], plain["swap"], pfe_keys)
+            and _f2_equal(r["netting_set"], plain["netting_set"], pfe_keys)),
+        "(b) Hull-White swaption, bond, TARN and Bermudan 1e-12 relative, "
+        "their errors 1e-9, the (x, Y) histories bit for bit":
+            rates_ok("hull_white"),
+        "(b) WWR CVA, its independent part, contributions and survival "
+        "1e-12 relative": rates_ok("wwr"),
+        "(b) cross-currency FX forward, options, CCS legs and exposure rows "
+        "1e-12 relative, option errors 1e-9, exposure PFE and histories bit "
+        "for bit": rates_ok("xccy"),
+        "(b) Jarrow-Yildirim ZCIS and YoY forward 1e-12 relative, its error "
+        "1e-9, the histories bit for bit": rates_ok("inflation"),
+        "(b) copula ETL and P(>= k) 1e-12 relative, ETL errors 1e-9, the "
+        "latent matrix bit for bit": rates_ok("copula"),
+        "(b) Schwartz-Smith futures, options and calendar spread 1e-12 "
+        "relative, their errors 1e-9, the histories bit for bit":
+            rates_ok("commodity"),
+        "(b) VaR report bit for bit (VaR, ES, component ES, the quantile's "
+        "error, mean P&L)": every(lambda r: _f2_equal(
+            r["risk"], plain["risk"], tuple(plain["risk"]))),
+    }
+    print("phase 47 bit for bit against the unsharded port: " + json.dumps({
+        name: bool(ok) for name, ok in checks.items()
+        if "bit for bit" in name}), flush=True)
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: phase 47 failed: {failed}")
+    print(f"phase 47 seconds: {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -4785,6 +5376,7 @@ def main(argv=None) -> int:
 
     # -- 46: path-axis sharding over torch.distributed (no kernel) ---------
     _path_mesh(torch, smi)
+    _path_mesh_f2(torch, smi)
 
     if opts.profile:
         _profile(torch, setup, kb, sv, sv_kb, later)

@@ -37,7 +37,8 @@ import numpy as np
 import torch
 
 from ..ops.random_variable import ACC_DTYPE, FLOAT_DTYPE, RandomVariableTorch
-from ..utils.config import select_device
+from ..parallel.mesh import (check_mesh, mesh_device, path_block,
+                             path_mean_and_stderr)
 from ._draws import draws
 from .analytic import _norm_cdf
 from .time_discretization import TimeDiscretization
@@ -167,44 +168,40 @@ def _ss_scan(z1, z2, e_k, l11, l21, l22):
 
 
 def _ss_futures_core(chi, xi, decay, a_tau, chi_mean: float,
-                     xi_mean: float) -> torch.Tensor:
+                     xi_mean: float, mesh=None) -> torch.Tensor:
     """Packed [2K] (means, stderrs) of F(t, T_k) = exp(decay_k chi(t)
-    + xi(t) + A(tau_k) + deterministic means)."""
+    + xi(t) + A(tau_k) + deterministic means). The cores take ``mesh``:
+    the paths are then this rank's block and the two moments of each
+    price one all-reduce (``parallel.mesh.path_mean_and_stderr``)."""
     lnf = (decay[:, None] * (chi.to(ACC_DTYPE) + chi_mean)
            + (xi.to(ACC_DTYPE) + xi_mean) + a_tau[:, None])
-    f = torch.exp(lnf)
-    m = torch.mean(f, dim=1)
-    se = torch.sqrt(torch.clamp_min(torch.mean(f * f, dim=1) - m * m, 0.0)
-                    / f.shape[1])
+    m, se = path_mean_and_stderr(torch.exp(lnf), mesh)
     return torch.cat([m, se])
 
 
 def _ss_option_core(chi, xi, decay: float, a_tau: float, chi_mean: float,
-                    xi_mean: float, strikes, signs, df: float) -> torch.Tensor:
+                    xi_mean: float, strikes, signs, df: float,
+                    mesh=None) -> torch.Tensor:
     """Packed [2K]: option prices + stderrs on ONE future F(t, T) for a
     strike vector (decay/a_tau scalars here)."""
     f = torch.exp(decay * (chi.to(ACC_DTYPE) + chi_mean)
                   + (xi.to(ACC_DTYPE) + xi_mean) + a_tau)
     pay = df * torch.clamp_min(signs[:, None] * (f[None, :]
                                                  - strikes[:, None]), 0.0)
-    m = torch.mean(pay, dim=1)
-    se = torch.sqrt(torch.clamp_min(torch.mean(pay * pay, dim=1) - m * m,
-                                    0.0) / f.shape[0])
+    m, se = path_mean_and_stderr(pay, mesh)
     return torch.cat([m, se])
 
 
 def _ss_spread_core(chi, xi, d1: float, d2: float, a1: float, a2: float,
                     chi_mean: float, xi_mean: float, strike: float,
-                    df: float) -> torch.Tensor:
+                    df: float, mesh=None) -> torch.Tensor:
     """Packed [2]: calendar-spread option (F1 - F2 - K)^+ mean + se."""
     c = chi.to(ACC_DTYPE) + chi_mean
     x = xi.to(ACC_DTYPE) + xi_mean
     f1 = torch.exp(d1 * c + x + a1)
     f2 = torch.exp(d2 * c + x + a2)
     pay = df * torch.clamp_min(f1 - f2 - strike, 0.0)
-    m = torch.mean(pay)
-    se = torch.sqrt(torch.clamp_min(torch.mean(pay * pay) - m * m, 0.0)
-                    / pay.shape[0])
+    m, se = path_mean_and_stderr(pay, mesh)
     return torch.stack([m, se])
 
 
@@ -218,7 +215,14 @@ class SchwartzSmithSimulation:
     num_paths / 2`` when antithetic), the caller's ``normals=(z1, z2)``
     (the JAX scan's draws) or drawn from
     ``torch.Generator(device).manual_seed(seed)``, mirrored ``[z, -z]``
-    along the path axis. ``device`` defaults to ``select_device()``."""
+    along the path axis. ``device`` defaults to ``select_device()``.
+
+    ``mesh``: a ``parallel.PathMesh``. Every rank draws (or is given) the
+    global blocks above, the unmeshed stream, mirrored before they are
+    split, and keeps its block of the paths (``num_paths`` divisible by
+    the world size); the histories are the block's, ``spot`` carries the
+    mesh, and the pricers' moments are all-reduced. Every rank returns the
+    same prices."""
 
     def __init__(self, model: SchwartzSmithModel,
                  time_discretization: TimeDiscretization,
@@ -228,18 +232,15 @@ class SchwartzSmithSimulation:
                  normals=None):
         if antithetic and num_paths % 2:
             raise ValueError("antithetic needs an even num_paths")
-        if mesh is not None:
-            raise NotImplementedError(
-                "path-axis sharding comes with the sharding slice "
-                "(torch.distributed)")
-        self.mesh = mesh
+        self.mesh = check_mesh(mesh)
         self.path_axis = path_axis
+        if self.mesh is not None:
+            self.mesh.local_count(num_paths)
         self.model = model
         self.td = time_discretization
         self.num_paths = int(num_paths)
         self.antithetic = bool(antithetic)
-        self.device = torch.device(device) if device is not None \
-            else select_device()
+        self.device = mesh_device(self.mesh, device)
         times = time_discretization.as_array()
         if times[0] != 0.0:
             raise ValueError("simulation grid must start at 0")
@@ -257,7 +258,9 @@ class SchwartzSmithSimulation:
         z1, z2 = draws(normals, ("normal", "normal"), (dts.size, half),
                        self.antithetic, seed, self.device,
                        ("normals z1", "normals z2"))
-        self._chis, self._xis = _ss_scan(z1, z2, ek, l11, l21, l22)
+        self._chis, self._xis = _ss_scan(path_block(z1, self.mesh),
+                                         path_block(z2, self.mesh), ek, l11,
+                                         l21, l22)
         # exact deterministic means at the grid points
         e_t = np.exp(-k * times)
         self._chi_mean = (model.chi0 * e_t
@@ -280,7 +283,7 @@ class SchwartzSmithSimulation:
             self._times[i],
             torch.exp(self._chis[i].to(ACC_DTYPE) + self._chi_mean[i]
                       + self._xis[i].to(ACC_DTYPE)
-                      + self._xi_mean[i]).to(FLOAT_DTYPE))
+                      + self._xi_mean[i]).to(FLOAT_DTYPE), mesh=self.mesh)
 
     def _fut_consts(self, i: int, maturities):
         t = self._times[i]
@@ -303,7 +306,8 @@ class SchwartzSmithSimulation:
         decay, a_tau = self._fut_consts(i, maturities)
         out = _ss_futures_core(
             self._chis[i], self._xis[i], self._f64(decay), self._f64(a_tau),
-            float(self._chi_mean[i]), float(self._xi_mean[i])).cpu().numpy()
+            float(self._chi_mean[i]), float(self._xi_mean[i]),
+            self.mesh).cpu().numpy()
         kk = decay.size
         return out[:kk], out[kk:]
 
@@ -320,7 +324,7 @@ class SchwartzSmithSimulation:
             self._chis[i], self._xis[i], float(decay[0]), float(a_tau[0]),
             float(self._chi_mean[i]), float(self._xi_mean[i]),
             self._f64(ks), self._f64(np.full(ks.shape, sign)),
-            float(discount_factor)).cpu().numpy()
+            float(discount_factor), self.mesh).cpu().numpy()
         kk = ks.size
         return out[:kk], out[kk:]
 
@@ -335,5 +339,5 @@ class SchwartzSmithSimulation:
             self._chis[i], self._xis[i], float(decay[0]), float(decay[1]),
             float(a_tau[0]), float(a_tau[1]), float(self._chi_mean[i]),
             float(self._xi_mean[i]), float(strike),
-            float(discount_factor)).cpu().numpy()
+            float(discount_factor), self.mesh).cpu().numpy()
         return float(out[0]), float(out[1])

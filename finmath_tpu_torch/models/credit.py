@@ -35,6 +35,8 @@ import numpy as np
 import torch
 
 from ..ops.random_variable import ACC_DTYPE, FLOAT_DTYPE, RandomVariableTorch
+from ..parallel.mesh import (check_mesh, gather_paths, mesh_device,
+                             path_block, path_means)
 from ..utils.config import select_device
 from .curves import DiscountCurve
 from .hull_white import (HullWhiteModel, _b, _f64, _hw_paths, _injected,
@@ -415,7 +417,7 @@ class CIRPPSimulation:
 # ---------------------------------------------------------------------------
 
 def _wwr_collect(xs, yys, lams, psi_int, a_int, alive, leads, bbs, wts,
-                 sign: float, lgd: float) -> torch.Tensor:
+                 sign: float, lgd: float, mesh=None) -> torch.Tensor:
     """Per-observation CVA contributions, packed, in float64.
 
     ``xs``, ``yys`` ``[E + 1, paths]`` float32 at the observation dates
@@ -425,7 +427,8 @@ def _wwr_collect(xs, yys, lams, psi_int, a_int, alive, leads, bbs, wts,
     fixed-leg weights masked to the remaining payments (the terminal column
     carries the float leg's notional); ``sign`` +1 payer, -1 receiver.
     Returns ``[2 + 2E]``: cva, cva_independent, E contributions and E
-    expected survivals."""
+    expected survivals. Under a ``mesh`` the paths are this rank's block
+    and the four path means are one all-reduce."""
     xa = xs[1:].to(ACC_DTYPE)                               # [E, paths]
     bonds = leads[:, :, None] * torch.exp(
         -bbs[:, :, None] * xa[:, None, :])                  # [E, J, paths]
@@ -435,11 +438,11 @@ def _wwr_collect(xs, yys, lams, psi_int, a_int, alive, leads, bbs, wts,
     dpe = torch.clamp_min(value, 0.0) * inv_n               # discounted V+
     s = torch.exp(-(lams + psi_int[:, None]))               # [E + 1, paths]
     ds = s[:-1] - s[1:]                                     # [E, paths]
-    contrib = lgd * torch.mean(dpe * ds, dim=1)             # [E]
+    m_dpe_ds, m_dpe, m_ds, es = path_means([dpe * ds, dpe, ds, s[1:]], mesh)
+    contrib = lgd * m_dpe_ds                                # [E]
     cva = torch.sum(contrib)
     # independence control: the product of means on the same survival
-    cva_indep = lgd * torch.sum(torch.mean(dpe, dim=1) * torch.mean(ds, dim=1))
-    es = torch.mean(s[1:], dim=1)
+    cva_indep = lgd * torch.sum(m_dpe * m_ds)
     return torch.cat([torch.stack([cva, cva_indep]), contrib, es])
 
 
@@ -474,7 +477,14 @@ class WrongWayRiskCVAEngine:
     ``[steps, substeps, num_paths / 2]`` float32, in that order from
     ``torch.Generator(device).manual_seed(seed)``, mirrored when
     antithetic; or the caller's ``normals=(z1, z2, z3)`` at full width.
-    ``device`` defaults to ``select_device()``."""
+    ``device`` defaults to ``select_device()``.
+
+    ``mesh``: a ``parallel.PathMesh``. Every rank draws (or is given) the
+    global blocks above, the unmeshed stream, and keeps its block of the
+    paths (``num_paths`` divisible by the world size); the substep split
+    is the one above, unchanged; the CVA's path means are all-reduced and
+    ``simulate()`` gathers the histories, so every rank returns the
+    unsharded results up to the order of the float64 sums."""
 
     def __init__(self, hw_model: HullWhiteModel,
                  intensity_model: CIRPPIntensityModel,
@@ -486,14 +496,14 @@ class WrongWayRiskCVAEngine:
                  time_discretization: Optional[TimeDiscretization] = None,
                  mesh=None, path_axis: str = "paths", *, device=None,
                  normals=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "path-axis sharding comes with the sharding slice "
-                "(torch.distributed)")
+        self.mesh = check_mesh(mesh)
+        self.path_axis = path_axis
         if not -1.0 <= correlation <= 1.0:
             raise ValueError("correlation must be in [-1, 1]")
         if antithetic and num_paths % 2:
             raise ValueError("antithetic needs an even num_paths")
+        if self.mesh is not None:
+            self.mesh.local_count(num_paths)
         pt = np.asarray(payment_times, dtype=np.float64)
         if pt.ndim != 1 or pt.size < 1 or pt[0] <= 0 \
                 or np.any(np.diff(pt) <= 0):
@@ -509,8 +519,7 @@ class WrongWayRiskCVAEngine:
         self.seed = int(seed)
         self.antithetic = bool(antithetic)
         self.substeps = int(substeps)
-        self.device = torch.device(device) if device is not None \
-            else select_device()
+        self.device = mesh_device(self.mesh, device)
 
         td = time_discretization or TimeDiscretization(
             np.concatenate([[0.0], pt]))
@@ -577,20 +586,21 @@ class WrongWayRiskCVAEngine:
         if normals is not None:
             steps, n, dev = dts.size, self.num_paths, self.device
             z1, z2, z3 = normals
-            self._normals = (_injected(z1, (steps, n), dev, "z1"),
-                             _injected(z2, (steps, n), dev, "z2"),
-                             _injected(z3, (steps, self.substeps, n), dev,
-                                       "z3"))
+            self._normals = tuple(path_block(z, self.mesh) for z in (
+                _injected(z1, (steps, n), dev, "z1"),
+                _injected(z2, (steps, n), dev, "z2"),
+                _injected(z3, (steps, self.substeps, n), dev, "z3")))
 
     # ------------------------------------------------------------------
     def _draw(self):
-        """(z1, z2, z3) of this engine's seed, mirrored when antithetic."""
+        """(z1, z2, z3) of this engine's seed, mirrored when antithetic
+        (this rank's block of them under a mesh)."""
         dev, steps, n = self.device, self._dts.size, self.num_paths
         gen = torch.Generator(device=dev).manual_seed(self.seed)
-        return (_normal_block(gen, (steps, n), self.antithetic, dev),
-                _normal_block(gen, (steps, n), self.antithetic, dev),
-                _normal_block(gen, (steps, self.substeps, n),
-                              self.antithetic, dev))
+        return tuple(path_block(_normal_block(gen, shape, self.antithetic,
+                                              dev), self.mesh)
+                     for shape in ((steps, n), (steps, n),
+                                   (steps, self.substeps, n)))
 
     def credit_shares(self):
         """(rate share, idiosyncratic share) of each credit substep normal,
@@ -601,9 +611,8 @@ class WrongWayRiskCVAEngine:
         r_share = self.rho / math.sqrt(self.substeps)
         return _f32(r_share), _f32(math.sqrt(1.0 - r_share * r_share))
 
-    def simulate(self):
-        """The joint histories ``[steps + 1, paths]``: x and Y (float32)
-        and Lambda_y (float64)."""
+    def _simulate(self):
+        """This rank's joint histories (``simulate``)."""
         z1, z2, z3 = self._normals or self._draw()
         dev = self.device
         xs, yys = _hw_paths(z1, z2, torch.as_tensor(
@@ -611,13 +620,19 @@ class WrongWayRiskCVAEngine:
         rs, io = self.credit_shares()
         lams = _cir_lambda(lambda s, k: rs * z1[s] + io * z3[s, k],
                            self._dts, self.substeps, self.intensity,
-                           self.num_paths, dev)
+                           z1.shape[-1], dev)
         return xs, yys, lams
+
+    def simulate(self):
+        """The joint histories ``[steps + 1, paths]``: x and Y (float32)
+        and Lambda_y (float64); under a mesh every rank's paths, gathered
+        in rank order."""
+        return tuple(gather_paths(h, self.mesh) for h in self._simulate())
 
     def compute(self) -> WWRCVAResult:
         """Run the joint simulation and collect the CVA decomposition in
         one packed host transfer."""
-        xs, yys, lams = self.simulate()
+        xs, yys, lams = self._simulate()
         full = np.concatenate([[0], self._obs_idx])
         dev = self.device
         idx = torch.as_tensor(full, device=dev)
@@ -626,7 +641,7 @@ class WrongWayRiskCVAEngine:
             _f64(self._a_int[full], dev), _f64(self._alive, dev),
             _f64(self._leads, dev), _f64(self._bbs, dev),
             _f64(self._wts, dev), 1.0 if self.payer else -1.0,
-            1.0 - self.recovery).cpu().numpy()
+            1.0 - self.recovery, self.mesh).cpu().numpy()
         E = self._obs_idx.size
         return WWRCVAResult(
             cva=float(packed[0]), cva_independent=float(packed[1]),

@@ -34,7 +34,8 @@ import numpy as np
 import torch
 
 from ..ops.random_variable import ACC_DTYPE, FLOAT_DTYPE, RandomVariableTorch
-from ..utils.config import select_device
+from ..parallel.mesh import (check_mesh, gather_paths, mesh_device,
+                             path_block, path_means)
 from .analytic import _norm_cdf
 from .hull_white import HullWhiteModel, _b, _f64, _injected, _normal_block
 from .lmm.exposure import ExposureProfile, _linear_quantiles, cva_from_profile
@@ -226,38 +227,38 @@ def _xccy_paths(z: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return hist
 
 
-def _xccy_diag_core(h, lnx_det, a_int_d, lead_d, bb_d, lead_f, bb_f):
+def _xccy_diag_core(h, lnx_det, a_int_d, lead_d, bb_d, lead_f, bb_f,
+                    mesh=None):
     """Martingale diagnostics at one date ``h`` ``[5, paths]``, packed:
-    [E[1/N_d], E[X/N_d], E[X P_f(t,T)/N_d], E[P_d(t,T)/N_d]] (float64)."""
+    [E[1/N_d], E[X/N_d], E[X P_f(t,T)/N_d], E[P_d(t,T)/N_d]] (float64).
+    The cores below take ``mesh``: the paths are then this rank's block
+    and the means are all-reduced, one all-reduce a core."""
     x_d, y_d, x_f, y_f, z_x = h.to(ACC_DTYPE)
     inv_n = torch.exp(-y_d - a_int_d)
     x_spot = torch.exp(lnx_det + (y_d + a_int_d) + z_x - y_f)
     p_f = lead_f * torch.exp(-bb_f * x_f)
     p_d = lead_d * torch.exp(-bb_d * x_d)
-    return torch.stack([torch.mean(inv_n), torch.mean(x_spot * inv_n),
-                        torch.mean(x_spot * p_f * inv_n),
-                        torch.mean(p_d * inv_n)])
+    return torch.stack(path_means([inv_n, x_spot * inv_n,
+                                   x_spot * p_f * inv_n, p_d * inv_n], mesh))
 
 
-def _xccy_fx_option_core(h, lnx_det, a_int_d, strikes, signs):
+def _xccy_fx_option_core(h, lnx_det, a_int_d, strikes, signs, mesh=None):
     """FX option prices and standard errors at one expiry for a strike
     vector, with E[X/N_d], packed ``[1 + 2K]`` (float64)."""
     y_d, y_f, z_x = h[[1, 3, 4]].to(ACC_DTYPE)
     inv_n = torch.exp(-y_d - a_int_d)
     x_spot = torch.exp(lnx_det + (y_d + a_int_d) + z_x - y_f)
-    fwd = torch.mean(x_spot * inv_n)
     pay = torch.clamp_min(signs[:, None] * (x_spot[None, :]
                                             - strikes[:, None]), 0.0) \
         * inv_n[None, :]
-    prices = torch.mean(pay, dim=1)
-    n = pay.shape[1]
-    stderr = torch.sqrt(torch.clamp_min(
-        torch.mean(pay * pay, dim=1) - prices * prices, 0.0) / n)
+    fwd, prices, second = path_means([x_spot * inv_n, pay, pay * pay], mesh)
+    n = pay.shape[1] * (1 if mesh is None else mesh.world_size)
+    stderr = torch.sqrt(torch.clamp_min(second - prices * prices, 0.0) / n)
     return torch.cat([fwd[None], prices, stderr])
 
 
 def _xccy_ccs_core(h_prev, h_pay, lnx_det_pay, a_int_d_pay, lead_d, bb_d,
-                   lead_f, bb_f, m_prev):
+                   lead_f, bb_f, m_prev, mesh=None):
     """Both float legs of a cross-currency swap. ``h_prev``, ``h_pay``: ``[J,
     5, paths]`` states at the fixing and payment dates. Coupon j pays
     (1/P(t_{j-1}, t_j) - 1) of its currency at t_j, the foreign one
@@ -267,15 +268,16 @@ def _xccy_ccs_core(h_prev, h_pay, lnx_det_pay, a_int_d_pay, lead_d, bb_d,
     inv_n = torch.exp(-y_pay)                                  # [J, paths]
     x_d = h_prev[:, 0].to(ACC_DTYPE)
     inv_pd = torch.exp(bb_d[:, None] * x_d) / lead_d[:, None]
-    dom = torch.sum(torch.mean((inv_pd - 1.0) * inv_n, dim=1))
     x_f = h_prev[:, 2].to(ACC_DTYPE) + m_prev[:, None]
     inv_pf = torch.exp(bb_f[:, None] * x_f) / lead_f[:, None]
     x_spot = torch.exp(lnx_det_pay[:, None] + y_pay
                        + h_pay[:, 4].to(ACC_DTYPE)
                        - h_pay[:, 3].to(ACC_DTYPE))
-    fgn = torch.sum(torch.mean(x_spot * (inv_pf - 1.0) * inv_n, dim=1))
-    dom_leg = dom + torch.mean(inv_n[-1])
-    fgn_leg = fgn + torch.mean(x_spot[-1] * inv_n[-1])
+    dom, fgn, dom_end, fgn_end = path_means(
+        [(inv_pd - 1.0) * inv_n, x_spot * (inv_pf - 1.0) * inv_n, inv_n[-1],
+         x_spot[-1] * inv_n[-1]], mesh)
+    dom_leg = torch.sum(dom) + dom_end
+    fgn_leg = torch.sum(fgn) + fgn_end
     return torch.stack([dom_leg, fgn_leg])
 
 
@@ -289,26 +291,32 @@ class CrossCurrencySimulation:
     ``torch.Generator(device).manual_seed(seed)`` (``num_paths`` without
     ``antithetic``), mirrored ``[z, -z]`` along the path axis when
     antithetic; or the caller's ``normals=`` ``[steps, 5, num_paths]``.
-    ``device`` defaults to ``select_device()``."""
+    ``device`` defaults to ``select_device()``.
+
+    ``mesh``: a ``parallel.PathMesh``. Every rank draws (or is given) the
+    global block above, the unmeshed stream, and keeps its block of the
+    paths (``num_paths`` divisible by the world size); the history is the
+    block's, the variables carry the mesh, and the pricers and the
+    exposure engine reduce over the ranks (its PFE sorts the gathered
+    values). Every rank returns the same results."""
 
     def __init__(self, model: CrossCurrencyModel,
                  time_discretization: TimeDiscretization, num_paths: int,
                  seed: int = 1618, antithetic: bool = False,
                  mesh=None, path_axis: str = "paths", *, device=None,
                  normals=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "path-axis sharding comes with the sharding slice "
-                "(torch.distributed)")
+        self.mesh = check_mesh(mesh)
+        self.path_axis = path_axis
         if antithetic and num_paths % 2:
             raise ValueError("antithetic needs an even num_paths")
+        if self.mesh is not None:
+            self.mesh.local_count(num_paths)
         self.model = model
         self.td = time_discretization
         self.num_paths = int(num_paths)
         self.seed = int(seed)
         self.antithetic = bool(antithetic)
-        self.device = torch.device(device) if device is not None \
-            else select_device()
+        self.device = mesh_device(self.mesh, device)
         times = time_discretization.as_array()
         if times[0] != 0.0:
             raise ValueError("simulation grid must start at 0")
@@ -353,7 +361,7 @@ class CrossCurrencySimulation:
             z = _normal_block(gen, shape, self.antithetic, dev)
         else:
             z = _injected(normals, shape, dev, "normals")
-        self._hist = _xccy_paths(z, torch.as_tensor(
+        self._hist = _xccy_paths(path_block(z, self.mesh), torch.as_tensor(
             packed.astype(np.float32), device=dev))
 
         st_d = np.array([model.domestic.gaussian_state(t) for t in times])
@@ -387,7 +395,8 @@ class CrossCurrencySimulation:
         """Pathwise FX spot X(t)."""
         i = self._index(time)
         return RandomVariableTorch.of(
-            self._times[i], torch.exp(self._lnx(i)).to(FLOAT_DTYPE))
+            self._times[i], torch.exp(self._lnx(i)).to(FLOAT_DTYPE),
+            mesh=self.mesh)
 
     def numeraire(self, time: float) -> RandomVariableTorch:
         """Domestic bank account N_d(t) (exact in distribution)."""
@@ -395,7 +404,8 @@ class CrossCurrencySimulation:
         return RandomVariableTorch.of(
             self._times[i],
             torch.exp(self._hist[i][1].to(ACC_DTYPE)
-                      + float(self._a_int_d[i])).to(FLOAT_DTYPE))
+                      + float(self._a_int_d[i])).to(FLOAT_DTYPE),
+            mesh=self.mesh)
 
     def _bond_coeffs(self, leg: str, i: int, maturity: float):
         model = self.model.domestic if leg == "d" else self.model.foreign
@@ -424,7 +434,8 @@ class CrossCurrencySimulation:
         lead, bb = self._bond_coeffs(leg, i, maturity)
         return RandomVariableTorch.of(
             self._times[i],
-            (lead * torch.exp(-bb * self._state(leg, i))).to(FLOAT_DTYPE))
+            (lead * torch.exp(-bb * self._state(leg, i))).to(FLOAT_DTYPE),
+            mesh=self.mesh)
 
     def get_number_of_paths(self) -> int:
         return self.num_paths
@@ -443,7 +454,7 @@ class CrossCurrencySimulation:
         lead_f_shift = lead_f * math.exp(-bb_f * self._m[i])
         out = _xccy_diag_core(
             self._hist[i], float(self._lnx_det[i]), float(self._a_int_d[i]),
-            lead_d, bb_d, lead_f_shift, bb_f).cpu().numpy()
+            lead_d, bb_d, lead_f_shift, bb_f, self.mesh).cpu().numpy()
         model = self.model
         return {
             "bond": (out[0], float(model.domestic.df(time))),
@@ -466,7 +477,8 @@ class CrossCurrencySimulation:
         out = _xccy_fx_option_core(
             self._hist[i], float(self._lnx_det[i]), float(self._a_int_d[i]),
             _f64(ks, self.device),
-            _f64(np.full(ks.shape, sign), self.device)).cpu().numpy()
+            _f64(np.full(ks.shape, sign), self.device),
+            self.mesh).cpu().numpy()
         k = ks.size
         fwd = float(out[0]) / float(self.model.domestic.df(expiry))
         return fwd, out[1:1 + k], out[1 + k:]
@@ -501,7 +513,8 @@ class CrossCurrencySimulation:
             self._hist[torch.as_tensor(i_pay, device=dev)],
             _f64(self._lnx_det[i_pay], dev), _f64(self._a_int_d[i_pay], dev),
             _f64(lead_d, dev), _f64(bb_d, dev), _f64(lead_f, dev),
-            _f64(bb_f, dev), _f64(self._m[i_prev], dev)).cpu().numpy()
+            _f64(bb_f, dev), _f64(self._m[i_prev], dev),
+            self.mesh).cpu().numpy()
         return float(out[0]), float(out[1])
 
     def mc_ccs_value(self, payment_times: Sequence[float],
@@ -539,17 +552,17 @@ class FXForwardTrade:
     notional: float = 1.0
 
 
-def _xccy_exposure_collect(values, inv_n, standalone_pos, qs):
+def _xccy_exposure_collect(values, inv_n, standalone_pos, qs, mesh=None):
     """Per-date statistics from netted values ``[O, paths]``, packed: rows
-    [ee, ene, forward_value, ee_standalone, pfe_q...] x O."""
+    [ee, ene, forward_value, ee_standalone, pfe_q...] x O (under a
+    ``mesh``: the means all-reduced, the quantiles of the gathered
+    values)."""
     dpe = torch.clamp_min(values, 0.0) * inv_n
     dne = torch.clamp_max(values, 0.0) * inv_n
-    ee = torch.mean(dpe, dim=1)
-    ene = torch.mean(dne, dim=1)
-    fwd = torch.mean(values * inv_n, dim=1)
-    ees = torch.mean(standalone_pos * inv_n, dim=1)
-    pfe = _linear_quantiles(values, qs)                      # [Q, O]
-    return torch.cat([torch.stack([ee, ene, fwd, ees]), pfe], dim=0)
+    means = path_means([dpe, dne, values * inv_n, standalone_pos * inv_n],
+                       mesh)
+    pfe = _linear_quantiles(gather_paths(values, mesh), qs)  # [Q, O]
+    return torch.cat([torch.stack(means), pfe], dim=0)
 
 
 class CrossCurrencyExposureEngine:
@@ -613,7 +626,7 @@ class CrossCurrencyExposureEngine:
         sim = self.sim
         t = sim._times[i_obs]
         if t >= pt[-1] - 1e-12:
-            return torch.zeros(sim.num_paths, dtype=ACC_DTYPE,
+            return torch.zeros(sim._hist.shape[-1], dtype=ACC_DTYPE,
                                device=sim.device)
         j = int(np.searchsorted(pt, t + 1e-12))          # next payment
         t_next = float(pt[j])
@@ -628,7 +641,7 @@ class CrossCurrencyExposureEngine:
         if basis != 0.0:
             # running spread on the remaining accrual periods
             deltas = np.diff(np.concatenate([[t_fix], pt[j:]]))
-            ann = torch.zeros(sim.num_paths, dtype=ACC_DTYPE,
+            ann = torch.zeros(sim._hist.shape[-1], dtype=ACC_DTYPE,
                               device=sim.device)
             for tk, dk in zip(pt[j:], deltas):
                 lk, bk = sim._bond_coeffs(leg, i_obs, float(tk))
@@ -645,7 +658,7 @@ class CrossCurrencyExposureEngine:
             x_spot = torch.exp(sim._lnx(i))
             inv_n = torch.exp(-(sim._hist[i][1].to(ACC_DTYPE)
                                 + float(sim._a_int_d[i])))
-            net = torch.zeros(sim.num_paths, dtype=ACC_DTYPE,
+            net = torch.zeros(sim._hist.shape[-1], dtype=ACC_DTYPE,
                               device=sim.device)
             pos = torch.zeros_like(net)
             for tr in self.trades:
@@ -674,7 +687,7 @@ class CrossCurrencyExposureEngine:
         out = _xccy_exposure_collect(
             torch.stack(rows_net), torch.stack(inv_n_rows),
             torch.stack(rows_pos),
-            _f64(self.quantiles, sim.device)).cpu().numpy()
+            _f64(self.quantiles, sim.device), sim.mesh).cpu().numpy()
         pfe = {q: out[4 + k] for k, q in enumerate(self.quantiles)}
         return ExposureProfile(times=self._times_obs, ee=out[0],
                                ene=out[1], forward_value=out[2],

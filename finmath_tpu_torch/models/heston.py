@@ -398,7 +398,7 @@ def _no_mesh(mesh, what: str) -> None:
     if mesh is not None:
         raise NotImplementedError(
             f"{what}(mesh=...): path-axis sharding over torch.distributed "
-            "is not ported for it yet (sharding step F2)")
+            "is not ported for it yet")
 
 
 class MonteCarloHestonModel:

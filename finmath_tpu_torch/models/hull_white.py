@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from ..ops.random_variable import ACC_DTYPE, FLOAT_DTYPE, RandomVariableTorch
-from ..utils.config import select_device
+from ..parallel.mesh import check_mesh, mesh_device, path_block, path_mean
 from .analytic import _norm_cdf
 from .curves import DiscountCurve
 from .time_discretization import TimeDiscretization
@@ -270,26 +270,32 @@ class HullWhiteSimulation:
     without ``antithetic``), mirrored ``[z, -z]`` along the path axis when
     antithetic; or the caller's ``normals=(z1, z2)``, two ``[steps,
     num_paths]`` blocks used as given (the JAX stream can be fed in).
-    ``device`` defaults to ``select_device()``."""
+    ``device`` defaults to ``select_device()``.
+
+    ``mesh``: a ``parallel.PathMesh``. Every rank draws (or is given) the
+    global blocks above, the unmeshed stream, and keeps its block of the
+    paths (``num_paths`` divisible by the world size); the histories are
+    the block's, the variables it returns carry the mesh (global
+    reductions), and the Monte-Carlo prices, the TARN and the Bermudan
+    reduce over the ranks. Every rank returns the same prices."""
 
     def __init__(self, model: HullWhiteModel,
                  time_discretization: TimeDiscretization, num_paths: int,
                  seed: int = 3141, antithetic: bool = False,
                  mesh=None, path_axis: str = "paths", *, device=None,
                  normals=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "path-axis sharding comes with the sharding slice "
-                "(torch.distributed)")
+        self.mesh = check_mesh(mesh)
+        self.path_axis = path_axis
         if antithetic and num_paths % 2:
             raise ValueError("antithetic needs an even num_paths")
+        if self.mesh is not None:
+            self.mesh.local_count(num_paths)
         self.model = model
         self.td = time_discretization
         self.num_paths = int(num_paths)
         self.seed = int(seed)
         self.antithetic = bool(antithetic)
-        self.device = torch.device(device) if device is not None \
-            else select_device()
+        self.device = mesh_device(self.mesh, device)
         a = model.a
         times = time_discretization.as_array()
         if times[0] != 0.0:
@@ -317,7 +323,8 @@ class HullWhiteSimulation:
         else:
             z1, z2 = (_injected(z, shape, dev, f"normals z{i}")
                       for i, z in enumerate(normals, 1))
-        self._xs, self._ys = _hw_paths(z1, z2, coef)
+        self._xs, self._ys = _hw_paths(path_block(z1, self.mesh),
+                                       path_block(z2, self.mesh), coef)
         # deterministic state at the grid points (host float64)
         st = np.array([model.gaussian_state(t) for t in times])
         self._phi, self._c, self._v = st[:, 0], st[:, 1], st[:, 2]
@@ -338,14 +345,15 @@ class HullWhiteSimulation:
         alpha = self.model.forward_rate(self._times[i]) + self._c[i]
         return RandomVariableTorch.of(
             self._times[i], self._xs[i] + torch.tensor(
-                alpha, dtype=FLOAT_DTYPE, device=self.device))
+                alpha, dtype=FLOAT_DTYPE, device=self.device), mesh=self.mesh)
 
     def numeraire(self, time: float) -> RandomVariableTorch:
         """N(t) = exp(Y(t) + A(t)), exact in distribution."""
         i = self._index(time)
         return RandomVariableTorch.of(
             self._times[i], torch.exp(self._ys[i].to(ACC_DTYPE)
-                                      + float(self._a_int[i])).to(FLOAT_DTYPE))
+                                      + float(self._a_int[i])).to(FLOAT_DTYPE),
+            mesh=self.mesh)
 
     def bond(self, time: float, maturity: float) -> RandomVariableTorch:
         """P(t, T) by the affine reconstitution in x(t)."""
@@ -359,13 +367,13 @@ class HullWhiteSimulation:
                                 - bb * self._c[i]))
         return RandomVariableTorch.of(
             t, (lead * torch.exp(-bb * self._xs[i].to(ACC_DTYPE)))
-            .to(FLOAT_DTYPE))
+            .to(FLOAT_DTYPE), mesh=self.mesh)
 
     def get_number_of_paths(self) -> int:
         return self.num_paths
 
     # ------------------------------------------------------------------
-    # Monte-Carlo prices (one float64 mean each)
+    # Monte-Carlo prices (one float64 mean each, over every rank's paths)
     # ------------------------------------------------------------------
     def _bond_coeffs(self, i: int, maturities) -> tuple:
         """(lead, B) of P(t_i, T) = lead * exp(-B x) for each T."""
@@ -386,7 +394,8 @@ class HullWhiteSimulation:
 
     def mc_bond_price(self, maturity: float) -> float:
         """E[1/N(T)]: reproduces the input curve (martingale)."""
-        return float(torch.mean(self._inv_numeraire(self._index(maturity))))
+        return float(path_mean(self._inv_numeraire(self._index(maturity)),
+                               self.mesh))
 
     def mc_caplet_price(self, fixing: float, payment: float,
                         strike: float) -> float:
@@ -398,8 +407,8 @@ class HullWhiteSimulation:
         p_ts = float(lead[0]) * torch.exp(-float(bb[0])
                                           * self._xs[i].to(ACC_DTYPE))
         libor = (1.0 / p_ts - 1.0) / delta
-        return float(torch.mean(delta * torch.clamp_min(libor - strike, 0.0)
-                                * p_ts * self._inv_numeraire(i)))
+        return float(path_mean(delta * torch.clamp_min(libor - strike, 0.0)
+                               * p_ts * self._inv_numeraire(i), self.mesh))
 
     def mc_swaption_price(self, expiry: float,
                           payment_times: Sequence[float], strike: float,
@@ -417,8 +426,8 @@ class HullWhiteSimulation:
                        * torch.exp(-self._f64(bbs)[:, None] * xa[None, :]),
                        dim=0)
         sign = 1.0 if payer else -1.0
-        return float(torch.mean(torch.clamp_min(sign * (1.0 - cb), 0.0)
-                                * self._inv_numeraire(i)))
+        return float(path_mean(torch.clamp_min(sign * (1.0 - cb), 0.0)
+                               * self._inv_numeraire(i), self.mesh))
 
 
 # ---------------------------------------------------------------------------

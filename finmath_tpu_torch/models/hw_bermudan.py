@@ -36,7 +36,7 @@ from .hull_white import HullWhiteModel, HullWhiteSimulation
 
 
 def _hw_ls_kernel(xs, ys, a_int, cl, bb, sign: float, degree: int,
-                  split: bool) -> torch.Tensor:
+                  split: bool, mesh=None) -> torch.Tensor:
     """Longstaff-Schwartz backward induction on the exercise dates.
 
     ``xs``, ``ys``: ``[E, paths]`` float32 state and integrated rate at the
@@ -46,16 +46,26 @@ def _hw_ls_kernel(xs, ys, a_int, cl, bb, sign: float, degree: int,
     JAX package's ``_hw_ls_kernel`` of the same name is a ``jax.jit``
     function in jnp, not a Pallas kernel, and this follows its order of
     operations (float32 basis and Gram product, float64 sums, the Gram's
-    1e-10 jitter)."""
+    1e-10 jitter).
+
+    Under a ``mesh`` the paths are this rank's block: the split takes the
+    global path index's parity, and the weighted moments, the Gram matrix
+    with its right-hand side and the value's sums are summed over the
+    ranks (three all-reduces a date and two for the value), so every rank
+    fits the same policy."""
     e_n, paths = xs.shape
     dev = xs.device
+
+    def over_ranks(local):
+        return local if mesh is None else mesh.all_reduce(local)
     xa = xs.to(ACC_DTYPE)
     cb = torch.sum(cl[:, :, None] * torch.exp(-bb[:, :, None] * xa[:, None, :]),
                    dim=1)                                    # [E, paths]
     inv_n = torch.exp(-ys.to(ACC_DTYPE) - a_int[:, None])
     ev = sign * (1.0 - cb) * inv_n                           # [E, paths]
     if split:
-        fit_mask = torch.arange(paths, device=dev) % 2 == 0
+        first = 0 if mesh is None else mesh.rank * paths
+        fit_mask = torch.arange(first, first + paths, device=dev) % 2 == 0
     else:
         fit_mask = torch.ones(paths, dtype=torch.bool, device=dev)
     eye = torch.eye(degree + 1, dtype=ACC_DTYPE, device=dev)
@@ -65,16 +75,21 @@ def _hw_ls_kernel(xs, ys, a_int, cl, bb, sign: float, degree: int,
         s = xs[i].to(FLOAT_DTYPE)
         itm = ev[i] > 0.0
         w = (itm & fit_mask).to(FLOAT_DTYPE)
-        nw = torch.clamp_min(torch.sum(w.to(ACC_DTYPE)), 1.0)
-        mu = torch.sum((s * w).to(ACC_DTYPE)) / nw
-        sd = torch.sqrt(torch.clamp_min(
-            torch.sum(((s - mu.to(FLOAT_DTYPE)) ** 2 * w).to(ACC_DTYPE)) / nw,
-            1e-12))
+        sums = over_ranks(torch.stack([torch.sum(w.to(ACC_DTYPE)),
+                                       torch.sum((s * w).to(ACC_DTYPE))]))
+        nw = torch.clamp_min(sums[0], 1.0)
+        mu = sums[1] / nw
+        sd = torch.sqrt(torch.clamp_min(over_ranks(
+            torch.sum(((s - mu.to(FLOAT_DTYPE)) ** 2 * w).to(ACC_DTYPE)))
+            / nw, 1e-12))
         xn = (s - mu.to(FLOAT_DTYPE)) / sd.to(FLOAT_DTYPE)
         basis = torch.stack([xn ** k for k in range(degree + 1)])
         bw = basis * w[None, :]
-        gram = torch.matmul(bw, basis.T).to(ACC_DTYPE) + 1e-10 * eye
-        rhs = torch.sum(bw.to(ACC_DTYPE) * cash[None, :], dim=1)
+        both = over_ranks(torch.cat(
+            [torch.matmul(bw, basis.T).to(ACC_DTYPE),
+             torch.sum(bw.to(ACC_DTYPE) * cash[None, :], dim=1)[:, None]],
+            dim=1))
+        gram, rhs = both[:, :-1] + 1e-10 * eye, both[:, -1]
         beta = _cholesky_solve_small(gram, rhs)
         cont = (beta.to(FLOAT_DTYPE) @ basis).to(ACC_DTYPE)
         exercise = itm & (ev[i] > cont)
@@ -82,9 +97,11 @@ def _hw_ls_kernel(xs, ys, a_int, cl, bb, sign: float, degree: int,
 
     value_mask = ((~fit_mask) if split else
                   torch.ones(paths, dtype=torch.bool, device=dev)).to(ACC_DTYPE)
-    n = torch.sum(value_mask)
-    mean = torch.sum(cash * value_mask) / n
-    var = torch.sum((cash - mean) ** 2 * value_mask) / n
+    sums = over_ranks(torch.stack([torch.sum(value_mask),
+                                   torch.sum(cash * value_mask)]))
+    n = sums[0]
+    mean = sums[1] / n
+    var = over_ranks(torch.sum((cash - mean) ** 2 * value_mask)) / n
     return torch.stack([mean, torch.sqrt(var / n)])
 
 
@@ -150,7 +167,7 @@ class BermudanSwaption:
         return _hw_ls_kernel(
             sim._xs[ii], sim._ys[ii], sim._f64(sim._a_int[np.asarray(idx)]),
             sim._f64(cl), sim._f64(bb), 1.0 if self.payer else -1.0,
-            self.basis_degree, self.foresight_bias == "split")
+            self.basis_degree, self.foresight_bias == "split", sim.mesh)
 
     def get_value_and_error(self, sim: HullWhiteSimulation) -> tuple:
         out = self.packed_value_and_error(sim).cpu().numpy()

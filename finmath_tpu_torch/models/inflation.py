@@ -219,8 +219,10 @@ class JarrowYildirimModel:
 class JarrowYildirimSimulation:
     """Exact Monte Carlo on the JY model (the cross-currency simulation,
     the real economy as foreign and the CPI as the FX rate): CPI paths, the
-    nominal numeraire, and the YoY and ZCIS pricers. ``device`` and
-    ``normals`` pass through to ``CrossCurrencySimulation``."""
+    nominal numeraire, and the YoY and ZCIS pricers. ``device``,
+    ``normals`` and ``mesh`` pass through to ``CrossCurrencySimulation``
+    (under a mesh the pricers' means and errors are over every rank's
+    paths)."""
 
     def __init__(self, model: JarrowYildirimModel,
                  time_discretization: TimeDiscretization,

@@ -50,6 +50,14 @@ float64, as in the JAX module. The regressions are
 ``ops.conditional_expectation.regression_fit`` (float64 normal
 equations); the expectations and quantiles are float64 over the path
 axis. Each public call reads its result back in one transfer.
+
+Under a ``parallel.PathMesh`` (``mesh=`` on the netting-set engines, as in
+the JAX module) each rank simulates its block of the paths: the
+expectations are float64 path sums all-reduced and divided by the global
+count, the regressions fit on all-reduced normal equations, the PFE sorts
+the gathered ensemble, and the CSA's margin scan stays path-local. Every
+rank returns the same profile. ``SwaptionExposureEngine`` takes no mesh,
+as the JAX one takes none.
 """
 
 from __future__ import annotations
@@ -63,7 +71,7 @@ import torch
 
 from ...ops.conditional_expectation import regression_fit, regression_predict
 from ...ops.random_variable import ACC_DTYPE
-from ...parallel.mesh import check_mesh, sharded_unsupported
+from ...parallel.mesh import gather_paths, path_mean, path_means, replicated
 from .model import (
     LIBORMarketModelTorch,
     LMMValuationEngine,
@@ -552,7 +560,10 @@ def _linear_quantiles(x: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
     interpolation, ``[Q, *x.shape[:-1]]``: ``torch.quantile``'s arithmetic
     (and ``jnp.quantile``'s default method) from one sort, without
     ``torch.quantile``'s limit of 2**24 input elements, which an
-    ``[E, paths]`` profile passes at about 430,000 paths over 39 dates."""
+    ``[E, paths]`` profile passes at about 430,000 paths over 39 dates.
+    Under a mesh the caller passes the gathered ensemble
+    (``parallel.mesh.gather_paths``): every rank then sorts the unsharded
+    array, and the quantiles are the unsharded ones bit for bit."""
     s = torch.sort(x, dim=-1).values
     pos = qs * (s.shape[-1] - 1)
     lo = torch.floor(pos)
@@ -583,9 +594,13 @@ class NettingSetExposureEngine:
     ``select_device()``).
 
     ``dtype``: the path dtype (None: float32; float64 is the parity
-    engine). ``mesh=`` raises ``NotImplementedError`` until the sharding
-    slice's second step (F2); ``path_axis`` is its companion and
-    unused until then. ``increments=`` passes through to the engine.
+    engine). ``mesh``: a ``parallel.PathMesh``; the engine's paths are
+    split over its ranks (the valuation engine's rules: ``num_paths``
+    divisible by the world size, its own stream ``rank_seed(seed, rank)``,
+    injected ``increments=`` the global array of which each rank keeps its
+    block), and every public result is the same on every rank (module
+    docstring). ``path_axis`` labels the mesh's axis. ``increments=``
+    passes through to the engine.
 
     ``csa``: optional credit-support annex: EE/ENE/PFE become the RESIDUAL
     exposure after pathwise variation margin (lagged requirement,
@@ -600,7 +615,6 @@ class NettingSetExposureEngine:
                  quantiles: Sequence[float] = (0.95, 0.99), dtype=None,
                  mesh=None, path_axis: str = "paths",
                  csa: Optional[CSA] = None, *, device=None):
-        sharded_unsupported(check_mesh(mesh), "NettingSetExposureEngine")
         n = model.num_libors
         trades = list(trades)
         if not trades:
@@ -666,8 +680,9 @@ class NettingSetExposureEngine:
         self.engine = LMMValuationEngine(
             model, products, num_paths, num_factors, seed=seed,
             device=device, increments=increments, dtype=_path_dtype(dtype),
-            mesh=mesh, antithetic=antithetic)
+            mesh=mesh, path_axis=path_axis, antithetic=antithetic)
         self.device = self.engine.device
+        self.mesh = self.engine.mesh
 
         # the swaps' geometry, and the optionality underlyings' (European
         # swaptions, then Bermudans: the remaining payer swap
@@ -765,7 +780,9 @@ class NettingSetExposureEngine:
         inv_n = torch.where(finite, inv_n, 0.0)
         if model.measure != "spot":
             inv_n = inv_n * eng._p0_terminal
-        adj = _numeraire_adjustment(model, inv_n.mean(dim=-1), self._df_obs)
+        mesh = self.mesh
+        adj = _numeraire_adjustment(model, path_mean(inv_n, mesh),
+                                    self._df_obs)
         disc = inv_n * adj[:, None]
         v_disc = v_t * disc                               # today's money
         s_plus_disc = s_plus * disc
@@ -782,9 +799,10 @@ class NettingSetExposureEngine:
             return torch.stack([feature ** d for d in range(degree + 1)])
 
         def fitted(basis, y):
-            """The regressed conditional expectation, float64."""
-            return regression_predict(basis, regression_fit(basis, y)).to(
-                ACC_DTYPE)
+            """The regressed conditional expectation, float64 (the normal
+            equations summed over the ranks under a mesh)."""
+            return regression_predict(
+                basis, regression_fit(basis, y, mesh=mesh)).to(ACC_DTYPE)
 
         for k, tr in enumerate(self.swaptions):
             # discounted close-out value of swaption k at each observation:
@@ -865,12 +883,11 @@ class NettingSetExposureEngine:
                     basis = basis_of(ev, u0, tr.basis_degree)
                     w = alive.to(basis.dtype)
                     pred = regression_predict(basis, regression_fit(
-                        basis * w, torch.where(alive, y_from[next_m], 0.0)))
+                        basis * w, torch.where(alive, y_from[next_m], 0.0),
+                        mesh=mesh))
                     alive_val = torch.clamp_min(pred.to(ACC_DTYPE), 0.0)
                 rows.append(ex_val + torch.where(tau > ev, alive_val, 0.0))
             add(tr.notional * torch.stack(rows))          # [E, paths]
-        fwd = v_disc.mean(dim=-1)
-        ee_standalone = s_plus_disc.mean(dim=-1)
         extra_rows = []
         if self.csa is not None:
             # pathwise variation margin on the observation grid in time-t
@@ -896,18 +913,20 @@ class NettingSetExposureEngine:
                 coll = req
             expo_u = v_undisc - coll - c.independent_amount
             e_disc = expo_u * disc
-            ee = torch.clamp_min(e_disc, 0.0).mean(dim=-1)
-            ene = torch.clamp_max(e_disc, 0.0).mean(dim=-1)
-            extra_rows = [torch.clamp_min(v_disc, 0.0).mean(dim=-1),
-                          torch.clamp_max(v_disc, 0.0).mean(dim=-1)]
+            extra_rows = [torch.clamp_min(v_disc, 0.0),
+                          torch.clamp_max(v_disc, 0.0)]
             pfe_src = expo_u
         else:
-            ee = torch.clamp_min(v_disc, 0.0).mean(dim=-1)
-            ene = torch.clamp_max(v_disc, 0.0).mean(dim=-1)
+            e_disc = v_disc
             pfe_src = v_undisc
-        pfe = _linear_quantiles(pfe_src, self._qs)   # [Q, E], t-money
-        return torch.cat([torch.stack([ee, ene, fwd, ee_standalone]
-                                      + extra_rows), pfe], dim=0)
+        # EE, ENE, forward value, standalone EE (, gross EE and ENE): one
+        # all-reduce under a mesh
+        means = path_means([torch.clamp_min(e_disc, 0.0),
+                            torch.clamp_max(e_disc, 0.0), v_disc,
+                            s_plus_disc] + extra_rows, mesh)
+        pfe = _linear_quantiles(gather_paths(pfe_src, mesh),
+                                self._qs)  # [Q, E], t-money
+        return torch.cat([torch.stack(means), pfe], dim=0)
 
     # ------------------------------------------------------------------
     def profile(self, params) -> ExposureProfile:
@@ -974,7 +993,11 @@ class NettingSetExposureEngine:
         ``_bond_curve``) on the engine's ``grad_safe`` sweep."""
         eng = self.engine
         model = self.model
+        mesh = self.mesh
         spot = model.measure == "spot"
+        if mesh is not None:
+            # the replicated inputs' gradients collect every rank's paths
+            fwd0 = replicated(fwd0, mesh)
 
         def collect(e, ev, L, N):
             cp, dead = _bond_curve(eng, e, L, N, grad_safe=True)
@@ -997,9 +1020,14 @@ class NettingSetExposureEngine:
             # the fwd0-differentiable P(0, T_n), not the host constant
             inv_n = inv_n * torch.prod(1.0 / (1.0 + eng._t["deltas64"]
                                               * fwd0))
-        adj = _numeraire_adjustment(model, inv_n.mean(dim=-1), self._df_obs)
+        mean_inv = path_mean(inv_n, mesh)
+        if mesh is not None:
+            # a global mean inside the per-path function: its cotangent is
+            # one rank's partial, so it is all-reduced on its way back
+            mean_inv = replicated(mean_inv, mesh)
+        adj = _numeraire_adjustment(model, mean_inv, self._df_obs)
         v_disc = v_t * inv_n * adj[:, None]
-        ee = torch.clamp_min(v_disc, 0.0).mean(dim=-1)
+        ee = path_mean(torch.clamp_min(v_disc, 0.0), mesh)
         return torch.sum(pd * ee)
 
     def cva_forward_deltas(self, params,
@@ -1010,7 +1038,11 @@ class NettingSetExposureEngine:
         sensitivity of the credit valuation adjustment to every
         forward-curve bucket from ONE reverse pass through the simulation
         and the exposure profile (curves and discounting held fixed, the
-        bump semantics of ``LMMValuationEngine.forward_deltas``)."""
+        bump semantics of ``LMMValuationEngine.forward_deltas``). Under a
+        mesh the initial forwards and the numeraire mean enter each rank's
+        paths through ``parallel.replicated`` and the path sums leave
+        through ``sum_over_ranks``, so the ladder is the whole one on every
+        rank."""
         if self.swaptions or self.bermudans:
             raise NotImplementedError(
                 "cva_forward_deltas currently covers swap-only netting "
@@ -1079,26 +1111,31 @@ class NettingSetExposureEngine:
         inv_n = torch.where(finite, inv_n, 0.0)
         if model.measure != "spot":
             inv_n = inv_n * eng._p0_terminal
-        adj = _numeraire_adjustment(model, inv_n.mean(dim=-1), self._df_obs)
+        mesh = self.mesh
+        adj = _numeraire_adjustment(model, path_mean(inv_n, mesh),
+                                    self._df_obs)
         disc = inv_n * adj[:, None]
         cf = a_cf[:, None] * fix - b_cf[:, None]                  # [E, paths]
         pnl = v_t[1:] + cf[:-1] - v_t[:-1]                        # [E-1, paths]
         im_disc, im_t = [], []
         for i in range(E_n - 1):
             xv = v_t[i]
-            mu = xv.mean()
-            sd = torch.sqrt(torch.clamp_min(((xv - mu) ** 2).mean(), 1e-30))
+            mu = path_mean(xv, mesh)
+            sd = torch.sqrt(torch.clamp_min(path_mean((xv - mu) ** 2, mesh),
+                                            1e-30))
             xn = ((xv - mu) / sd).to(eng.dtype)
             basis = torch.stack([xn ** k for k in range(degree + 1)])
             y = pnl[i]
-            m1 = regression_predict(basis, regression_fit(basis, y)).to(
-                ACC_DTYPE)
-            m2 = regression_predict(basis, regression_fit(basis, y * y)).to(
-                ACC_DTYPE)
+            m1 = regression_predict(
+                basis, regression_fit(basis, y, mesh=mesh)).to(ACC_DTYPE)
+            m2 = regression_predict(
+                basis, regression_fit(basis, y * y, mesh=mesh)).to(ACC_DTYPE)
             im_i = scale[i] * torch.sqrt(torch.clamp_min(m2 - m1 * m1, 0.0))
-            im_disc.append((im_i * disc[i]).mean())
-            im_t.append(im_i.mean())
-        return torch.stack([torch.stack(im_disc), torch.stack(im_t)])
+            im_disc.append(im_i * disc[i])
+            im_t.append(im_i)
+        means = path_means(im_disc + im_t, mesh)        # one all-reduce
+        return torch.stack([torch.stack(means[:E_n - 1]),
+                            torch.stack(means[E_n - 1:])])
 
     def im_profile(self, params, quantile: float = 0.99,
                    mpr: float = 14.0 / 365.0,

@@ -33,6 +33,14 @@ tradable: its ``growth_curves`` entry replaces the numeraire growth by
 the foreign accrual, and ``quanto_fx_indices`` names its FX asset, whose
 drift correction -corr(S, FX) sigma_S sigma_FX dt uses the total
 correlation (rate factors plus the idiosyncratic part).
+
+Under a ``parallel.PathMesh`` (``mesh=``) each rank simulates its block of
+the paths on streams of its own, as the meshed engine does: the rate
+normals from ``rank_seed(seed, rank)`` and the idiosyncratic ones from a
+second generator of that seed (the JAX hybrid folds the device index into
+both keys). The means, standard errors and regressions reduce over the
+ranks, the PFE sorts the gathered ensemble, and every public result is
+the same on every rank.
 """
 
 from __future__ import annotations
@@ -45,6 +53,8 @@ import torch
 
 from ...ops.conditional_expectation import regression_fit
 from ...ops.random_variable import ACC_DTYPE
+from ...parallel.mesh import (check_mesh, gather_paths, path_mean,
+                              path_means, rank_seed)
 from .exposure import ExposureProfile, _linear_quantiles
 from .model import LIBORMarketModelTorch, LMMValuationEngine, SwaptionProduct
 
@@ -57,10 +67,22 @@ __all__ = [
 ]
 
 
-def _mean_and_error(x: torch.Tensor) -> tuple:
-    """(mean, std / sqrt(n)) of ``[paths]``, the std over n."""
-    return (float(torch.mean(x)),
-            float(torch.std(x, correction=0)) / math.sqrt(x.shape[0]))
+def _mean_and_error(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """``[2]`` (mean, std / sqrt(n)) of ``[paths]``, the std over n; under
+    a mesh over every rank's paths (the mean, then the mean squared
+    deviation from it, each one all-reduce)."""
+    if mesh is None:
+        return torch.stack([torch.mean(x), torch.std(x, correction=0)
+                            / math.sqrt(x.shape[0])])
+    m = path_mean(x, mesh)
+    var = path_mean((x - m) ** 2, mesh)
+    return torch.stack([m, torch.sqrt(var)
+                        / math.sqrt(x.shape[0] * mesh.world_size)])
+
+
+def _floats(pair: torch.Tensor) -> tuple:
+    a, b = pair.tolist()
+    return float(a), float(b)
 
 
 class HybridAssetLMM:
@@ -84,10 +106,14 @@ class HybridAssetLMM:
     ``increments=``, ``antithetic=`` and ``seed=`` pass through to the
     engine; ``equity_normals``: an ``[S, K, paths]`` block (S at least the
     last observation's step) in place of the idiosyncratic draws.
-    ``device`` defaults to ``select_device()``.
+    ``device`` defaults to ``select_device()``. ``mesh``: a
+    ``parallel.PathMesh`` (module docstring); a meshed hybrid draws its
+    own streams and refuses ``increments`` and ``equity_normals``, as the
+    JAX one refuses ``increments``.
 
     ``simulate(params)`` -> ``(assets [E, K, paths], numeraires [E,
-    paths])`` float64 tensors on the device."""
+    paths])`` float64 tensors on the device (under a mesh every rank's
+    paths, gathered in rank order)."""
 
     def __init__(self, model: LIBORMarketModelTorch,
                  equity_initial_values: Sequence[float],
@@ -102,10 +128,12 @@ class HybridAssetLMM:
                  seed: int = 31415, antithetic: bool = False,
                  increments=None, mesh=None, path_axis: str = "paths", *,
                  device=None, equity_normals=None):
-        if mesh is not None:
+        mesh = check_mesh(mesh)
+        if mesh is not None and (increments is not None
+                                 or equity_normals is not None):
             raise NotImplementedError(
-                "path-axis sharding comes with the sharding slice "
-                "(torch.distributed)")
+                "a meshed hybrid draws its own per-rank streams: injected "
+                "increments and equity_normals are single-device only")
         s0 = np.asarray(equity_initial_values, dtype=np.float64)
         sig = np.asarray(equity_volatilities, dtype=np.float64)
         if s0.ndim != 1 or sig.shape != s0.shape:
@@ -184,8 +212,10 @@ class HybridAssetLMM:
                     for e in obs]
         self.engine = LMMValuationEngine(
             model, products, num_paths, num_factors, seed=seed,
-            device=device, increments=increments, antithetic=antithetic)
+            device=device, increments=increments, antithetic=antithetic,
+            mesh=mesh, path_axis=path_axis)
         eng = self.engine
+        self.mesh = mesh
         self.device = dev = eng.device
         self._s0 = s0
         self._sig = sig
@@ -233,11 +263,14 @@ class HybridAssetLMM:
         self._t = {k: torch.as_tensor(v, dtype=ACC_DTYPE, device=dev)
                    for k, v in tables.items()}
 
-        # the idiosyncratic normals, one block for every evaluation
+        # the idiosyncratic normals, one block for every evaluation (this
+        # rank's, from a second generator of its own seed, under a mesh)
         steps = eng.steps_needed
-        paths = eng.num_paths
+        paths = eng._local_paths
         if equity_normals is None:
-            seq = np.random.SeedSequence((eng.seed, 987654321))
+            seed_r = (eng.seed if mesh is None
+                      else rank_seed(eng.seed, mesh.rank))
+            seq = np.random.SeedSequence((seed_r, 987654321))
             gen = torch.Generator(device=dev).manual_seed(
                 int(seq.generate_state(1, np.uint32)[0]))
             if eng.antithetic:
@@ -259,13 +292,14 @@ class HybridAssetLMM:
 
     # ------------------------------------------------------------------
     def _simulate(self, params, bond_maturities=()):
-        """One simulation: ``(assets [E, K, paths], numeraires [E, paths])``
-        and, with ``bond_maturities``, ``bonds [E, M, paths]`` float64."""
+        """One simulation of this rank's paths: ``(assets [E, K, paths],
+        numeraires [E, paths])`` and, with ``bond_maturities``, ``bonds [E,
+        M, paths]`` float64."""
         eng, t = self.engine, self._t
         obs, K = self.observation_indices, self.num_assets
         F = eng.num_factors
         sqrt_dts = self._sqrt_dts
-        logS = t["logs0"][:, None].expand(K, eng.num_paths)
+        logS = t["logs0"][:, None].expand(K, eng._local_paths)
 
         def hook(s, N_old, N_new, dw):
             nonlocal logS
@@ -301,14 +335,15 @@ class HybridAssetLMM:
         """(assets [E, K, paths], numeraires [E, paths]); observation e
         sees the state at tenor time T_{obs[e]}, before that date's
         accrual (the engine's collection convention)."""
-        return self._simulate(params)
+        return tuple(gather_paths(a, self.mesh)
+                     for a in self._simulate(params))
 
     def simulate_with_bonds(self, params, bond_maturity_indices):
         """Like :meth:`simulate` plus ``bonds [E, M, paths]``: the model
         zero bonds P(T_obs, T_m) for each requested tenor index m, from
         the live forwards at every observation (1.0 once matured)."""
-        return self._simulate(params, tuple(int(m)
-                                            for m in bond_maturity_indices))
+        return tuple(gather_paths(a, self.mesh) for a in self._simulate(
+            params, tuple(int(m) for m in bond_maturity_indices)))
 
     def dividend_discount_between(self, e_from: int, e_to: int) -> np.ndarray:
         """[K] exp(-integral of dividends) over [T_{e_from}, T_{e_to}]
@@ -326,7 +361,7 @@ class HybridAssetLMM:
             [self.model.tenor_times[e] for e in self.observation_indices])
         dfs = np.asarray(
             self.model.discount_curve.get_discount_factor(obs_times))
-        inv_n = torch.mean(1.0 / numeraires, dim=1)             # [E]
+        inv_n = path_mean(1.0 / numeraires, self.mesh)         # [E]
         if self.model.use_numeraire_adjustment:
             return torch.as_tensor(dfs, device=inv_n.device) / inv_n
         return torch.ones_like(inv_n)
@@ -337,14 +372,15 @@ class HybridAssetLMM:
         stochastic rates: N(0) E[(S - K)^+ / N(T)], with the model's
         numeraire adjustment."""
         ev = self.observation_indices.index(int(expiry_index))
-        assets, numeraires = self.simulate(params)
+        assets, numeraires = self._simulate(params)
         adj = self._discount_adjustments(numeraires)
         s_t = assets[ev, asset_index]
         if is_call:
             pay = torch.clamp_min(s_t - strike, 0.0)
         else:
             pay = torch.clamp_min(strike - s_t, 0.0)
-        return _mean_and_error(pay / numeraires[ev] * adj[ev])
+        return _floats(_mean_and_error(pay / numeraires[ev] * adj[ev],
+                                       self.mesh))
 
     def _dividend_discount(self, ev: int) -> np.ndarray:
         """[K] exp(-cumulative dividend) at observation ordinal ``ev``
@@ -358,16 +394,17 @@ class HybridAssetLMM:
         covered interest parity, for an FX rate). No numeraire
         adjustment."""
         ev = self.observation_indices.index(int(expiry_index))
-        assets, numeraires = self.simulate(params)
-        return _mean_and_error(assets[ev, asset_index] / numeraires[ev])
+        assets, numeraires = self._simulate(params)
+        return _floats(_mean_and_error(assets[ev, asset_index]
+                                       / numeraires[ev], self.mesh))
 
     def martingale_errors(self, params) -> np.ndarray:
         """[E, K] relative deviations of E[S/N] from the exact target
         S0 df_dividend(T). Quanto (growth-curve) assets are NaN columns:
         S/N is not a martingale for them by design."""
-        assets, numeraires = self.simulate(params)
-        disc = torch.mean(assets / numeraires[:, None, :],
-                          dim=2).cpu().numpy()                 # [E, K]
+        assets, numeraires = self._simulate(params)
+        disc = path_mean(assets / numeraires[:, None, :],
+                         self.mesh).cpu().numpy()              # [E, K]
         out = np.full_like(disc, np.nan)
         for ev in range(disc.shape[0]):
             target = self._s0 * self._dividend_discount(ev)
@@ -488,17 +525,15 @@ class HybridExposureEngine:
                                 + [s_e ** d for d in
                                    range(1, tr.basis_degree + 1)]
                                 + [p_e, s_e * p_e])             # [B, paths]
-                beta = regression_fit(X, y)
+                beta = regression_fit(X, y, mesh=h.mesh)
                 cond = beta @ X.to(beta.dtype)
                 netted[ev] += tr.notional * cond * numeraires[ev]
         disc = netted / numeraires
-        stats = torch.stack([
-            torch.mean(torch.clamp_min(disc, 0.0), dim=1),
-            torch.mean(torch.clamp_max(disc, 0.0), dim=1),
-            torch.mean(disc, dim=1),
-            torch.mean(1.0 / numeraires, dim=1),
-        ])                                                      # [4, E]
-        return torch.cat([stats, _linear_quantiles(netted, self._qs)])
+        stats = torch.stack(path_means([
+            torch.clamp_min(disc, 0.0), torch.clamp_max(disc, 0.0), disc,
+            1.0 / numeraires], h.mesh))                        # [4, E]
+        return torch.cat([stats, _linear_quantiles(
+            gather_paths(netted, h.mesh), self._qs)])
 
     def profile(self, params) -> ExposureProfile:
         """The dated profile: one simulation, one transfer to the host."""
@@ -571,7 +606,8 @@ class HybridAutocallableNote:
 
     def packed_value_and_error(self, params) -> torch.Tensor:
         """``[2]`` (value, standard error over n) float64 on the device."""
-        assets, numeraires = self.hybrid.simulate(params)
+        mesh = self.hybrid.mesh
+        assets, numeraires = self.hybrid._simulate(params)
         use_adj = self.hybrid.model.use_numeraire_adjustment
         ai, rows = self._asset, self._rows
         alive = torch.ones_like(numeraires[0])
@@ -580,7 +616,8 @@ class HybridAutocallableNote:
         for i, r in enumerate(rows):
             s_i = assets[r, ai]
             n_i = numeraires[r]
-            adj = (self._dfs[i] / torch.mean(1.0 / n_i)) if use_adj else 1.0
+            adj = (self._dfs[i] / path_mean(1.0 / n_i, mesh)) if use_adj \
+                else 1.0
             coup_hit = (s_i >= self._cl[i]).to(ACC_DTYPE)
             pay_c = alive * coup_hit * (self._cp[i] + mem)
             if self._memory:
@@ -594,13 +631,10 @@ class HybridAutocallableNote:
                                         s_i / self._ref)
                 pay = pay_c + alive * principal
             acc = acc + adj * pay / n_i
-        acc = acc * self._notional
-        return torch.stack([torch.mean(acc), torch.std(acc, correction=0)
-                            / math.sqrt(acc.shape[0])])
+        return _mean_and_error(acc * self._notional, mesh)
 
     def get_value_and_error(self, params) -> tuple:
-        out = self.packed_value_and_error(params).cpu().numpy()
-        return float(out[0]), float(out[1])
+        return _floats(self.packed_value_and_error(params))
 
     def get_value(self, params) -> float:
         return self.get_value_and_error(params)[0]

@@ -51,9 +51,8 @@ import numpy as np
 import torch
 from torch.func import jacfwd, vmap
 
-from ...parallel.mesh import (check_mesh, rank_seed, replicated,
-                              sum_over_ranks)
-from ...utils.config import select_device
+from ...parallel.mesh import (check_mesh, mesh_device, rank_seed,
+                              replicated, sum_over_ranks)
 from ..curves import DiscountCurve, ForwardCurve, par_swap_rate
 from ..time_discretization import TimeDiscretization
 
@@ -343,18 +342,13 @@ class LMMValuationEngine:
         self.num_paths = int(num_paths)
         if self.mesh is None:
             self._local_paths, self._block = self.num_paths, slice(None)
-            self.device = torch.device(device) if device is not None \
-                else select_device()
         else:
             self._local_paths = self.mesh.local_count(self.num_paths)
             self._block = self.mesh.local_slice(self.num_paths)
             if self.antithetic and self._local_paths % 2:
                 raise ValueError("antithetic sampling requires an even "
                                  "per-rank path count")
-            self.device = self.mesh.device
-            if device is not None and torch.device(device) != self.device:
-                raise ValueError(f"device {device} is not the mesh's "
-                                 f"device {self.device}")
+        self.device = mesh_device(self.mesh, device)
         self.num_factors = int(num_factors)
         cov_factors = getattr(model.covariance, "num_factors", None)
         if cov_factors is not None and int(cov_factors) != self.num_factors:

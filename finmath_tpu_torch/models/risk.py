@@ -31,7 +31,7 @@ import torch
 
 from ..native.host_rng import inverse_normal_cdf_as241
 from ..ops.random_variable import ACC_DTYPE
-from ..utils.config import select_device
+from ..parallel.mesh import check_mesh, gather_paths, mesh_device
 from .analytic import torch_norm_cdf
 
 
@@ -189,22 +189,24 @@ class MarketRiskEngine:
     covariance matrix) or historical (a returns matrix). Spot and vol
     factors per underlying: the factor vector is [spots..., vols...].
     ``device`` (``select_device()`` by default) holds the scenarios and
-    the revaluation."""
+    the revaluation.
+
+    ``mesh``: a ``parallel.PathMesh``; the scenario axis is the sharded
+    axis. Every rank makes (or is given) the global scenarios, the
+    unmeshed stream, revalues its block of them (a scenario count the
+    world size does not divide raises ``ValueError``), and the tail
+    statistics run on the gathered P&L, so VaR, ES, the component ES and
+    the quantile's error are the unsharded ones on every rank."""
 
     def __init__(self, book: OptionBook, horizon: float = 1.0 / 252.0,
                  mesh=None, path_axis: str = "paths", *, device=None):
         if horizon <= 0:
             raise ValueError("horizon must be positive")
-        if mesh is not None:
-            raise NotImplementedError(
-                "path-axis sharding comes with the sharding slice "
-                "(torch.distributed)")
         self.book = book
         self.horizon = float(horizon)
-        self.mesh = mesh
+        self.mesh = check_mesh(mesh)
         self.path_axis = path_axis
-        self.device = torch.device(device) if device is not None \
-            else select_device()
+        self.device = mesh_device(self.mesh, device)
         b = book
         dev = self.device
         self._consts = (self._f64(b.spots), b.rate,
@@ -219,11 +221,19 @@ class MarketRiskEngine:
 
     # ------------------------------------------------------------------
     def _report(self, spot_f, vol_f, quantile: float) -> RiskReport:
+        mesh = self.mesh
+        if mesh is not None:
+            # this rank's block of the scenarios [S, underlyings]
+            rows = mesh.local_slice(spot_f.shape[0], "scenario count")
+            spot_f, vol_f = spot_f[rows], vol_f[rows]
         ones = torch.ones((1, self.book.num_underlyings), dtype=ACC_DTYPE,
                           device=self.device)
         base = _book_values(ones, ones, *self._consts)    # [1, I]
         scen = _book_values(spot_f, vol_f, *self._consts)
-        out = _risk_stats(scen - base, float(quantile)).cpu().numpy()
+        # the tail statistics need every scenario: the P&L [S, I] gathered
+        # in rank order (the scenario order of the blocks)
+        pnl = gather_paths((scen - base).T, mesh).T.contiguous()
+        out = _risk_stats(pnl, float(quantile)).cpu().numpy()
         return RiskReport(var=float(out[0]), expected_shortfall=float(
             out[1]), quantile=float(quantile), horizon=self.horizon,
             mean_pnl=float(out[2]), component_es=out[4:],

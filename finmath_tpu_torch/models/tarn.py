@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..ops.random_variable import ACC_DTYPE
+from ..parallel.mesh import path_sum
 from .hull_white import HullWhiteModel, HullWhiteSimulation
 
 
@@ -63,11 +64,13 @@ def inverse_floater_value(model: HullWhiteModel,
 
 def _tarn_kernel(xs_fix, ys_pay, a_int_pay, leads, bbs, deltas,
                  strike: float, multiplier: float, target: float,
-                 cap_full: bool, notional: float) -> torch.Tensor:
+                 cap_full: bool, notional: float, mesh=None) -> torch.Tensor:
     """``[dates, paths]`` pathwise sweep in float64: the libor from the
     affine bond reconstitution, the coupon, target and knock logic without
     branches, discounting by the exact pathwise numeraire; ``[2]`` (value,
-    standard error over n - 1). A plain torch function: the JAX package's
+    standard error over n - 1). Under a ``mesh`` the paths are this rank's
+    block, and the sum and the squared deviations from the global mean
+    are summed over the ranks. A plain torch function: the JAX package's
     ``_tarn_kernel`` is a ``jax.jit`` function in jnp, not a Pallas
     kernel."""
     paths = xs_fix.shape[1]
@@ -91,9 +94,9 @@ def _tarn_kernel(xs_fix, ys_pay, a_int_pay, leads, bbs, deltas,
     # never knocked: notional back at the last payment date
     inv_n_last = torch.exp(-ys_pay[-1].to(ACC_DTYPE) - a_int_pay[-1])
     pay = (acc + alive * inv_n_last) * notional
-    n = paths
-    mean = torch.sum(pay) / n
-    var = torch.sum((pay - mean) ** 2) / (n - 1)
+    n = paths * (1 if mesh is None else mesh.world_size)
+    mean = path_sum(pay, mesh) / n
+    var = path_sum((pay - mean) ** 2, mesh) / (n - 1)
     return torch.stack([mean, torch.sqrt(var / n)])
 
 
@@ -152,7 +155,7 @@ class TargetRedemptionNote:
             sim._f64(sim._a_int[np.asarray(pay_idx)]),
             sim._f64(leads), sim._f64(bbs), sim._f64(deltas),
             self.strike, self.multiplier, self.target,
-            self.cap_mode == "full", self.notional)
+            self.cap_mode == "full", self.notional, sim.mesh)
 
     def get_value_and_error(self, sim: HullWhiteSimulation) -> tuple:
         out = self.packed_value_and_error(sim).cpu().numpy()

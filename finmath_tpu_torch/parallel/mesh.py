@@ -39,7 +39,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from ..utils.config import rank_device
+from ..utils.config import rank_device, select_device
 
 FLOAT_DTYPE = torch.float32
 ACC_DTYPE = torch.float64
@@ -149,12 +149,11 @@ def check_mesh(mesh) -> Optional[PathMesh]:
 
 def sharded_unsupported(mesh, what: str) -> None:
     """Raise ``NotImplementedError`` for a computation whose path-axis
-    reductions are still local (they come with the second sharding step,
-    F2) when it is given a mesh."""
+    reductions are still local when it is given a mesh."""
     if mesh is not None:
         raise NotImplementedError(
             f"{what} under a mesh: its path-axis reductions are not routed "
-            "through the mesh yet (sharding step F2)")
+            "through the mesh yet")
 
 
 def make_path_mesh(num_ranks: Optional[int] = None, *,
@@ -229,6 +228,90 @@ def replicated(x: torch.Tensor, mesh: PathMesh) -> torch.Tensor:
     computation: its gradient is all-reduced in reverse mode, so it holds
     every rank's contribution."""
     return _Replicated.apply(x, mesh)
+
+
+# ---------------------------------------------------------------------------
+# the path-axis helpers of the sharded engines: each takes ``mesh=None``
+# for the unsharded engine and then does exactly what the engine did alone
+# ---------------------------------------------------------------------------
+
+def mesh_device(mesh: Optional[PathMesh], device=None) -> torch.device:
+    """An engine's device: the mesh's under a mesh (another ``device``
+    raises ``ValueError``), else ``device`` or ``select_device()``."""
+    if mesh is None:
+        return torch.device(device) if device is not None \
+            else select_device()
+    if device is not None and torch.device(device) != mesh.device:
+        raise ValueError(f"device {device} is not the mesh's device "
+                         f"{mesh.device}")
+    return mesh.device
+
+
+def path_block(x: torch.Tensor, mesh: Optional[PathMesh],
+               what: str = "num_paths") -> torch.Tensor:
+    """This rank's block of ``x``, a global tensor whose last axis is the
+    path axis (an indivisible path count raises ``ValueError``), as a
+    tensor of its own, so the global one can be freed; ``x`` itself
+    without a mesh. The engines that promise the unmeshed stream draw the
+    global block on every rank, mirror it when antithetic, and keep
+    this."""
+    if mesh is None:
+        return x
+    return x[..., mesh.local_slice(x.shape[-1], what)].clone(
+        memory_format=torch.contiguous_format)
+
+
+def gather_paths(x: torch.Tensor, mesh: Optional[PathMesh]) -> torch.Tensor:
+    """The whole ensemble: every rank's block of ``x`` along its last axis,
+    in rank order (``x`` itself without a mesh). On the same paths it is
+    the unsharded engine's array."""
+    return x if mesh is None else mesh.all_gather(x)
+
+
+def path_means(xs, mesh: Optional[PathMesh], dim: int = -1) -> list:
+    """The means of the tensors ``xs`` over their path axis ``dim``, every
+    rank's paths counted: without a mesh ``torch.mean``; under one each
+    tensor's float64 sum over this rank's block, one all-reduce for all of
+    them (``sum_over_ranks``: reverse mode passes through), divided by the
+    global count and cast back to the tensor's dtype. Never a mean of the
+    ranks' means."""
+    if mesh is None:
+        return [torch.mean(x, dim=dim) for x in xs]
+    sums = [torch.sum(x, dim=dim, dtype=ACC_DTYPE) for x in xs]
+    total = sum_over_ranks(torch.cat([s.reshape(-1) for s in sums]), mesh)
+    out, start = [], 0
+    for x, s in zip(xs, sums):
+        part = total[start:start + s.numel()].reshape(s.shape)
+        start += s.numel()
+        out.append((part / (x.shape[dim] * mesh.world_size)).to(x.dtype))
+    return out
+
+
+def path_mean(x: torch.Tensor, mesh: Optional[PathMesh],
+              dim: int = -1) -> torch.Tensor:
+    """``path_means([x], mesh, dim)[0]``."""
+    return path_means([x], mesh, dim)[0]
+
+
+def path_sum(x: torch.Tensor, mesh: Optional[PathMesh],
+             dim: int = -1) -> torch.Tensor:
+    """The sum of ``x`` over its path axis ``dim`` and every rank's block
+    (``torch.sum`` without a mesh; a float64 sum and one all-reduce under
+    one, cast back to ``x``'s dtype)."""
+    if mesh is None:
+        return torch.sum(x, dim=dim)
+    return sum_over_ranks(torch.sum(x, dim=dim, dtype=ACC_DTYPE),
+                          mesh).to(x.dtype)
+
+
+def path_mean_and_stderr(x: torch.Tensor, mesh: Optional[PathMesh],
+                         dim: int = -1):
+    """(mean, standard error) over the path axis ``dim`` from the first two
+    moments, ``sqrt(max(E[x^2] - E[x]^2, 0) / n)`` with n every rank's
+    paths: both moments in one ``path_means``."""
+    n = x.shape[dim] * (1 if mesh is None else mesh.world_size)
+    m, m2 = path_means([x, x * x], mesh, dim)
+    return m, torch.sqrt(torch.clamp_min(m2 - m * m, 0.0) / n)
 
 
 # ---------------------------------------------------------------------------

@@ -288,10 +288,10 @@ def test_meshed_random_variable_reductions_match_numpy(run):
 
 def test_local_reductions_raise_under_a_mesh(run):
     """Products whose path reductions are not routed through the mesh yet
-    (sharding step F2) refuse a meshed facade instead of returning one
-    rank's statistics."""
+    refuse a meshed facade instead of returning one rank's statistics."""
     ranks, _ = run
     for r in ranks:
         for name, err in r["local_products"].items():
             assert err is not None and err.startswith(
-                "NotImplementedError") and "F2" in err, (name, err)
+                "NotImplementedError") and "not routed through the mesh yet" \
+                in err, (name, err)
