@@ -328,6 +328,21 @@ Phases, one line of output each (more for the kernel builds), in order:
     VaR report (1M scenarios), at ``tests/test_torch_exposure_mesh.py``'s
     and the JAX mesh tests' bounds; each part's gap, rank wall,
     collectives, seconds in them and peak memory a rank;
+48. path-axis sharding of Heston-SLV and the remaining equity products,
+    worlds as in phase 46 but started together: (a) an NCCL world of one
+    and (b) a gloo world of two ranks on the card run phase 41's SLV (409,600 x 100: the call
+    grid, ``leverage_at``, the terminal state, the fits of the first two
+    steps on one cloud), phase 40's local-vol call grid (1M x 100), phase
+    34's delta hedge and variance swap (1M x 250), phase 36's LS put (1M x
+    50, split and in-sample, every path's cashflow) and phase 37's
+    structured products (1M x 50), each against the unsharded port on the
+    same stream at ``tests/test_torch_slv_products_mesh.py``'s bounds;
+    (c) the utilities on the card (memory info around a 1 GiB tensor,
+    ``live_device_arrays``, a Chrome trace of one ``bs_paths_kernel``
+    launch in a fresh process that names the kernel (this process's
+    trace printed), the ATM checkpoint round trip with bit-equal
+    residuals); (d) examples 01-04 at their default sizes (02's
+    fused price one ``bs_paths_kernel`` launch, 04 on NCCL ranks);
 6. with ``--profile`` only, last: device operations and busy time under
    ``torch.profiler`` for one ATM calibration, one engine Jacobian, one
    ATM kernel residual call, one stoch-vol kernel
@@ -4928,6 +4943,427 @@ def _path_mesh_f2(torch, smi) -> None:
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 48: path-axis sharding of Heston-SLV and the remaining equity
+# products, the four utilities and examples 01-04 (no kernel)
+# ---------------------------------------------------------------------------
+
+F3_SLV_STRIKES = [85.0, 100.0, 115.0]
+F3_LV_STRIKES = [80.0, 90.0, 100.0, 110.0, 120.0]
+F3_BIASES = ("split", "insample")
+
+
+def _f3_structured():
+    from finmath_tpu_torch.models.structured_products import (
+        AutocallableNote, ChooserOption, CliquetOption, CompoundOption,
+        ForwardStartOption)
+
+    return {"forward_start": ForwardStartOption(0.4, 1.0, 1.05),
+            "cliquet": CliquetOption([0.2, 0.4, 0.6, 0.8, 1.0], -0.05, 0.08),
+            "compound": CompoundOption(0.5, 5.0, 1.0, 100.0),
+            "chooser": ChooserOption(0.5, 1.0, 100.0),
+            "express_autocall": AutocallableNote([0.5, 1.0], [105.0, 100.0],
+                                                 [0.05, 0.08], 70.0)}
+
+
+def _f3_results(mesh) -> dict:
+    """Phase 48's meshed work on one rank (``mesh``), or unsharded on
+    ``cuda`` (None): phase 41's SLV at 409,600 x 100 (seed 21: the call
+    grid, ``leverage_at(1.0)``, the terminal state, and the fits on the
+    initial cloud and on the first step's cloud of the unsharded run, this
+    rank's block of it); phase 40's local-vol call grid at 1M x 100;
+    phase 34's 1M x 250 facade's delta hedge and variance swap; phase 36's
+    LS put at 1M x 50 in both modes with every path's cashflow (the
+    exercise decisions); phase 37's five structured products at 1M x 50.
+    Results are on the host, every path-wise one gathered."""
+    import torch
+
+    from finmath_tpu_torch.models.american import (BermudanOption,
+                                                   _ls_cashflows)
+    from finmath_tpu_torch.models.black_scholes import (
+        BlackScholesModel, MonteCarloBlackScholesModel)
+    from finmath_tpu_torch.models.equity_products import (
+        _deterministic_dfs, _f32)
+    from finmath_tpu_torch.models.hedging import (DeltaHedgedPortfolio,
+                                                  VarianceSwap)
+    from finmath_tpu_torch.models.heston import HestonParams
+    from finmath_tpu_torch.models.local_vol import (
+        LocalVolatilityModel, MonteCarloLocalVolModel, SSVISurface,
+        european_call_values)
+    from finmath_tpu_torch.models.process import euler_scan
+    from finmath_tpu_torch.models.slv import (HestonSLVModel,
+                                              MonteCarloHestonSLVModel,
+                                              _fit_conditional_variance,
+                                              hat_basis)
+    from finmath_tpu_torch.models.time_discretization import (
+        TimeDiscretization)
+    from finmath_tpu_torch.utils.config import to_device
+
+    device = torch.device("cuda") if mesh is None else mesh.device
+
+    def gather(x):
+        return (x if mesh is None else mesh.all_gather(x)).cpu().numpy()
+
+    out = {"products": {}, "cash": {}}
+    surf = SSVISurface(sigma0=0.22, sigma_inf=0.20, tau=2.0, rho=-0.65,
+                       eta=0.6, gamma=0.4)
+    hp = HestonParams(100.0, 0.03, v0=0.04, kappa=1.5, theta=0.06, xi=0.8,
+                      rho=-0.7)
+    td = TimeDiscretization(initial=0.0, num_steps=100, step=0.01)
+    model = HestonSLVModel(hp, surf, td)
+    sim = MonteCarloHestonSLVModel(td, SLV_PATHS, model, seed=21, mesh=mesh,
+                                   device=device)
+    out["slv_calls"] = european_call_values(sim, F3_SLV_STRIKES, [1.0])
+    out["slv_leverage"] = sim.leverage_at(1.0, F3_SLV_STRIKES)
+    out["slv_terminal"] = gather(sim.process._lazy_states()[-1])
+    # one cloud for both fits: the unsharded run's first step (the same
+    # Euler step of the unbound model on the global increments)
+    cloud = euler_scan(model, model.initial_state(SLV_PATHS, device),
+                       sim.brownian.increments[:1].to(device),
+                       td.get_step_sizes()[:1])
+    if mesh is not None:
+        cloud = cloud[..., mesh.local_slice(SLV_PATHS)]
+    nodes = model._nodes_on(device)
+    out["slv_fits"] = {}
+    for i in (0, 1):
+        k = model._moneyness(i, cloud[i, 0])
+        beta, m, s = _fit_conditional_variance(
+            k, torch.clamp_min(cloud[i, 1], 0.0), nodes, axis_name=mesh)
+        cond = beta.to(torch.float32) @ hat_basis((k - m) / s, nodes)
+        out["slv_fits"][i] = (beta.cpu().numpy(), float(m), float(s),
+                              float(cond.min()), float(cond.max()))
+    out["slv_bound"] = mesh is None or sim.model.mesh is mesh
+    del sim, cloud
+
+    lv = MonteCarloLocalVolModel(
+        td, LOCAL_VOL_PATHS, LocalVolatilityModel(100.0, 0.03, surf, td),
+        seed=12, mesh=mesh, device=device)
+    out["lv_calls"] = european_call_values(lv, F3_LV_STRIKES, [1.0])
+    del lv
+
+    bs = BlackScholesModel(100.0, 0.05, 0.3)
+    sim = MonteCarloBlackScholesModel(
+        TimeDiscretization(initial=0.0, num_steps=EXOTIC_STEPS,
+                           step=1.0 / EXOTIC_STEPS),
+        EXOTIC_PATHS, bs, seed=42, mesh=mesh, device=device)
+    hedge = DeltaHedgedPortfolio(1.0, 105.0).simulate(sim)
+    for key in ("value", "hedge_error_mean", "hedge_error_std"):
+        out["products"][f"hedge_{key}"] = (hedge[key], 0.0)
+    swap = VarianceSwap(1.0)
+    out["products"]["variance_swap"] = swap.get_value_and_error(sim)
+    out["products"]["variance_swap_strike"] = (swap.fair_strike(sim), 0.0)
+    del sim
+
+    ex = [i * 0.02 for i in range(1, 51)]
+    sim = MonteCarloBlackScholesModel(
+        TimeDiscretization(initial=0.0, num_steps=50, step=0.02),
+        AMERICAN_PATHS, bs, seed=77, mesh=mesh, device=device)
+    assets = sim.get_asset_values(ex)
+    dfs = to_device(_deterministic_dfs(sim, ex)[:, None], torch.float64,
+                    device)
+    for bias in F3_BIASES:
+        put = BermudanOption(ex, 110.0, is_call=False, foresight_bias=bias)
+        out["products"][f"ls_put_{bias}"] = put.get_value_and_error(sim)
+        out["cash"][bias] = gather(_ls_cashflows(
+            assets, dfs, _f32(110.0, assets), False, 3, bias == "split",
+            mesh))
+    del sim, assets
+
+    sim = MonteCarloBlackScholesModel(
+        TimeDiscretization(initial=0.0, num_steps=50, step=0.02),
+        STRUCTURED_PATHS, bs, seed=21, mesh=mesh, device=device)
+    for name, product in _f3_structured().items():
+        out["products"][name] = product.get_value_and_error(sim)
+    del sim
+    return out
+
+
+def _mesh_f3_rank(mesh):
+    """Phase 48, on every rank: ``_f3_results`` with its wall, the
+    collectives, the seconds in them and the peak device memory."""
+    import torch
+
+    out, stats = _f2_timed(torch, mesh, lambda: _f3_results(mesh))
+    return {"results": out, "stats": stats, "rank": mesh.rank,
+            "device": str(mesh.device), "backend": mesh.backend}
+
+
+def _f3_compare(got, want) -> dict:
+    """A rank's phase 48 results against the unsharded ones, at the bounds
+    of ``tests/test_torch_slv_products_mesh.py``: each gap, and whether it
+    holds."""
+    prod = {k: max(abs(got["products"][k][0] - v[0])
+                   / max(abs(v[0]), 1.0),
+                   abs(got["products"][k][1] - v[1])
+                   / max(abs(v[1]), 1e-12))
+            for k, v in want["products"].items()}
+    grids = {k: float(np.max(np.abs(got[k] - want[k])
+                             / np.maximum(np.abs(want[k]), 1e-300)))
+             for k in ("lv_calls", "slv_calls")}
+    flips = {b: int(np.sum(got["cash"][b] != want["cash"][b]))
+             for b in F3_BIASES}
+    fits = {}
+    for i, (beta, m, s, lo, hi) in got["slv_fits"].items():
+        wb, wm, ws, wlo, whi = want["slv_fits"][i]
+        fits[i] = {"m_rel": abs(m - wm) / abs(wm),
+                   "s_rel": abs(s - ws) / ws,
+                   "beta_rel": float(np.max(np.abs(beta - wb))
+                                     / np.max(np.abs(wb))),
+                   "cond_vs_v0": max(abs(lo / 0.04 - 1), abs(hi / 0.04 - 1),
+                                     abs(wlo / 0.04 - 1),
+                                     abs(whi / 0.04 - 1))}
+    wt = want["slv_terminal"]
+    scale = np.abs(wt).max(axis=1)[:, None]
+    terminal = float(np.max(np.abs(got["slv_terminal"] - wt) / scale))
+    lev = float(np.max(np.abs(got["slv_leverage"] / want["slv_leverage"]
+                              - 1)))
+    calls_se = float(np.max(np.abs(got["slv_calls"][..., 0]
+                                   - want["slv_calls"][..., 0])
+                            / want["slv_calls"][..., 1]))
+    gaps = {"products_rel": prod, "grids_rel": grids,
+            "decision_flips": flips, "slv_fits": fits,
+            "slv_terminal_rel": terminal, "slv_leverage_rel": lev,
+            "slv_calls_in_se": calls_se}
+    checks = {
+        "products within 1e-9 relative": max(prod.values()) < 1e-9,
+        "call grids within 1e-9 relative": grids["lv_calls"] < 1e-9,
+        "LS put decisions equal on every path":
+            not any(flips.values()),
+        "SLV moments of both fits within 1e-6": all(
+            f["m_rel"] < 1e-6 and f["s_rel"] < 1e-6 for f in fits.values()),
+        "SLV first step E[V|k] within 1e-5 of v0": fits[0]["cond_vs_v0"]
+        < 1e-5,
+        "SLV second step beta within 1e-6": fits[1]["beta_rel"] < 1e-6,
+        "SLV terminal state within 1e-5": terminal < 1e-5,
+        "SLV leverage within 1e-4": lev < 1e-4,
+        "SLV calls within 1e-3 se": calls_se < 1e-3,
+        "SLV model bound to the mesh": got["slv_bound"],
+    }
+    return gaps, checks
+
+
+# phase 48 (c): one bs_paths_kernel launch under capture_trace in a fresh
+# process (argv: the repository, the trace directory)
+F3_TRACE_CHILD = """
+import sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from finmath_tpu_torch.ops import kernels
+from finmath_tpu_torch.utils.profiling import capture_trace
+with capture_trace(sys.argv[2]):
+    kernels.bs_paths_kernel(3141, 1_000_000, 100, 1.0, 0.05, 0.3, 1.0, 1.05,
+                            device="cuda")
+    torch.cuda.synchronize()
+sys.exit(0 if kernels.LAUNCHES["bs_paths"] == 1 else 1)
+"""
+
+
+def _trace_kernels(log_dir) -> list:
+    """The names of the kernel events of the one Chrome trace in
+    ``log_dir``."""
+    import glob
+
+    (path,) = glob.glob(os.path.join(log_dir, "trace.*.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+
+
+def _f3_utilities(torch) -> dict:
+    """Phase 48 (c): the utilities on the card, each check a gate."""
+    import tempfile
+
+    from finmath_tpu_torch.models.lmm import build_atm_calibration
+    from finmath_tpu_torch.ops import kernels
+    from finmath_tpu_torch.utils.memory import (get_device_memory_info,
+                                                live_device_arrays)
+    from finmath_tpu_torch.utils.profiling import capture_trace
+    from finmath_tpu_torch.utils.serialization import (load_checkpoint,
+                                                       save_checkpoint)
+
+    gib = 2 ** 30
+    torch.cuda.synchronize()
+    before = get_device_memory_info()
+    arrays = live_device_arrays()
+    big = torch.empty(gib, dtype=torch.uint8, device="cuda")
+    after = get_device_memory_info()
+    arrays_with = live_device_arrays()
+    del big
+    arrays_after = live_device_arrays()
+    total = torch.cuda.get_device_properties(0).total_memory
+
+    s0, r, sigma, maturity, strike = BS_PARAMS
+    with tempfile.TemporaryDirectory() as tmp:
+        # the gate runs in a fresh process: in this one, after the
+        # profiled calls of phases 38-45, the profiler misses the kernels
+        # at a session's start (one session of 30,000 device operations
+        # earlier is enough), so this process's trace is printed, not
+        # gated
+        launches = kernels.LAUNCHES["bs_paths"]
+        with capture_trace(os.path.join(tmp, "here")):
+            kernels.bs_paths_kernel(BS_SEED, BS_PATHS, BS_STEPS, s0, r,
+                                    sigma, maturity, strike, device="cuda")
+            torch.cuda.synchronize()
+        traced = kernels.LAUNCHES["bs_paths"] - launches
+        here = _trace_kernels(os.path.join(tmp, "here"))
+        child = subprocess.run(
+            [sys.executable, "-c", F3_TRACE_CHILD, REPO,
+             os.path.join(tmp, "fresh")],
+            capture_output=True, text=True, timeout=300)
+        fresh = (_trace_kernels(os.path.join(tmp, "fresh"))
+                 if child.returncode == 0 else [])
+        kernel_events = [n for n in fresh if "bs_paths_kernel" in n]
+
+        setup = build_atm_calibration(num_paths=PATHS, num_factors=1,
+                                      seed=SEED, device="cuda")
+        params = np.asarray(setup.covariance.initial_parameters) * 1.07
+        r_before = setup.engine.residuals(params)
+        save_checkpoint(os.path.join(tmp, "atm_ckpt"), params,
+                        {"paths": PATHS})
+        restored, meta = load_checkpoint(os.path.join(tmp, "atm_ckpt"))
+        r_after = setup.engine.residuals(restored)
+        del setup
+    out = {"before": repr(before), "after": repr(after),
+           "in_use_rise_gib": (after.bytes_in_use - before.bytes_in_use)
+           / gib, "peak_gib": after.peak_bytes_in_use / gib,
+           "limit_gib": after.bytes_limit / gib,
+           "free_fraction": after.free_fraction,
+           "live_arrays": [arrays, arrays_with, arrays_after],
+           "fresh_process_trace": {
+               "rc": child.returncode, "kernel_events": len(fresh),
+               "bs_paths_kernel": kernel_events[0][:80]
+               if kernel_events else None,
+               "stderr_tail": child.stderr[-300:]
+               if child.returncode else ""},
+           "this_process_trace": {
+               "launches": traced, "kernel_events": len(here),
+               "names_bs_paths_kernel": any("bs_paths_kernel" in n
+                                            for n in here)}}
+    checks = {
+        "bytes_in_use rises by at least 1 GiB":
+            after.bytes_in_use - before.bytes_in_use >= gib,
+        "peak at least the bytes in use":
+            after.peak_bytes_in_use >= after.bytes_in_use,
+        "limit is the card's total memory": after.bytes_limit == total,
+        "free fraction in (0, 1)": 0.0 < after.free_fraction < 1.0,
+        "live_device_arrays rises by one and falls back":
+            arrays_with == arrays + 1 and arrays_after == arrays,
+        "a fresh process's trace names bs_paths_kernel":
+            child.returncode == 0 and len(kernel_events) == 1,
+        "checkpoint round trip: residuals bit-equal":
+            np.array_equal(restored, params) and meta == {"paths": PATHS}
+            and np.array_equal(r_before, r_after),
+    }
+    return out, checks
+
+
+def _f3_examples(torch) -> dict:
+    """Phase 48 (d): the port's examples 01-04 at their default sizes on
+    the card; each main's own asserts are gates (they raise)."""
+    import importlib.util
+
+    from finmath_tpu_torch.ops import kernels
+
+    out = {}
+    for name in ("01_random_variables", "02_black_scholes_greeks",
+                 "03_lmm_calibration", "04_multichip_sharding"):
+        spec = importlib.util.spec_from_file_location(
+            f"port_example_{name}",
+            os.path.join(REPO, "finmath_tpu_torch", "examples",
+                         f"{name}.py"))
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        launches = kernels.LAUNCHES["bs_paths"]
+        t0 = time.perf_counter()
+        res = module.main()
+        torch.cuda.synchronize()
+        out[name] = {"wall_s": time.perf_counter() - t0,
+                     "bs_paths_launches":
+                         kernels.LAUNCHES["bs_paths"] - launches}
+        if name == "02_black_scholes_greeks":
+            out[name].update({k: res[k] for k in ("fused", "delta",
+                                                  "delta_aad")})
+        elif name == "03_lmm_calibration":
+            out[name]["mean_dev"] = float(np.mean(res["deviations"]))
+        elif name == "04_multichip_sharding":
+            out[name].update(world_size=res["world_size"],
+                             backend=res["backend"], cva=res["cva"])
+    checks = {
+        "example 02 prices through one bs_paths_kernel launch":
+            out["02_black_scholes_greeks"]["bs_paths_launches"] == 1,
+        "example 04 on NCCL ranks":
+            out["04_multichip_sharding"]["backend"] == "nccl",
+    }
+    return out, checks
+
+
+def _path_mesh_f3(torch, smi) -> None:
+    """Phase 48 (no kernel). (a) An NCCL world of one on ``cuda:0`` and (b)
+    a gloo world of two ranks on the card, spawned and joined as in phase
+    46 but both at once, each run ``_f3_results`` meshed (phase 41's SLV
+    at 409,600 x 100, phase 40's call grid at 1M x 100, phases 34, 36 and
+    37's products at 1M paths) against the unsharded port on the same
+    streams (computed here while the worlds run; each join wall counts
+    from the phase's start) at ``tests/test_torch_slv_products_mesh.py``'s
+    bounds; every rank of a world returns the same results. (c) The
+    utilities: memory info around a 1 GiB tensor, ``live_device_arrays``,
+    a Chrome trace around one ``bs_paths_kernel`` launch in a fresh
+    process that names the kernel (and this process's, printed), the ATM
+    checkpoint round trip with bit-equal residuals. (d)
+    Examples 01-04 at their default sizes. Printed: the gaps, each world's
+    walls, collectives and peak memory per rank, beside the card's name and
+    power limit."""
+    from finmath_tpu_torch.parallel.launch import start_world
+
+    t_phase = time.perf_counter()
+    # both worlds and the unsharded references run at once: each is
+    # bound by its own host dispatch
+    with start_world(f"{MODULE}:_mesh_f3_rank", 1, backend="nccl",
+                     device="cuda:0") as world_a, \
+            start_world(f"{MODULE}:_mesh_f3_rank", 2, backend="gloo",
+                        device="cuda:0") as world_b:
+        want = _f3_results(None)
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t_phase
+        (a,) = world_a.join(MESH_JOIN_SECONDS)
+        a_join_s = time.perf_counter() - t_phase
+        pair = world_b.join(MESH_JOIN_SECONDS)
+        b_join_s = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+
+    out, checks = {"unsharded_s": ref_s}, {}
+    for label, ranks, join_s in (("a_nccl_world_1", [a], a_join_s),
+                                 ("b_gloo_world_2", pair, b_join_s)):
+        gaps, held = _f3_compare(ranks[0]["results"], want)
+        out[label] = {"gaps": gaps, "join_wall_s": join_s,
+                      "ranks": [dict(rk["stats"], backend=rk["backend"],
+                                     device=rk["device"]) for rk in ranks]}
+        checks.update({f"({label[0]}) {k}": v for k, v in held.items()})
+        checks[f"({label[0]}) every rank the same results"] = all(
+            rk["results"]["products"] == ranks[0]["results"]["products"]
+            and all(np.array_equal(rk["results"]["cash"][b],
+                                   ranks[0]["results"]["cash"][b])
+                    for b in F3_BIASES)
+            and np.array_equal(rk["results"]["slv_terminal"],
+                               ranks[0]["results"]["slv_terminal"])
+            for rk in ranks)
+    checks["(a) NCCL on cuda:0"] = (a["backend"] == "nccl"
+                                   and a["device"] == "cuda:0")
+    checks["(b) gloo ranks on cuda:0"] = all(
+        rk["backend"] == "gloo" and rk["device"] == "cuda:0" for rk in pair)
+    out["c_utilities"], held = _f3_utilities(torch)
+    checks.update({f"(c) {k}": v for k, v in held.items()})
+    out["d_examples"], held = _f3_examples(torch)
+    checks.update({f"(d) {k}": v for k, v in held.items()})
+    print(f"phase 48 path-axis sharding F3, utilities, examples ({smi}): "
+          + json.dumps(out), flush=True)
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: phase 48 failed: {failed}")
+    print(f"phase 48 seconds: {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -5377,6 +5813,10 @@ def main(argv=None) -> int:
     # -- 46: path-axis sharding over torch.distributed (no kernel) ---------
     _path_mesh(torch, smi)
     _path_mesh_f2(torch, smi)
+
+    # -- 48: sharding F3 (Heston-SLV, the remaining equity products), the
+    # utilities and examples 01-04 (no kernel) ------------------------------
+    _path_mesh_f3(torch, smi)
 
     if opts.profile:
         _profile(torch, setup, kb, sv, sv_kb, later)

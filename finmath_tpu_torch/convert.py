@@ -295,22 +295,21 @@ def equity_model_from_jax(obj):
             surface, out.min_vol, out.max_vol, out.denominator_floor,
             out.t_floor, times)
         return out
-    if obj.axis_name is not None:
-        raise NotImplementedError(
-            "HestonSLVModel(axis_name=...): moments over a sharded path "
-            "axis are not ported yet")
     out.params = equity_model_from_jax(obj.params)
     out.mixing = float(obj.mixing)
     out.leverage_min = float(obj.leverage_min)
     out.leverage_max = float(obj.leverage_max)
-    out.axis_name = None
+    # a named axis stays a name: the meshed EulerScheme that simulates
+    # the model binds it to its mesh (HestonSLVModel.on_mesh)
+    out.axis_name = None if obj.axis_name is None else str(obj.axis_name)
+    out.mesh = None
     out._nodes_np = np.asarray(obj._nodes, dtype=np.float32)
     out._nodes_by_device = {}
     out._static_key = (
         out.params, surface, out.dividend_yield, out.mixing,
         int(out._nodes_np.size), float(out._nodes_np[-1]),
         out.leverage_min, out.leverage_max, out.min_vol, out.max_vol,
-        out.t_floor, out.denominator_floor, None, times)
+        out.t_floor, out.denominator_floor, out.axis_name, times)
     return out
 
 

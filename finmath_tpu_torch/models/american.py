@@ -17,12 +17,26 @@ Method (lower-bound LS, the finmath estimator):
 * ``foresight_bias="split"``: fit the policy on the even paths, value it
   on the odd ones.
 
-Precision, the JAX package's split: the basis and the masked
-``[B, paths] @ [paths, B]`` Gram are float32 (``torch.matmul`` with TF32
-off, the counterpart of ``Precision.HIGHEST``); the Gram is then float64
-plus ``1e-10 * I``; the right-hand side, the solve
-(``ops.conditional_expectation._cholesky_solve_small``) and the cash carry
-are float64; the continuation is ``float32(beta) @ basis``.
+Under a meshed facade (its ``mesh``, a ``parallel.PathMesh``) the asset
+matrix is this rank's block of the paths, as in the meshed Hull-White
+Bermudan (``hw_bermudan._hw_ls_kernel``): the split takes the parity of
+the global path index, every date sums the weighted count and sum, then
+the centred second moment, then the Gram matrix with its right-hand side
+over the ranks (three all-reduces), and the value's count and sums are
+global, so every rank fits the same policy and returns the same ``[2]``.
+
+Precision: the basis is float32, as in the JAX package; the masked
+``[B, paths] @ [paths, B]`` Gram multiplies the float32 basis in float64
+(every product exact, the sums float64), where the JAX package sums a
+float32 product (``Precision.HIGHEST``): with 50 exercise dates a float32
+Gram summed in another order (one block a rank) moves a few boundary
+decisions, and each moved decision cascades through the later
+regressions (``tests/test_torch_american.py``), so a meshed run could not
+reproduce the unsharded one; in float64 the blocks' Grams sum to the same
+matrix within 1e-16. The Gram then gets ``1e-10 * I``; the right-hand
+side, the solve (``ops.conditional_expectation._cholesky_solve_small``)
+and the cash carry are float64; the continuation is
+``float32(beta) @ basis``.
 """
 
 from __future__ import annotations
@@ -34,9 +48,8 @@ import torch
 
 from ..ops.conditional_expectation import _cholesky_solve_small
 from ..ops.random_variable import ACC_DTYPE, FLOAT_DTYPE
-from ..parallel.mesh import sharded_unsupported
 from ..utils.config import to_device
-from .equity_products import _f32, _mesh_of
+from .equity_products import _f32, _mesh_of, _over_ranks
 
 
 def _integer_pow(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -54,25 +67,39 @@ def _integer_pow(x: torch.Tensor, k: int) -> torch.Tensor:
     return acc
 
 
-def _ls_step(s, intrinsic_i, ex, cash, fit_mask, degree: int):
+def _global_parity(paths: int, device, mesh) -> torch.Tensor:
+    """[paths] bool: whether each of this rank's paths has an even GLOBAL
+    index (rank r's block starts at r * paths)."""
+    first = 0 if mesh is None else mesh.rank * paths
+    return torch.arange(first, first + paths, device=device) % 2 == 0
+
+
+def _ls_step(s, intrinsic_i, ex, cash, fit_mask, degree: int, mesh=None):
     """One exercise date of the backward induction: the regression of
     ``cash`` on the normalized in-the-money asset ``s`` (fitted on
     ``fit_mask``) and the new cash, ``ex`` where exercising beats the
-    regressed continuation."""
+    regressed continuation. Under ``mesh`` the moments and the normal
+    equations are summed over the ranks."""
+    over = _over_ranks(mesh)
     itm = intrinsic_i > 0.0
     w = (itm & fit_mask).to(FLOAT_DTYPE)
-    nw = torch.clamp_min(torch.sum(w.to(ACC_DTYPE)), 1.0)
-    mu = torch.sum((s * w).to(ACC_DTYPE)) / nw
+    sums = over(torch.stack([torch.sum(w.to(ACC_DTYPE)),
+                             torch.sum((s * w).to(ACC_DTYPE))]))
+    nw = torch.clamp_min(sums[0], 1.0)
+    mu = sums[1] / nw
     centred = s - mu.to(FLOAT_DTYPE)
     sd = torch.sqrt(torch.clamp_min(
-        torch.sum((centred ** 2 * w).to(ACC_DTYPE)) / nw, 1e-12))
+        over(torch.sum((centred ** 2 * w).to(ACC_DTYPE))) / nw, 1e-12))
     xn = centred / sd.to(FLOAT_DTYPE)
     basis = torch.stack([_integer_pow(xn, k)
                          for k in range(degree + 1)])          # [B, P]
     bw = basis * w[None, :]
     eye = torch.eye(degree + 1, dtype=ACC_DTYPE, device=s.device)
-    gram = torch.matmul(bw, basis.T).to(ACC_DTYPE) + 1e-10 * eye
-    rhs = torch.sum(bw.to(ACC_DTYPE) * cash[None, :], dim=1)
+    both = over(torch.cat(
+        [torch.matmul(bw.to(ACC_DTYPE), basis.T.to(ACC_DTYPE)),
+         torch.sum(bw.to(ACC_DTYPE) * cash[None, :], dim=1)[:, None]],
+        dim=1))
+    gram, rhs = both[:, :-1] + 1e-10 * eye, both[:, -1]
     beta = _cholesky_solve_small(gram, rhs)
     cont = beta.to(FLOAT_DTYPE) @ basis                        # [P]
     exercise = itm & (ex > cont.to(ACC_DTYPE))
@@ -80,39 +107,44 @@ def _ls_step(s, intrinsic_i, ex, cash, fit_mask, degree: int):
 
 
 def _ls_cashflows(asset, dfs, strike, is_call: bool, degree: int,
-                  split: bool):
+                  split: bool, mesh=None):
     """The policy's discounted cashflow of every path, [paths] float64.
     asset: [E, paths] float32 asset values at the exercise dates
     (ascending); dfs: [E, 1] float64 discount factors N(0)/N(t_i) on the
     device (or pathwise [E, paths]); strike a float32 0-dim tensor. With
-    ``split`` the policy is fitted on the even paths."""
+    ``split`` the policy is fitted on the paths of even global index."""
     e_n, paths = asset.shape
     sign = 1.0 if is_call else -1.0
     intrinsic = torch.clamp_min(sign * (asset - strike), 0.0)    # [E, P]
     disc = intrinsic.to(ACC_DTYPE) * dfs
     if split:
-        fit_mask = torch.arange(paths, device=asset.device) % 2 == 0
+        fit_mask = _global_parity(paths, asset.device, mesh)
     else:
         fit_mask = torch.ones(paths, dtype=torch.bool, device=asset.device)
     cash = disc[e_n - 1]
     for i in range(e_n - 2, -1, -1):
         cash = _ls_step(asset[i], intrinsic[i], disc[i], cash, fit_mask,
-                        degree)
+                        degree, mesh)
     return cash
 
 
 def _ls_kernel(asset, dfs, strike, is_call: bool, degree: int,
-               split: bool):
+               split: bool, mesh=None):
     """[2] float64 (value, stderr) of ``_ls_cashflows``; with ``split`` the
-    mean and error of the odd paths."""
-    cash = _ls_cashflows(asset, dfs, strike, is_call, degree, split)
+    mean and error of the paths of odd global index."""
+    over = _over_ranks(mesh)
+    cash = _ls_cashflows(asset, dfs, strike, is_call, degree, split, mesh)
     paths = cash.shape[0]
-    value_mask = torch.ones(paths, dtype=ACC_DTYPE, device=cash.device)
     if split:
-        value_mask[0::2] = 0.0
-    n = torch.sum(value_mask)
-    mean = torch.sum(cash * value_mask) / n
-    var = torch.sum((cash - mean) ** 2 * value_mask) / n
+        value_mask = (~_global_parity(paths, cash.device, mesh)).to(
+            ACC_DTYPE)
+    else:
+        value_mask = torch.ones(paths, dtype=ACC_DTYPE, device=cash.device)
+    sums = over(torch.stack([torch.sum(value_mask),
+                             torch.sum(cash * value_mask)]))
+    n = sums[0]
+    mean = sums[1] / n
+    var = over(torch.sum((cash - mean) ** 2 * value_mask)) / n
     return torch.stack([mean, torch.sqrt(var / n)])
 
 
@@ -139,9 +171,9 @@ class BermudanOption:
         self.foresight_bias = foresight_bias
 
     def packed_value_and_error(self, model) -> torch.Tensor:
-        """[2] float64 (value, stderr) on the facade's device; a meshed
-        facade raises (the regressions and the mean are local)."""
-        sharded_unsupported(_mesh_of(model), "BermudanOption")
+        """[2] float64 (value, stderr) on the facade's device; on a meshed
+        facade the regressions and the statistics are global and every
+        rank returns the same tensor."""
         if hasattr(model, "get_asset_values"):
             assets = model.get_asset_values(self.exercise_times)
         else:
@@ -161,7 +193,7 @@ class BermudanOption:
             assets, to_device(np.asarray(dfs)[:, None], ACC_DTYPE,
                               assets.device),
             _f32(self.strike, assets), self.is_call, self.basis_degree,
-            self.foresight_bias == "split")
+            self.foresight_bias == "split", _mesh_of(model))
 
     def get_value_and_error(self, model) -> tuple:
         """(value, MC standard error): one host copy."""

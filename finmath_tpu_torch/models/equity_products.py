@@ -16,9 +16,9 @@ and ``price_portfolio`` copies a whole book's ``[N, 2]`` once.
 Under a meshed facade (its ``mesh``, a ``parallel.PathMesh``) the asset
 matrices are this rank's block of the paths and every payoff mean and
 standard error is global: a float64 all-reduce of the sum, then of the
-squared deviations from the global mean (``_mean_and_stderr``). Products
-whose path reductions are not routed through the mesh raise
-``NotImplementedError`` on a meshed facade.
+squared deviations from the global mean (``_mean_and_stderr``). Every
+product of the port reduces so, those of ``american``, ``hedging``,
+``structured_products`` and ``local_vol.european_call_values`` too.
 
 Precision, as in the JAX package: path data stays float32 (the payoffs
 are float32 where the JAX function computes them in float32), the payoff
@@ -66,6 +66,11 @@ def _mean_and_stderr(pay: torch.Tensor, mesh=None) -> torch.Tensor:
 def _mesh_of(model):
     """The facade's ``PathMesh``, or None (facades without one)."""
     return getattr(model, "mesh", None)
+
+
+def _over_ranks(mesh):
+    """The sum over the ranks of ``mesh`` (the identity without one)."""
+    return (lambda x: x) if mesh is None else mesh.all_reduce
 
 
 def _deterministic_dfs(model, times) -> np.ndarray:

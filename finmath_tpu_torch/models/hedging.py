@@ -14,6 +14,11 @@ its accrual exp(r dt) are float64, and each rebalance is
 ``(d_new - d_prev) * s`` in float64. The discounted hedged-portfolio mean
 reprices the option on any grid; the hedge error's standard deviation
 shrinks like sqrt(dt).
+
+Under a meshed facade (its ``mesh``, a ``parallel.PathMesh``) the asset
+matrix is this rank's block of the paths and every statistic is global,
+in the two passes of the unsharded kernels: one all-reduce of the sums
+for the means, then one of the squared deviations from them.
 """
 
 from __future__ import annotations
@@ -24,11 +29,10 @@ import numpy as np
 import torch
 
 from ..ops.random_variable import ACC_DTYPE, FLOAT_DTYPE
-from ..parallel.mesh import sharded_unsupported
 from ..utils.config import to_device
 from .equity_products import (_black_scholes_of, _deterministic_dfs, _f32,
-                              _grid_times_up_to, _mesh_of, _spot_of,
-                              _with_spot_row)
+                              _grid_times_up_to, _mesh_of, _over_ranks,
+                              _spot_of, _with_spot_row)
 
 
 def _delta_coefficients(times, r: float, sigma: float, maturity: float):
@@ -45,11 +49,13 @@ def _delta_coefficients(times, r: float, sigma: float, maturity: float):
 
 
 def _delta_hedge_kernel(assets_with_s0, times, r: float, sigma: float,
-                        strike, maturity: float, v0: float, is_call: bool):
+                        strike, maturity: float, v0: float, is_call: bool,
+                        mesh=None):
     """assets_with_s0: [T+1, paths] float32 including t=0; times: [T+1]
     host float64 grid (0 first); strike a float32 0-dim tensor. Returns
     [3] float64: (discounted portfolio mean, hedge-error mean, hedge-error
-    std), the hedge error being portfolio(T) - payoff(T) in time-T money."""
+    std), the hedge error being portfolio(T) - payoff(T) in time-T money;
+    under ``mesh`` over every rank's paths."""
     sign = 1.0 if is_call else -1.0
     device = assets_with_s0.device
     c, v = _delta_coefficients(times, r, sigma, maturity)
@@ -72,10 +78,12 @@ def _delta_hedge_kernel(assets_with_s0, times, r: float, sigma: float,
     payoff = torch.clamp_min(sign * (s_t - strike.to(ACC_DTYPE)), 0.0)
     err = portfolio - payoff
     pv = portfolio * math.exp(-r * maturity)
-    n = pv.shape[0]
-    mean_pv = torch.sum(pv) / n
-    mean_err = torch.sum(err) / n
-    std_err = torch.sqrt(torch.sum((err - mean_err) ** 2) / (n - 1))
+    over = _over_ranks(mesh)
+    n = pv.shape[0] * (1 if mesh is None else mesh.world_size)
+    sums = over(torch.stack([torch.sum(pv), torch.sum(err)]))
+    mean_pv = sums[0] / n
+    mean_err = sums[1] / n
+    std_err = torch.sqrt(over(torch.sum((err - mean_err) ** 2)) / (n - 1))
     return torch.stack([mean_pv, mean_err, std_err])
 
 
@@ -96,7 +104,6 @@ class DeltaHedgedPortfolio:
     def simulate(self, model) -> dict:
         from .analytic import black_scholes_option_value
 
-        sharded_unsupported(_mesh_of(model), "DeltaHedgedPortfolio")
         bs = _black_scholes_of(
             model, "the BS delta hedge needs a Black-Scholes facade")
         times = _grid_times_up_to(model, self.maturity)
@@ -107,7 +114,7 @@ class DeltaHedgedPortfolio:
         out = _delta_hedge_kernel(
             _with_spot_row(assets, bs.initial_value), [0.0] + times,
             bs.risk_free_rate, bs.volatility, _f32(self.strike, assets),
-            self.maturity, v0, self.is_call).cpu().numpy()
+            self.maturity, v0, self.is_call, _mesh_of(model)).cpu().numpy()
         return {"value": float(out[0]), "premium": v0,
                 "hedge_error_mean": float(out[1]),
                 "hedge_error_std": float(out[2])}
@@ -120,14 +127,18 @@ class DeltaHedgedPortfolio:
     getValue = get_value
 
 
-def _variance_swap_kernel(assets_with_s0, df: float, inv_t: float):
+def _variance_swap_kernel(assets_with_s0, df: float, inv_t: float,
+                          mesh=None):
+    """[3] float64 (value, stderr, undiscounted mean RV) of the realized
+    variance of each path; under ``mesh`` over every rank's paths."""
     la = torch.log(assets_with_s0)
     dlog = la[1:] - la[:-1]                      # [T, paths] f32
     del la
     rv = torch.sum((dlog * dlog).to(ACC_DTYPE), dim=0) * inv_t
-    n = rv.shape[0]
-    mean = torch.sum(rv) / n
-    std = torch.sqrt(torch.sum((rv - mean) ** 2) / (n - 1))
+    over = _over_ranks(mesh)
+    n = rv.shape[0] * (1 if mesh is None else mesh.world_size)
+    mean = over(torch.sum(rv)) / n
+    std = torch.sqrt(over(torch.sum((rv - mean) ** 2)) / (n - 1))
     return torch.stack([mean * df, std / math.sqrt(1.0 * n) * df, mean])
 
 
@@ -143,13 +154,12 @@ class VarianceSwap:
         self.maturity = float(maturity)
 
     def _packed(self, model) -> np.ndarray:
-        sharded_unsupported(_mesh_of(model), "VarianceSwap")
         times = _grid_times_up_to(model, self.maturity)
         assets = model.get_asset_values(times)
         df = float(_deterministic_dfs(model, [self.maturity])[0])
         return _variance_swap_kernel(
             _with_spot_row(assets, _spot_of(model)), df,
-            1.0 / self.maturity).cpu().numpy()
+            1.0 / self.maturity, _mesh_of(model)).cpu().numpy()
 
     def get_value_and_error(self, model) -> tuple:
         out = self._packed(model)

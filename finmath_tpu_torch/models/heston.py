@@ -394,13 +394,6 @@ def _grid_rows(td: TimeDiscretization, times, device) -> torch.Tensor:
     return to_device(idx, torch.long, device)
 
 
-def _no_mesh(mesh, what: str) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what}(mesh=...): path-axis sharding over torch.distributed "
-            "is not ported for it yet")
-
-
 class MonteCarloHestonModel:
     """Simulation facade over the Heston ProcessModel through the shared
     ``EulerScheme`` (full truncation): the surface of

@@ -48,7 +48,6 @@ from torch.func import jvp
 from ..ops.random_variable import ACC_DTYPE, FLOAT_DTYPE, RandomVariableTorch
 from ..utils.config import to_device
 from .brownian_motion import BrownianMotion
-from ..parallel.mesh import sharded_unsupported
 from .heston import _grid_rows
 from .process import EulerScheme, ProcessModel
 from .time_discretization import TimeDiscretization
@@ -369,14 +368,23 @@ class MonteCarloLocalVolModel:
 # ---------------------------------------------------------------------------
 
 def _vanilla_grid_kernel(assets: torch.Tensor, dfs: torch.Tensor,
-                         strikes: torch.Tensor) -> torch.Tensor:
+                         strikes: torch.Tensor, mesh=None) -> torch.Tensor:
     """[expiries, paths] asset matrix x [strikes] -> packed
-    [expiries, strikes, 2] float64 (value, stderr)."""
+    [expiries, strikes, 2] float64 (value, stderr); under ``mesh`` over
+    every rank's paths: one all-reduce of the grid's sums, then one of its
+    squared deviations."""
     pay = torch.clamp_min(assets[:, None, :] - strikes[None, :, None], 0.0)
     p = pay.to(ACC_DTYPE) * dfs[:, None, None]
     n = p.shape[-1]
-    mean = torch.sum(p, dim=-1) / n
-    var = torch.sum((p - mean[..., None]) ** 2, dim=-1) / (n - 1)
+    sums = torch.sum(p, dim=-1)
+    if mesh is not None:
+        n *= mesh.world_size
+        sums = mesh.all_reduce(sums)
+    mean = sums / n
+    sq = torch.sum((p - mean[..., None]) ** 2, dim=-1)
+    if mesh is not None:
+        sq = mesh.all_reduce(sq)
+    var = sq / (n - 1)
     return torch.stack([mean, torch.sqrt(var / n)], dim=-1)
 
 
@@ -384,14 +392,15 @@ def european_call_values(model, strikes: Sequence[float],
                          expiries: Sequence[float]) -> np.ndarray:
     """Discounted European call values (and MC stderr) for a full
     strike x expiry grid: [expiries, strikes, 2] float64 in one host
-    copy. Round-trip test: Black-invert these against the input
+    copy; on a meshed facade over every rank's paths, equal on every
+    rank. Round-trip test: Black-invert these against the input
     surface."""
     from .equity_products import _deterministic_dfs
 
-    sharded_unsupported(getattr(model, "mesh", None), "european_call_values")
     assets = model.get_asset_values([float(t) for t in expiries])
     dfs = _deterministic_dfs(model, expiries)
     return _vanilla_grid_kernel(
         assets, to_device(dfs, ACC_DTYPE, assets.device),
         to_device(np.asarray(strikes, dtype=np.float64), ACC_DTYPE,
-                  assets.device).to(FLOAT_DTYPE)).cpu().numpy()
+                  assets.device).to(FLOAT_DTYPE),
+        getattr(model, "mesh", None)).cpu().numpy()

@@ -95,11 +95,16 @@ class EulerScheme:
     W times their memory over the ranks. ``get_process_value`` returns the
     block as a meshed ``RandomVariableTorch``, whose reductions are
     global. A path count that the world size does not divide raises
-    ``ValueError`` at the first simulation, as in the JAX package.
+    ``ValueError`` at the first simulation, as in the JAX package. A model
+    whose coefficients reduce over the paths (Heston-SLV's regression) is
+    bound to the mesh through its ``on_mesh`` (``self.model``), as XLA
+    partitions those reductions over the meshed scan in the JAX package.
     """
 
     def __init__(self, model: ProcessModel, brownian, mesh=None, device=None):
         self.mesh = check_mesh(mesh)
+        if self.mesh is not None and hasattr(model, "on_mesh"):
+            model = model.on_mesh(self.mesh)
         self._model = model
         self._brownian = brownian
         if device is None and self.mesh is not None:
@@ -109,6 +114,10 @@ class EulerScheme:
         self._device = (torch.device(device) if device is not None
                         else select_device())
         self._states: Optional[torch.Tensor] = None
+
+    @property
+    def model(self) -> ProcessModel:
+        return self._model
 
     @property
     def time_discretization(self) -> TimeDiscretization:

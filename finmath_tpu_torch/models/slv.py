@@ -24,12 +24,23 @@ feeds that same step's leverage.
   the model fits the regression once a step for both (``_total_vol`` is
   cached on the time index and the state tensor; in the JAX scan XLA's
   common subexpression elimination merges the two traces).
-* The JAX model's ``axis_name`` (moments over a sharded path axis) comes
-  with the sharding slice; a value other than None raises.
+* Path-axis sharding: the JAX model's ``axis_name`` names the mapped axis
+  its moments ``psum`` over. Here a ``parallel.PathMesh`` stands in for
+  it: a model whose ``mesh`` is set fits on this rank's block of the
+  cloud and sums the count, ``sum k`` and ``sum k^2`` (float32) over the
+  ranks in one all-reduce, then the float64 Gram matrix with its
+  right-hand side in a second, so every rank fits the regression of the
+  whole cloud (two all-reduces a step). A meshed ``EulerScheme`` (and so
+  ``MonteCarloHestonSLVModel(..., mesh=)``) binds its mesh into a copy
+  of the model (``on_mesh``). A model with a string ``axis_name`` (one
+  converted from a JAX model with a named axis) reduces over the mesh it
+  is bound to; simulated unbound it raises, as a ``psum`` over an
+  unbound axis does in JAX.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Optional, Sequence
 
@@ -38,9 +49,10 @@ import torch
 
 from ..ops.conditional_expectation import _cholesky_solve_small
 from ..ops.random_variable import ACC_DTYPE, FLOAT_DTYPE, RandomVariableTorch
+from ..parallel.mesh import PathMesh, check_mesh
 from ..utils.config import to_device
 from .brownian_motion import BrownianMotion
-from .heston import HestonParams, _grid_rows, _no_mesh
+from .heston import HestonParams, _grid_rows
 from .local_vol import _StepCache, local_variance
 from .process import EulerScheme, ProcessModel
 from .time_discretization import TimeDiscretization
@@ -81,18 +93,32 @@ def hat_basis(z: torch.Tensor, nodes: torch.Tensor) -> torch.Tensor:
 def _fit_conditional_variance(k: torch.Tensor, v: torch.Tensor,
                               nodes: torch.Tensor, axis_name=None):
     """Fit E[v | k] on the particle cloud; returns (beta [B] float64,
-    mean_k, std_k) so the fit can also be evaluated off the cloud."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "axis_name: moments over a sharded path axis are not ported yet")
+    mean_k, std_k) so the fit can also be evaluated off the cloud.
+
+    ``axis_name``: None, or the ``parallel.PathMesh`` whose ranks hold the
+    rest of the cloud (``k`` and ``v`` are then this rank's block). The
+    float32 count and sums of k and k^2 go in one all-reduce and the
+    float64 Gram matrix with its right-hand side in another, the JAX
+    function's two ``psum`` groups; every rank fits the same beta."""
     ka = k.to(FLOAT_DTYPE)
-    m = torch.mean(ka)
-    m2 = torch.mean(ka * ka)
+    if axis_name is None:
+        m = torch.mean(ka)
+        m2 = torch.mean(ka * ka)
+    else:
+        n, s1, s2 = axis_name.all_reduce(torch.stack([
+            torch.full((), float(ka.shape[-1]), dtype=FLOAT_DTYPE,
+                       device=ka.device),
+            torch.sum(ka), torch.sum(ka * ka)]))
+        m = s1 / n
+        m2 = s2 / n
     s = torch.sqrt(torch.clamp_min(m2 - m * m, 1e-12))
     z = (ka - m) / s
     basis = hat_basis(z, nodes)
     gram = torch.matmul(basis, basis.T).to(ACC_DTYPE)
     rhs = torch.matmul(basis, v[:, None])[:, 0].to(ACC_DTYPE)
+    if axis_name is not None:
+        both = axis_name.all_reduce(torch.cat([gram, rhs[:, None]], dim=1))
+        gram, rhs = both[:, :-1], both[:, -1]
     eye = torch.eye(gram.shape[0], dtype=ACC_DTYPE, device=gram.device)
     # ridge sized to the float32 moment noise: it bounds the coefficients
     # of empty wing nodes while shrinking populated ones by ~1e-7
@@ -111,7 +137,12 @@ class HestonSLVModel(ProcessModel):
 
     ``surface`` is any total-variance surface of ``local_vol``.
     ``mixing`` in [0, 1] scales the vol-of-vol: 1 = full SLV, 0 = pure
-    local vol (with v0 == theta, V is constant)."""
+    local vol (with v0 == theta, V is constant).
+
+    ``axis_name``: None (the cloud is all here), a ``parallel.PathMesh``
+    (the moments reduce over its ranks), or a name, the JAX model's
+    mapped axis, which a meshed ``EulerScheme`` binds to its mesh
+    (``on_mesh``); any other object raises ``NotImplementedError``."""
 
     def __init__(self, params: HestonParams, surface,
                  time_discretization: TimeDiscretization,
@@ -121,15 +152,13 @@ class HestonSLVModel(ProcessModel):
                  min_vol: float = 1e-4, max_vol: float = 4.0,
                  t_floor: Optional[float] = None,
                  denominator_floor: float = 0.05,
-                 axis_name: Optional[str] = None):
+                 axis_name=None):
         if not 0.0 <= mixing <= 1.0:
             raise ValueError("need 0 <= mixing <= 1")
         if num_basis < 4:
             raise ValueError("need num_basis >= 4")
-        if axis_name is not None:
-            raise NotImplementedError(
-                "HestonSLVModel(axis_name=...): moments over a sharded "
-                "path axis are not ported yet")
+        if axis_name is not None and not isinstance(axis_name, str):
+            check_mesh(axis_name)
         self.params = params
         self.surface = surface
         self.dividend_yield = float(dividend_yield)
@@ -140,6 +169,7 @@ class HestonSLVModel(ProcessModel):
         self.max_vol = float(max_vol)
         self.denominator_floor = float(denominator_floor)
         self.axis_name = axis_name
+        self.mesh = axis_name if isinstance(axis_name, PathMesh) else None
         self._nodes_np = _nodes(z_max, num_basis)
         self._nodes_by_device = {}
         td = time_discretization
@@ -165,6 +195,35 @@ class HestonSLVModel(ProcessModel):
     def __eq__(self, other):
         return (isinstance(other, HestonSLVModel)
                 and self._static_key == other._static_key)
+
+    def on_mesh(self, mesh) -> "HestonSLVModel":
+        """This model with its moments reduced over ``mesh`` (a
+        ``parallel.PathMesh``; a foreign mesh object raises
+        ``NotImplementedError``): a copy with a step cache of its own,
+        unequal to the unbound model; ``self`` when it reduces over
+        ``mesh`` already or ``mesh`` is None. A model bound to another
+        mesh raises ``ValueError``."""
+        mesh = check_mesh(mesh)
+        if mesh is None or self.mesh is mesh:
+            return self
+        if self.mesh is not None:
+            raise ValueError(f"the model reduces over {self.mesh} already, "
+                             f"not over {mesh}")
+        out = copy.copy(self)
+        out.mesh = mesh
+        out._static_key = self._static_key + (mesh,)
+        out._cache = _StepCache()
+        return out
+
+    def _moment_mesh(self) -> Optional[PathMesh]:
+        """The mesh the moments reduce over; a name bound to none raises
+        (a ``psum`` over an unbound axis)."""
+        if self.mesh is None and self.axis_name is not None:
+            raise ValueError(
+                f"axis_name {self.axis_name!r} is bound to no mesh: simulate "
+                "the model through MonteCarloHestonSLVModel(..., mesh=) or "
+                "EulerScheme(..., mesh=) with a PathMesh")
+        return self.mesh
 
     def _nodes_on(self, device) -> torch.Tensor:
         """The hat nodes as a float32 tensor on ``device`` (copied once a
@@ -208,7 +267,8 @@ class HestonSLVModel(ProcessModel):
         v_loc = local_variance(self.surface, k, t,
                                denominator_floor=self.denominator_floor)
         nodes = self._nodes_on(state.device)
-        beta, m, s = _fit_conditional_variance(k, vp, nodes)
+        beta, m, s = _fit_conditional_variance(
+            k, vp, nodes, axis_name=self._moment_mesh())
         z = (k.to(FLOAT_DTYPE) - m) / s
         cond_v = torch.matmul(beta.to(FLOAT_DTYPE)[None, :],
                               hat_basis(z, nodes))[0]
@@ -264,21 +324,30 @@ class MonteCarloHestonSLVModel:
     """``MonteCarloBlackScholesModel`` surface over the SLV dynamics, so
     the equity products price under calibrated SLV unchanged. Without
     ``brownian``, the increments are drawn on ``device`` (default
-    ``select_device()``) from ``seed``."""
+    ``select_device()``) from ``seed``.
+
+    ``mesh``: a ``parallel.PathMesh``. The ``EulerScheme`` then simulates
+    this rank's block of the global stream with the model bound to the
+    mesh (``self.model``, ``HestonSLVModel.on_mesh``), so every step's
+    regression fits the whole cloud, and the products reduce over the
+    ranks."""
 
     def __init__(self, time_discretization: TimeDiscretization,
                  num_paths: int, model: HestonSLVModel,
                  seed: int = 3141, brownian: BrownianMotion = None,
                  mesh=None, *, device=None):
-        _no_mesh(mesh, "MonteCarloHestonSLVModel")
-        self.model = model
         if brownian is not None and brownian.get_number_of_paths() != num_paths:
             raise ValueError(
                 f"num_paths={num_paths} does not match the supplied "
                 f"brownian's {brownian.get_number_of_paths()} paths")
+        if device is None and mesh is not None:
+            device = getattr(mesh, "device", None)
         self.brownian = brownian or BrownianMotion(
             time_discretization, 2, num_paths, seed, device=device)
-        self.process = EulerScheme(model, self.brownian, device=device)
+        self.process = EulerScheme(model, self.brownian, mesh=mesh,
+                                   device=device)
+        self.model = self.process.model
+        self.mesh = self.process.mesh
 
     def get_asset_value(self, time: float,
                         asset_index: int = 0) -> RandomVariableTorch:
@@ -309,7 +378,8 @@ class MonteCarloHestonSLVModel:
     def leverage_at(self, time: float,
                     strikes: Sequence[float]) -> np.ndarray:
         """Diagnostic: the calibrated leverage L(K, t) re-fitted on the
-        cached particle cloud at ``time``, evaluated at ``strikes``."""
+        cached particle cloud at ``time`` (the whole cloud under a mesh),
+        evaluated at ``strikes``."""
         td = self.process.time_discretization
         ti = td.get_time_index(time)
         if ti <= 0:
@@ -325,7 +395,8 @@ class MonteCarloHestonSLVModel:
         k = (log_s - math.log(p.initial_value)
              - float(f(carry * float(time))))
         nodes = mdl._nodes_on(dev)
-        beta, m, s = _fit_conditional_variance(k, v, nodes)
+        beta, m, s = _fit_conditional_variance(
+            k, v, nodes, axis_name=mdl._moment_mesh())
         kq = to_device(np.log(np.asarray(strikes, dtype=np.float64)
                               / (p.initial_value
                                  * math.exp(carry * float(time)))),

@@ -14,6 +14,10 @@ two-date express certificate.
 The compound and chooser payoffs evaluate the inner Black-Scholes value
 pathwise in float32 (``_bs_value_vec``, ``torch.log`` and ``torch.erf``),
 as the JAX functions do; the reductions are float64.
+
+Under a meshed facade (its ``mesh``, a ``parallel.PathMesh``) each payoff
+is this rank's block of the paths and its mean and standard error are
+global (``equity_products._mean_and_stderr``), equal on every rank.
 """
 
 from __future__ import annotations
@@ -25,7 +29,6 @@ import numpy as np
 import torch
 
 from ..ops.random_variable import ACC_DTYPE, FLOAT_DTYPE
-from ..parallel.mesh import sharded_unsupported
 from .analytic import _norm_cdf, black_scholes_option_value
 from .equity_products import (_Product, _black_scholes_of,
                               _deterministic_dfs, _f32, _mean_and_stderr,
@@ -134,20 +137,22 @@ def chooser_option_value(initial_value: float, risk_free_rate: float,
 # Monte-Carlo payoffs
 # ---------------------------------------------------------------------------
 
-def _forward_start_kernel(s_t1, s_t2, df: float, moneyness, is_call: bool):
+def _forward_start_kernel(s_t1, s_t2, df: float, moneyness, is_call: bool,
+                          mesh=None):
     sign = 1.0 if is_call else -1.0
     # s_t2 - moneyness * s_t1 with one rounding (an FMA), as XLA contracts
     # the JAX function's multiply-add
     gap = torch.addcmul(s_t2, s_t1, moneyness.expand_as(s_t1), value=-1.0)
     pay = torch.clamp_min(sign * gap, 0.0)
-    return _mean_and_stderr(pay.to(ACC_DTYPE) * df)
+    return _mean_and_stderr(pay.to(ACC_DTYPE) * df, mesh)
 
 
-def _cliquet_kernel(assets_with_s0, df: float, floor, cap, notional: float):
+def _cliquet_kernel(assets_with_s0, df: float, floor, cap, notional: float,
+                    mesh=None):
     ratios = assets_with_s0[1:] / assets_with_s0[:-1] - 1.0
     clipped = torch.clamp(ratios, floor, cap).to(ACC_DTYPE)
     pay = torch.sum(clipped, dim=0) * notional
-    return _mean_and_stderr(pay * df)
+    return _mean_and_stderr(pay * df, mesh)
 
 
 def _bs_value_vec(s, r, sigma, tau, k, is_call):
@@ -168,18 +173,18 @@ def _bs_value_vec(s, r, sigma, tau, k, is_call):
 
 
 def _compound_kernel(s_t1, df1: float, k1, r: float, sigma: float,
-                     tau: float, k2: float, is_call_inner: bool):
+                     tau: float, k2: float, is_call_inner: bool, mesh=None):
     inner = _bs_value_vec(s_t1, r, sigma, tau, k2, is_call_inner)
     pay = torch.clamp_min(inner - k1, 0.0)
-    return _mean_and_stderr(pay.to(ACC_DTYPE) * df1)
+    return _mean_and_stderr(pay.to(ACC_DTYPE) * df1, mesh)
 
 
 def _chooser_kernel(s_t1, df1: float, k, r: float, sigma: float,
-                    tau: float):
+                    tau: float, mesh=None):
     call = _bs_value_vec(s_t1, r, sigma, tau, k, True)
     put = call - s_t1 + k * math.exp(-r * tau)
     pay = torch.maximum(call, put)
-    return _mean_and_stderr(pay.to(ACC_DTYPE) * df1)
+    return _mean_and_stderr(pay.to(ACC_DTYPE) * df1, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -201,12 +206,11 @@ class ForwardStartOption(_Product):
 
     def packed_value_and_error(self, model) -> torch.Tensor:
         """[2] float64 (value, stderr) on the facade's device."""
-        sharded_unsupported(_mesh_of(model), "ForwardStartOption")
         assets = model.get_asset_values([self.start_time, self.maturity])
         df = float(_deterministic_dfs(model, [self.maturity])[0])
         return _forward_start_kernel(assets[0], assets[1], df,
                                      _f32(self.moneyness, assets),
-                                     self.is_call)
+                                     self.is_call, _mesh_of(model))
 
 
 class CliquetOption(_Product):
@@ -229,12 +233,12 @@ class CliquetOption(_Product):
 
     def packed_value_and_error(self, model) -> torch.Tensor:
         """[2] float64 (value, stderr) on the facade's device."""
-        sharded_unsupported(_mesh_of(model), "CliquetOption")
         assets = model.get_asset_values(self.reset_times)
         df = float(_deterministic_dfs(model, [self.reset_times[-1]])[0])
         return _cliquet_kernel(
             _with_spot_row(assets, _spot_of(model)), df,
-            _f32(self.floor, assets), _f32(self.cap, assets), self.notional)
+            _f32(self.floor, assets), _f32(self.cap, assets), self.notional,
+            _mesh_of(model))
 
 
 class CompoundOption(_Product):
@@ -260,15 +264,17 @@ class CompoundOption(_Product):
                    "Black-Scholes form; use a Black-Scholes facade")
 
     def packed_value_and_error(self, model) -> torch.Tensor:
-        """[2] float64 (value, stderr) on the facade's device."""
-        sharded_unsupported(_mesh_of(model), "CompoundOption")
+        """[2] float64 (value, stderr) on the facade's device. The payoff
+        reads ``model.get_asset_value(t1).values``: on a meshed facade
+        this rank's block of the paths, whose statistics are then
+        reduced over the ranks."""
         bs = self._bs(model)
         s_t1 = model.get_asset_value(self.t1).values
         df1 = float(_deterministic_dfs(model, [self.t1])[0])
         return _compound_kernel(
             s_t1, df1, _f32(self.k1, s_t1), float(bs.risk_free_rate),
             float(bs.volatility), self.t2 - self.t1, self.k2,
-            self.inner_is_call)
+            self.inner_is_call, _mesh_of(model))
 
 
 # ---------------------------------------------------------------------------
@@ -329,7 +335,7 @@ def autocallable_value_single_observation(
 
 def _autocall_kernel(assets, dfs, autocall_levels, coupon_levels, coupons,
                      protection_level, ref_level, notional: float,
-                     memory: bool):
+                     memory: bool, mesh=None):
     """A branchless sweep over the (small) observation schedule carrying
     the alive mask and the unpaid-memory accumulator per path. The levels,
     coupons, protection and reference level are floats rounded to float32
@@ -353,7 +359,7 @@ def _autocall_kernel(assets, dfs, autocall_levels, coupon_levels, coupons,
                                     s_i / ref_level)
             pay = pay_c + alive * principal
         acc = acc + dfs[i] * pay.to(ACC_DTYPE)
-    return _mean_and_stderr(acc * notional)
+    return _mean_and_stderr(acc * notional, mesh)
 
 
 class AutocallableNote(_Product):
@@ -402,7 +408,6 @@ class AutocallableNote(_Product):
 
     def packed_value_and_error(self, model) -> torch.Tensor:
         """[2] float64 (value, stderr) on the facade's device."""
-        sharded_unsupported(_mesh_of(model), "AutocallableNote")
         assets = model.get_asset_values(self.dates)
         dfs = [float(x) for x in _deterministic_dfs(model, self.dates)]
         ref = (self.reference_level if self.reference_level is not None
@@ -414,7 +419,7 @@ class AutocallableNote(_Product):
         return _autocall_kernel(
             assets, dfs, f32(self.autocall_levels), f32(self.coupon_levels),
             f32(self.coupons), f32([self.protection_level])[0],
-            f32([ref])[0], self.notional, self.memory)
+            f32([ref])[0], self.notional, self.memory, _mesh_of(model))
 
 
 class ChooserOption(_Product):
@@ -431,8 +436,10 @@ class ChooserOption(_Product):
         self.strike = float(strike)
 
     def packed_value_and_error(self, model) -> torch.Tensor:
-        """[2] float64 (value, stderr) on the facade's device."""
-        sharded_unsupported(_mesh_of(model), "ChooserOption")
+        """[2] float64 (value, stderr) on the facade's device. The payoff
+        reads ``model.get_asset_value(choice_time).values``: on a meshed
+        facade this rank's block of the paths, whose statistics are then
+        reduced over the ranks."""
         bs = _black_scholes_of(
             model, "chooser valuation closes the branches in Black-Scholes "
                    "form; use a Black-Scholes facade")
@@ -440,4 +447,4 @@ class ChooserOption(_Product):
         df1 = float(_deterministic_dfs(model, [self.t1])[0])
         return _chooser_kernel(
             s_t1, df1, _f32(self.strike, s_t1), float(bs.risk_free_rate),
-            float(bs.volatility), self.maturity - self.t1)
+            float(bs.volatility), self.maturity - self.t1, _mesh_of(model))

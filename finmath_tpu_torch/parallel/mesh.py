@@ -147,15 +147,6 @@ def check_mesh(mesh) -> Optional[PathMesh]:
         "torch.distributed takes a PathMesh (make_path_mesh)")
 
 
-def sharded_unsupported(mesh, what: str) -> None:
-    """Raise ``NotImplementedError`` for a computation whose path-axis
-    reductions are still local when it is given a mesh."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what} under a mesh: its path-axis reductions are not routed "
-            "through the mesh yet")
-
-
 def make_path_mesh(num_ranks: Optional[int] = None, *,
                    device=None) -> PathMesh:
     """A ``PathMesh`` over the initialized default process group.

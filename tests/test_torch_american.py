@@ -8,18 +8,19 @@ market (S0 100, K 110, r 5%, sigma 30%, T 1, 50 exercise dates).
   ``BrownianMotionFinmathMersenne`` paths, copied with NumPy), for the put
   and the call, split and in-sample, degrees 3 and 2. The decision
   compares a path's exercise value with a float32 continuation from betas
-  fitted on a float32 Gram that the two packages sum in different orders
-  (the Gram entries differ by about 1e-6 relative), so a few paths near
-  the boundary decide differently. Date by date on the JAX kernel's own
-  cash (``jax_cashflows``: the JAX arithmetic with the cash returned,
-  first checked against ``_ls_kernel``'s value and error to 1e-14), at most 25
-  decisions differ over the 49 regressions (measured 3, 11, 3 and 0).
-  Run free, each such path changes the next regressions' right-hand side,
-  and the differences cascade: 454-609 of 20,000 paths end with another
-  cashflow (none for the call, which is never exercised), and the values
-  sit up to 0.084 standard errors apart (0.098 end to end on the Mersenne
-  paths). The bound is 0.25 standard errors: 0.05 does not hold for a
-  float32 regression whose decisions cascade.
+  fitted on a Gram that the JAX package sums in float32 and the port in
+  float64 (the JAX Gram's entries carry its float32 rounding, about 1e-6
+  relative), so a few paths near the boundary decide differently. Date by
+  date on the JAX kernel's own cash (``jax_cashflows``: the JAX arithmetic
+  with the cash returned, first checked against ``_ls_kernel``'s value and
+  error to 1e-14), at most 25 decisions differ over the 49 regressions
+  (measured 2, 5, 3 and 0; 3, 11, 3 and 0 when the port's Gram was float32
+  too). Run free, each such path changes the next regressions' right-hand
+  side, and the differences cascade: 11-473 of 20,000 paths end with
+  another cashflow (none for the call, which is never exercised), and the
+  values sit up to 0.104 standard errors apart (0.104 end to end on the
+  Mersenne paths). The bound is 0.25 standard errors: 0.05 does not hold
+  for a regression whose decisions cascade.
 * On the port's own torch stream: ``tests/test_american.py``'s CRR bounds,
   the call equal to the European, one in-sample date equal to the
   European; and the validation errors of the JAX module.

@@ -10,9 +10,12 @@ Also: the Black-Scholes facade on the finmath Mersenne stream, meshed in
 the port and meshed in the JAX package (eight virtual devices), at the
 facade parity bound of ``tests/test_torch_black_scholes.py`` (rel 1e-6);
 a meshed ``RandomVariableTorch``'s reductions against NumPy on the whole
-vector; and the products whose path reductions are still local (the
-Longstaff-Schwartz option, the structured products, the hedges, the
-local-vol call grid), which raise under a mesh.
+vector; and the products whose path reductions were local before they
+were routed through the mesh (the Longstaff-Schwartz option, a structured
+product, the variance swap, the local-vol call grid), which now return
+global statistics, equal on every rank and within 1e-9 of the unsharded
+facade's (``tests/test_torch_slv_products_mesh.py`` covers every such
+product); a foreign mesh object still raises.
 
 The ranks import only torch, numpy and the port (``rank_scenarios``); the
 parent computes the unsharded and the JAX references while they run.
@@ -130,12 +133,28 @@ def _error(fn):
     return None
 
 
-def rank_scenarios(mesh):
-    from finmath_tpu_torch.models import black_scholes as tbs
+def local_products(sims) -> dict:
+    """(value, stderr) of the products whose path reductions were local
+    before they were routed through the mesh; the call grid flattened."""
     from finmath_tpu_torch.models.american import BermudanOption
     from finmath_tpu_torch.models.hedging import VarianceSwap
     from finmath_tpu_torch.models.local_vol import european_call_values
     from finmath_tpu_torch.models.structured_products import CliquetOption
+
+    sim = sims["bs"]
+    return {
+        "BermudanOption": BermudanOption(
+            [0.5, T], 100.0, is_call=False).get_value_and_error(sim),
+        "CliquetOption": CliquetOption(
+            [0.5, T], -0.05, 0.1).get_value_and_error(sim),
+        "VarianceSwap": VarianceSwap(T).get_value_and_error(sim),
+        "european_call_values": tuple(european_call_values(
+            sims["local_vol"], [100.0], [T]).ravel()),
+    }
+
+
+def rank_scenarios(mesh):
+    from finmath_tpu_torch.models import black_scholes as tbs
     from finmath_tpu_torch.ops.random_variable import RandomVariableTorch
 
     sims = facades(mesh)
@@ -166,16 +185,10 @@ def rank_scenarios(mesh):
         scaled_meshed=scaled.mesh is mesh,
         realizations=rv.get_realizations())
 
-    sim = sims["bs"]
-    out["local_products"] = {
-        "BermudanOption": _error(lambda: BermudanOption(
-            [0.5, T], 100.0, is_call=False).get_value(sim)),
-        "CliquetOption": _error(lambda: CliquetOption(
-            [0.5, T], -0.05, 0.1).get_value(sim)),
-        "VarianceSwap": _error(lambda: VarianceSwap(T).get_value(sim)),
-        "european_call_values": _error(lambda: european_call_values(
-            sims["local_vol"], [100.0], [T])),
-    }
+    out["local_products"] = local_products(sims)
+    out["foreign_mesh"] = _error(lambda: tbs.MonteCarloBlackScholesModel(
+        td(10), N_PATHS, tbs.BlackScholesModel(S0, R, SIG), seed=5,
+        mesh=object(), device="cpu"))
     out["collectives"] = mesh.calls
     return out
 
@@ -199,7 +212,9 @@ def _references() -> dict:
     from finmath_tpu.models.time_discretization import (
         TimeDiscretization as JTD)
 
-    ref = {"prices": prices(facades(None))}
+    unsharded = facades(None)
+    ref = {"prices": prices(unsharded),
+           "local_products": local_products(unsharded)}
     jtd = JTD(initial=0.0, num_steps=MERSENNE_STEPS, step=T / MERSENNE_STEPS)
     jsim = jbs.MonteCarloBlackScholesModel(
         jtd, MERSENNE_PATHS, jbs.BlackScholesModel(S0, R, SIG),
@@ -287,11 +302,16 @@ def test_meshed_random_variable_reductions_match_numpy(run):
 
 
 def test_local_reductions_raise_under_a_mesh(run):
-    """Products whose path reductions are not routed through the mesh yet
-    refuse a meshed facade instead of returning one rank's statistics."""
-    ranks, _ = run
+    """The products whose path reductions were local (they raised under a
+    mesh before) now reduce over the ranks: the same statistics on every
+    rank, within 1e-9 of the unsharded facade's; a foreign mesh object
+    still raises."""
+    ranks, refs = run
     for r in ranks:
-        for name, err in r["local_products"].items():
-            assert err is not None and err.startswith(
-                "NotImplementedError") and "not routed through the mesh yet" \
-                in err, (name, err)
+        assert r["foreign_mesh"].startswith("NotImplementedError"), \
+            r["foreign_mesh"]
+        assert r["local_products"] == ranks[0]["local_products"]
+        for name, got in r["local_products"].items():
+            want = refs["local_products"][name]
+            np.testing.assert_allclose(got, want, rtol=1e-9, atol=0.0,
+                                       err_msg=name)

@@ -20,8 +20,11 @@ parameters at a small size.
 * The once-a-step fit (the ``_total_vol`` cache) bit-equal to fitting for
   the drift and again for the loadings; ``mixing=0`` on the flat surface
   against term-vol Black-Scholes (``tests/test_slv.py:70-86``) on the
-  port's stream; the validation errors, ``axis_name``, ``mesh=`` and the
-  device rule."""
+  port's stream; the validation errors, the device rule, and on a mesh
+  of one rank (``OneRankMesh``): the meshed fit's two all-reduces, a
+  named ``axis_name`` (also one converted from a JAX model) bound by the
+  meshed facade and refused unbound, and a foreign mesh object refused
+  (``tests/test_torch_slv_products_mesh.py`` runs four ranks)."""
 
 import math
 
@@ -39,6 +42,7 @@ from finmath_tpu_torch.models.analytic import (  # noqa: E402
     black_scholes_option_value)
 from finmath_tpu_torch.models.time_discretization import (  # noqa: E402
     TimeDiscretization)
+from finmath_tpu_torch.parallel.mesh import PathMesh  # noqa: E402
 from test_torch_fourier_bachelier import (  # noqa: E402, F401
     _raises_alike, one_blas_thread)
 
@@ -226,20 +230,84 @@ def test_mixing_zero_is_black_scholes_on_flat_surface():
         assert abs(v - an) < 4 * e + 2e-3 * an
 
 
+class OneRankMesh(PathMesh):
+    """A ``PathMesh`` of one rank with no process group: its all-reduce
+    returns a copy and counts the call, its gather a copy."""
+
+    def __init__(self):
+        super().__init__(None, 0, 1, torch.device(CPU), "gloo")
+
+    def all_reduce(self, x, op="sum"):
+        self.calls += 1
+        return x.clone()
+
+    def all_gather(self, x):
+        return x.clone()
+
+
+def test_converted_named_axis_binds_to_the_mesh():
+    from finmath_tpu_torch import convert
+
+    jtd, td = grids()
+    model = convert.equity_model_from_jax(jax_model(jtd, axis_name="paths"))
+    assert model.axis_name == "paths" and model.mesh is None
+    assert model != port_model(td)
+    with pytest.raises(ValueError, match="bound to no mesh"):
+        model._total_vol(0, model.initial_state(16, CPU))
+    one = OneRankMesh()
+    bound = model.on_mesh(one)
+    k, v = _cloud(512)
+    state = torch.as_tensor(np.stack([np.log(S0) + k, v]).astype(np.float32))
+    np.testing.assert_allclose(
+        bound._total_vol(3, state).numpy(),
+        convert.equity_model_from_jax(jax_model(jtd))._total_vol(
+            3, state).numpy(), rtol=1e-6)
+    assert one.calls == 2
+
+
 def test_validation_and_device_rule(monkeypatch):
     jtd, td = grids()
     for kw in (dict(mixing=1.5), dict(mixing=-0.1), dict(num_basis=2)):
         _raises_alike(lambda: port_model(td, **kw),
                       lambda: jax_model(jtd, **kw))
-    with pytest.raises(NotImplementedError, match="axis_name"):
-        port_model(td, axis_name="paths")
-    with pytest.raises(NotImplementedError):
-        tslv._fit_conditional_variance(torch.zeros(4), torch.zeros(4),
-                                       torch.zeros(4), axis_name="paths")
+    # a meshed fit: on a mesh of one rank the two all-reduces (count and
+    # moments, then Gram and right-hand side) leave the fit as it is;
+    # tests/test_torch_slv_products_mesh.py holds four ranks against it
+    k, v = _cloud(2_000)
+    nodes = torch.as_tensor(tslv._nodes(3.0, 13))
+    one = OneRankMesh()
+    meshed = tslv._fit_conditional_variance(
+        torch.as_tensor(k), torch.as_tensor(v), nodes, axis_name=one)
+    plain = tslv._fit_conditional_variance(
+        torch.as_tensor(k), torch.as_tensor(v), nodes)
+    assert one.calls == 2
+    for a, b in zip(meshed, plain):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6)
+    # a named axis is bound by the meshed facade, and raises unbound
+    named = port_model(td, axis_name="paths")
+    with pytest.raises(ValueError, match="bound to no mesh"):
+        tslv.MonteCarloHestonSLVModel(td, 64, named, seed=1, device=CPU
+                                      ).get_asset_value(1.0)
+    one = OneRankMesh()
+    sim = tslv.MonteCarloHestonSLVModel(td, 64, named, seed=1, mesh=one,
+                                        device=CPU)
+    assert sim.model.mesh is one and sim.mesh is one and named.mesh is None
+    assert sim.model != named and sim.model.on_mesh(one) is sim.model
+    free = tslv.MonteCarloHestonSLVModel(td, 64, port_model(td), seed=1,
+                                         device=CPU)
+    np.testing.assert_allclose(sim.get_asset_value(1.0).get_realizations(),
+                               free.get_asset_value(1.0).get_realizations(),
+                               rtol=1e-6)
+    assert one.calls == 2 * STEPS
+    with pytest.raises(ValueError, match="already"):
+        sim.model.on_mesh(OneRankMesh())
+    # a foreign mesh object is refused by parallel.mesh.check_mesh
+    with pytest.raises(NotImplementedError, match="PathMesh"):
+        port_model(td, axis_name=object())
     bm = tbm.BrownianMotion(td, 2, 256, 7, device=CPU)
     with pytest.raises(ValueError, match="does not match"):
         tslv.MonteCarloHestonSLVModel(td, 512, port_model(td), brownian=bm)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(NotImplementedError, match="PathMesh"):
         tslv.MonteCarloHestonSLVModel(td, 8, port_model(td), mesh=object(),
                                       device=CPU)
     m1, m2 = port_model(td), port_model(td)
