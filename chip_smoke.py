@@ -343,6 +343,14 @@ Phases, one line of output each (more for the kernel builds), in order:
     trace printed), the ATM checkpoint round trip with bit-equal
     residuals); (d) examples 01-04 at their default sizes (02's
     fused price one ``bs_paths_kernel`` launch, 04 on NCCL ranks);
+49. examples 05-16 (``finmath_tpu_torch/examples``) at their default
+    sizes, one after another in this process, every kernel count set to 0
+    before each and read after it: each script's own asserts; 05 takes
+    exactly one ``bs_paths`` and one ``lmm_swaption_paths`` launch, its
+    fused price within 0.005 of the analytic value; 16's timed
+    ``residuals_and_jacobian`` is exactly one ``lmm_stochvol_products``
+    launch (B = 17, 81,920 Sobol paths), within 5e-5 of the engine's
+    residuals; each script's wall and key numbers printed;
 6. with ``--profile`` only, last: device operations and busy time under
    ``torch.profiler`` for one ATM calibration, one engine Jacobian, one
    ATM kernel residual call, one stoch-vol kernel
@@ -5364,6 +5372,150 @@ def _path_mesh_f3(torch, smi) -> None:
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 49: examples 05-16 at their default sizes (no kernel of their own)
+# ---------------------------------------------------------------------------
+
+F4_EXAMPLES = ("05_pallas_kernels_and_bermudan",
+               "06_lazy_qmc_and_reference_stream", "07_risk_ladders",
+               "08_exposure_cva", "09_model_zoo", "10_exotics_and_rainbows",
+               "11_rates_cube_cms_bermudan",
+               "12_localvol_structured_caps_hybrid",
+               "13_credit_xccy_portfolio", "14_inflation_commodity_risk",
+               "15_bermudan_exposure_kva",
+               "16_kernel_calibration_and_portfolio")
+
+
+def _f4_key_numbers(name, res) -> dict:
+    """What phase 49 prints of example ``name``'s result."""
+    if name.startswith("05"):
+        return {k: res[k] for k in ("analytic", "scan", "fused",
+                                    "swaption_engine", "swaption_kernel",
+                                    "swaption_rel_dev", "european",
+                                    "bermudan")}
+    if name.startswith("06"):
+        return {"lazy_average": res["lazy"]["average"],
+                "mersenne_vol0": float(res["reference_vols"][0]),
+                "qmc_variance": res["qmc"]["terminal_variance"],
+                "bermudan": res["bermudan"],
+                "swap_s": res["swapping"]["seconds"]}
+    if name.startswith("07"):
+        p, m = res["portfolio"], res["matrix"]
+        return {"value": p["value"], "cold_s": p["cold_s"],
+                "warm_s": p["warm_s"],
+                "rows_sum_to_ladder": m["rows_sum_to_ladder"]}
+    if name.startswith("08"):
+        return {"martingale": res["martingale"],
+                "cva_120bp": res["cva"][0.012],
+                "netted_cva": res["netted_cva"],
+                "bilateral_cva": res["bilateral_cva"]}
+    if name.startswith("09"):
+        return {k: v["wall_s"] for k, v in res.items()}
+    if name.startswith("10"):
+        vi, vo, ve = res["path_dependent"]["parity"]
+        return {"in_plus_out_minus_european": vi + vo - ve,
+                "sabr_fit_rms": res["sabr"]["fit_rms"]}
+    if name.startswith("11"):
+        b = res["bermudan"]
+        return {"bermudan": b["value"], "stderr": b["stderr"],
+                "pde": b["pde"], "ms": b["ms"]}
+    if name.startswith(("12", "13", "14")):
+        return {"walls_s": res["walls"]}
+    if name.startswith("15"):
+        return {"bracket": list(res["bracket"]), "cva": res["cva"],
+                "kva": res["kva"]}
+    cal = res["calibration"]
+    return {"jacobian_shape": list(cal["jacobian"].shape), "ms": cal["ms"],
+            "timed_launches": cal["launches"], "gap": cal["gap"],
+            "book": [list(v) for v in res["book"]["results"]]}
+
+
+def _examples_f4(torch, smi) -> None:
+    """Phase 49 (no kernel of its own): examples 05-16 at their default
+    sizes on the card, one after another in this process. Every kernel
+    count is set to 0 just before each ``main`` and read just after it.
+    Each script's own asserts are gates; example 05 must take exactly one
+    ``bs_paths`` and one ``lmm_swaption_paths`` launch with its fused price
+    within 0.005 of the analytic value, and example 16's timed
+    ``residuals_and_jacobian`` exactly one ``lmm_stochvol_products``
+    launch within 5e-5 of the engine's residuals. Printed: each script's
+    wall, launches and key numbers, beside the card's name and power
+    limit."""
+    import importlib.util
+    import traceback
+
+    from finmath_tpu_torch.ops import _swaption_paths as sp
+    from finmath_tpu_torch.ops import kernels, lmm_kernel, lmm_stochvol_kernel
+
+    def reset():
+        kernels.LAUNCHES.update(dict.fromkeys(kernels.LAUNCHES, 0))
+        sp.LAUNCHES.update(dict.fromkeys(sp.LAUNCHES, 0))
+        lmm_kernel.LAUNCHES = lmm_stochvol_kernel.LAUNCHES = 0
+
+    def counts() -> dict:
+        got = {k: v for k, v in {**kernels.LAUNCHES, **sp.LAUNCHES}.items()
+               if v}
+        if lmm_kernel.LAUNCHES:
+            got["lmm_atm_products"] = lmm_kernel.LAUNCHES
+        if lmm_stochvol_kernel.LAUNCHES:
+            got["lmm_stochvol_products"] = lmm_stochvol_kernel.LAUNCHES
+        return got
+
+    t_phase = time.perf_counter()
+    out, results, checks = {}, {}, {}
+    for name in F4_EXAMPLES:
+        spec = importlib.util.spec_from_file_location(
+            f"port_example_{name}",
+            os.path.join(REPO, "finmath_tpu_torch", "examples",
+                         f"{name}.py"))
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        torch.cuda.synchronize()
+        reset()
+        t0 = time.perf_counter()
+        try:
+            res = module.main()
+        except Exception:     # an assert of the script, or any failure
+            traceback.print_exc()
+            res = None
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out[name] = {"wall_s": wall, "launches": counts()}
+        checks[f"example {name[:2]}'s own asserts hold"] = res is not None
+        if res is not None:
+            results[name] = res
+            out[name].update(_f4_key_numbers(name, res))
+        torch.cuda.empty_cache()
+
+    k05, k16 = F4_EXAMPLES[0], F4_EXAMPLES[-1]
+    if k05 in results:
+        launches = out[k05]["launches"]
+        checks["example 05: one bs_paths launch"] = \
+            launches.get("bs_paths", 0) == 1
+        checks["example 05: one lmm_swaption_paths launch"] = \
+            launches.get("lmm_swaption_paths", 0) == 1
+        checks["example 05: fused price within 0.005 of the analytic"] = \
+            abs(results[k05]["fused"] - results[k05]["analytic"]) < 0.005
+    if k16 in results:
+        cal = results[k16]["calibration"]
+        checks["example 16: the timed call is one lmm_stochvol_products "
+               "launch"] = cal["launches"] == 1
+        checks["example 16: warm-up and timed call, two launches in all"] = \
+            out[k16]["launches"].get("lmm_stochvol_products", 0) == 2
+        checks["example 16: 17 parameter sets, a (15, 8) Jacobian"] = (
+            cal["parameter_sets"] == 17
+            and tuple(cal["jacobian"].shape) == (15, 8))
+        checks["example 16: kernel within 5e-5 of the engine"] = \
+            cal["gap"] < 5e-5
+    print(f"phase 49 examples 05-16 ({smi}): "
+          + json.dumps(out, default=float), flush=True)
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"chip_smoke: phase 49 failed: {failed}")
+    print(f"phase 49 seconds: {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -5817,6 +5969,9 @@ def main(argv=None) -> int:
     # -- 48: sharding F3 (Heston-SLV, the remaining equity products), the
     # utilities and examples 01-04 (no kernel) ------------------------------
     _path_mesh_f3(torch, smi)
+
+    # -- 49: examples 05-16 at their default sizes (no kernel) ------------
+    _examples_f4(torch, smi)
 
     if opts.profile:
         _profile(torch, setup, kb, sv, sv_kb, later)

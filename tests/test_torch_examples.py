@@ -15,9 +15,11 @@ gloo CPU ranks for the file (``parallel.launch``), as ``main`` does.
   path loads in the JAX package bit for bit; the 144 x 43 Jacobian.
 * 04: every rank returns the same residuals, gradient and ladder (the
   script's assert), the gradient is finite, the ladder has 80 buckets.
-* Each script prints the JAX script's lines, imports only the standard
-  library, numpy, torch and the port, and runs on the card unless it is
-  given ``device="cpu"`` (without a card, the default raises)."""
+* Each of the 16 scripts imports only the standard library, numpy, torch
+  and the port, and runs on the card unless it is given ``device="cpu"``
+  (without a card, the default raises: checked for 01, 04, 05 and 16).
+  Examples 05-16 run in ``tests/test_torch_examples_lmm.py`` and
+  ``tests/test_torch_examples_models.py``."""
 
 import ast
 import importlib.util
@@ -33,7 +35,13 @@ torch.set_num_threads(1)
 EXAMPLES = Path(__file__).resolve().parents[1] / "finmath_tpu_torch" / \
     "examples"
 NAMES = ["01_random_variables", "02_black_scholes_greeks",
-         "03_lmm_calibration", "04_multichip_sharding"]
+         "03_lmm_calibration", "04_multichip_sharding",
+         "05_pallas_kernels_and_bermudan",
+         "06_lazy_qmc_and_reference_stream", "07_risk_ladders",
+         "08_exposure_cva", "09_model_zoo", "10_exotics_and_rainbows",
+         "11_rates_cube_cms_bermudan", "12_localvol_structured_caps_hybrid",
+         "13_credit_xccy_portfolio", "14_inflation_commodity_risk",
+         "15_bermudan_exposure_kva", "16_kernel_calibration_and_portfolio"]
 CPU = "cpu"
 
 
@@ -45,16 +53,22 @@ def load(name):
     return module
 
 
-@pytest.fixture(scope="module")
-def sharding_run():
-    """Example 04 on one world of four gloo CPU ranks, with its output."""
+def run(name, **kw):
+    """``main(device="cpu", **kw)`` of example ``name``: its result and
+    what it printed."""
     import contextlib
     import io
 
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        out = load(NAMES[3]).main(num_ranks=4, num_paths=800, device=CPU)
+        out = load(name).main(device=CPU, **kw)
     return out, buf.getvalue()
+
+
+@pytest.fixture(scope="module")
+def sharding_run():
+    """Example 04 on one world of four gloo CPU ranks, with its output."""
+    return run(NAMES[3], num_ranks=4, num_paths=800)
 
 
 def test_01_random_variables(capsys):
@@ -138,8 +152,8 @@ def test_imports_only_the_port(name):
             roots.update(a.name.split(".")[0] for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             roots.add(node.module.split(".")[0])
-    assert roots <= {"os", "sys", "math", "tempfile", "numpy", "torch",
-                     "finmath_tpu_torch"}, roots
+    assert roots <= {"os", "sys", "math", "tempfile", "time", "numpy",
+                     "torch", "finmath_tpu_torch"}, roots
 
 
 def test_default_device_is_the_card(monkeypatch):
@@ -150,3 +164,6 @@ def test_default_device_is_the_card(monkeypatch):
         load(NAMES[0]).main(num_paths=64)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         load(NAMES[3]).main(num_ranks=1)
+    for name in (NAMES[4], NAMES[15]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            load(name).main()
