@@ -1,0 +1,8 @@
+"""Share of its roofline that the kernel of ``roofline/sv_products.py``
+reaches over the traced window (``rooflines.share``)."""
+
+from rooflines import share
+
+
+def read(ctx):
+    return share(ctx, "sv_products")
