@@ -3,9 +3,10 @@
 Equivalent of finmath-lib's ``LevenbergMarquardt`` optimizer as configured
 by the reference's calibration tests (LIBORMarketModelCalibrationATMTest
 .java:317-339: RegularizationMethod.LEVENBERG, lambda = 0.1, <= 200
-iterations, accuracy 1e-7, parameter bounds [0, inf)). Copied unchanged
-from ``finmath_tpu.models.calibration`` (host-side NumPy; the tests hold
-the iterates equal).
+iterations, accuracy 1e-7, parameter bounds [0, inf)). Copied from
+``finmath_tpu.models.calibration`` (host-side NumPy; the tests hold the
+iterates equal); ``LevenbergMarquardt`` adds its calls and rejected steps
+to ``LMResult`` and traces a run (``utils.profiling.span``).
 
 The Jacobian comes from the caller: ``torch.func.jacfwd`` through the
 engine, or the kernel backend's finite differences; the tiny
@@ -23,6 +24,8 @@ from typing import Callable, List, Optional
 
 import numpy as np
 
+from ..utils.profiling import span
+
 logger = logging.getLogger("finmath_tpu_torch.calibration")
 
 
@@ -38,6 +41,11 @@ class LMResult:
     #: stage) — populated by the staged procedures (calibrate_multistart)
     #: so a single result row is self-explaining
     stages: dict = field(default_factory=dict)
+    #: calls of the residual and Jacobian functions, and trial steps whose
+    #: residuals were computed and rejected (``LevenbergMarquardt``)
+    residual_calls: int = 0
+    jacobian_calls: int = 0
+    rejected_steps: int = 0
 
 
 class LevenbergMarquardt:
@@ -69,8 +77,21 @@ class LevenbergMarquardt:
         return float(np.sqrt(np.mean(r * r)))
 
     def run(self, x0: np.ndarray) -> LMResult:
+        """Iterate from ``x0``; traced as the span ``finmath.lm.run`` (its
+        counts as attributes), each trial step's normal equations, solve
+        and clip as a ``finmath.lm.solve`` inside it."""
+        with span("finmath.lm.run") as s:
+            result = self._run(x0)
+            s.set(residual_calls=result.residual_calls,
+                  jacobian_calls=result.jacobian_calls,
+                  rejected_steps=result.rejected_steps,
+                  iterations=result.iterations)
+        return result
+
+    def _run(self, x0: np.ndarray) -> LMResult:
         x = np.asarray(x0, dtype=np.float64).copy()
         r = np.asarray(self.residual_fn(x), dtype=np.float64)
+        residual_calls, jacobian_calls, rejected = 1, 0, 0
         err = self._rms(r)
         lam = self.lambda0
         history = [err]
@@ -82,19 +103,25 @@ class LevenbergMarquardt:
                 converged = True
                 break
             J = np.asarray(self.jacobian_fn(x), dtype=np.float64)
-            jtj = J.T @ J
-            jtr = J.T @ r
+            jacobian_calls += 1
+            jtj = None
             accepted = False
             while lam <= self.max_lambda:
-                try:
-                    delta = np.linalg.solve(
-                        jtj + lam * np.eye(len(x)), -jtr
-                    )
-                except np.linalg.LinAlgError:
-                    lam *= self.lambda_multiplicator
-                    continue
-                x_new = np.clip(x + delta, self.lower_bound, self.upper_bound)
+                with span("finmath.lm.solve"):
+                    if jtj is None:
+                        jtj = J.T @ J
+                        jtr = J.T @ r
+                    try:
+                        delta = np.linalg.solve(
+                            jtj + lam * np.eye(len(x)), -jtr
+                        )
+                    except np.linalg.LinAlgError:
+                        lam *= self.lambda_multiplicator
+                        continue
+                    x_new = np.clip(x + delta, self.lower_bound,
+                                    self.upper_bound)
                 r_new = np.asarray(self.residual_fn(x_new), dtype=np.float64)
+                residual_calls += 1
                 err_new = self._rms(r_new)
                 if np.isfinite(err_new) and err_new < err:
                     improvement = err - err_new
@@ -106,6 +133,7 @@ class LevenbergMarquardt:
                     if improvement < self.accuracy:
                         converged = True
                     break
+                rejected += 1
                 lam *= self.lambda_multiplicator
             if not accepted or converged:
                 converged = converged or not accepted and err < 10 * self.accuracy
@@ -113,7 +141,10 @@ class LevenbergMarquardt:
 
         return LMResult(parameters=x, rms_error=err, iterations=it,
                         converged=converged or err < self.accuracy,
-                        lambda_final=lam, history=history)
+                        lambda_final=lam, history=history,
+                        residual_calls=residual_calls,
+                        jacobian_calls=jacobian_calls,
+                        rejected_steps=rejected)
 
 
 class BatchedLevenbergMarquardt:

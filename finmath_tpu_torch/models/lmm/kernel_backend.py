@@ -21,6 +21,15 @@ the CPU.
   numbers: ONE launch over 2 * n_params + 1 parameter sets sharing one
   realization.
 
+Each call is traced (``utils.profiling.span``) as
+``finmath.backend.residuals`` or ``finmath.backend.jacobian`` (attribute
+``sets``, the parameter sets of its launch), with the parts
+``finmath.backend.pack`` (the parameters to the device, the FD sets, the
+loading tables and scalars), ``finmath.backend.launch`` and
+``finmath.backend.reduce`` (the stoch-vol kernel's tile sums, the division
+by the paths, the weights and the FD differences) and
+``finmath.backend.implied_vol``; the fetch to the host is the call's own.
+
 The backends price the engine's own paths: they read the engine's
 device-resident increments directly (``[S, F', paths]``, already scaled by
 sqrt(dt), passed with ``sqrt_dt = 1``), so kernel and engine agree to the
@@ -41,6 +50,7 @@ import torch
 
 from ...ops.lmm_kernel import lmm_atm_swaptions_batch
 from ...ops.lmm_stochvol_kernel import lmm_stochvol_swaptions_batch
+from ...utils.profiling import span
 from .model import (LMMValuationEngine, bachelier_implied_vol,
                     black_implied_vol)
 
@@ -51,8 +61,10 @@ class _KernelBackend:
     """What the two backends share: the scope guards and tables common to
     both kernels, parameter vectors on the engine's device, the loading
     table, and the central-difference Jacobian under common random numbers
-    from ONE batched residual evaluation. A backend defines
-    ``_residuals(params_b, *realization)``."""
+    from ONE batched residual evaluation, and the traced calls. A backend
+    defines ``kernel_arguments(params_b, *realization)``, ``_values(args,
+    kwargs)`` (the kernel's call to the products' values ``[B, P]``) and
+    ``_implied_vol``."""
 
     _name = "kernel backend"
 
@@ -116,12 +128,39 @@ class _KernelBackend:
         return torch.cat([params[None, :], params[None, :] + shift,
                           params[None, :] - shift]), h
 
-    def _residuals_and_jacobian(self, params: torch.Tensor, *realization):
-        X, h = self.fd_parameter_sets(params)
-        r = self._residuals(X, *realization)                       # [2n+1, P]
+    def _residuals(self, params_b: torch.Tensor, *realization):
+        """The weighted residual rows ``[B, P]`` of the parameter sets
+        ``params_b`` on the engine's device."""
+        with span("finmath.backend.pack"):
+            args, kwargs = self.kernel_arguments(params_b, *realization)
+        values = self._values(args, kwargs)
+        with span("finmath.backend.implied_vol"):
+            iv = self._implied_vol(values, self._fwd0, self._strike,
+                                   self._texp, self._ann0)
+        with span("finmath.backend.reduce"):
+            return self._weight * (iv - self._target)
+
+    def _row(self, x, *realization) -> np.ndarray:
+        """The residual row at ``x``, on the host: one call, one launch."""
+        with span("finmath.backend.residuals", sets=1):
+            with span("finmath.backend.pack"):
+                params_b = self.params(x)[None, :]
+            return self._residuals(params_b, *realization)[0].cpu().numpy()
+
+    def _jacobian(self, x, *realization, row: bool = False):
+        """The central-difference Jacobian ``[P, n_params]`` at ``x`` (and,
+        with ``row``, the residual row there first), on the host: one
+        call, one launch over the 2 * n_params + 1 sets."""
         k = self._n_params
-        J = (r[1:1 + k] - r[1 + k:]) / (2.0 * h[:, None])
-        return r[0], J.T
+        with span("finmath.backend.jacobian", sets=2 * k + 1):
+            with span("finmath.backend.pack"):
+                X, h = self.fd_parameter_sets(self.params(x))
+            r = self._residuals(X, *realization)                   # [2n+1, P]
+            with span("finmath.backend.reduce"):
+                J = ((r[1:1 + k] - r[1 + k:]) / (2.0 * h[:, None])).T
+            if row:
+                return r[0].cpu().numpy(), J.cpu().numpy()
+            return J.cpu().numpy()
 
 
 class ATMKernelCalibration(_KernelBackend):
@@ -130,6 +169,7 @@ class ATMKernelCalibration(_KernelBackend):
     weights, numeraire adjustment and implied-vol inversion)."""
 
     _name = "ATM kernel backend"
+    _implied_vol = staticmethod(bachelier_implied_vol)
 
     def __init__(self, engine: LMMValuationEngine):
         cov = engine.model.covariance
@@ -189,8 +229,7 @@ class ATMKernelCalibration(_KernelBackend):
                      products=self._products, events=self._events,
                      displaced=self._displaced, num_paths=self.num_paths))
 
-    def _values(self, params_b: torch.Tensor) -> torch.Tensor:
-        args, kwargs = self.kernel_arguments(params_b)
+    def _values(self, args, kwargs) -> torch.Tensor:
         sums = lmm_atm_swaptions_batch(*args, **kwargs)            # [B, P+E]
         P, paths = self._P, self.num_paths
         raw = sums[:, :P] / paths
@@ -199,21 +238,15 @@ class ATMKernelCalibration(_KernelBackend):
         inv_p = (sums[:, P:] / paths)[:, self._ev_of]              # [B, P]
         return raw * torch.where(inv_p > 0.0, self._df_exercise / inv_p, 0.0)
 
-    def _residuals(self, params_b: torch.Tensor) -> torch.Tensor:
-        iv = bachelier_implied_vol(self._values(params_b), self._fwd0,
-                                   self._strike, self._texp, self._ann0)
-        return self._weight * (iv - self._target)                  # [B, P]
-
     # ------------------------------------------------------------------
     def residuals(self, x) -> np.ndarray:
-        return self._residuals(self.params(x)[None, :])[0].cpu().numpy()
+        return self._row(x)
 
     def jacobian(self, x) -> np.ndarray:
-        return self._residuals_and_jacobian(self.params(x))[1].cpu().numpy()
+        return self._jacobian(x)
 
     def residuals_and_jacobian(self, x):
-        r0, J = self._residuals_and_jacobian(self.params(x))
-        return r0.cpu().numpy(), J.cpu().numpy()
+        return self._jacobian(x, row=True)
 
     def implied_vols(self, x) -> np.ndarray:
         w = self._weight.cpu().numpy()
@@ -235,6 +268,8 @@ class StochVolKernelCalibration(_KernelBackend):
     in the engine's injected format, and every entry point takes ``k=``.
     Nothing on the backend changes between calls, so calls on different
     realizations may run from several threads."""
+
+    _implied_vol = staticmethod(black_implied_vol)
 
     def __init__(self, engine: LMMValuationEngine,
                  realizations: Optional[Sequence] = None):
@@ -328,31 +363,32 @@ class StochVolKernelCalibration(_KernelBackend):
                 dict(num_libors=self._n, num_factors=self._F,
                      products=self._products, num_paths=self.num_paths))
 
-    def _residuals(self, params_b: torch.Tensor, k: int) -> torch.Tensor:
-        args, kwargs = self.kernel_arguments(params_b, k)
-        values = lmm_stochvol_swaptions_batch(*args, **kwargs) / self.num_paths
-        iv = black_implied_vol(values, self._fwd0, self._strike, self._texp,
-                               self._ann0)
-        return self._weight * (iv - self._target)                  # [B, P]
+    def _values(self, args, kwargs) -> torch.Tensor:
+        sums = lmm_stochvol_swaptions_batch(*args, **kwargs)       # [B, P]
+        with span("finmath.backend.reduce"):
+            return sums / self.num_paths
 
     # ------------------------------------------------------------------
     def residuals(self, x, k: int = 0) -> np.ndarray:
-        return self._residuals(self.params(x)[None, :], k)[0].cpu().numpy()
+        return self._row(x, k)
 
     def residuals_batch(self, X, k: int = 0) -> np.ndarray:
         """[M, n_params] -> [M, P], one launch at B = M."""
-        X = torch.as_tensor(X, dtype=torch.float64).to(self.device)
-        if X.dim() != 2 or X.shape[1] != self._n_params:
-            raise ValueError(f"parameter sets of shape {tuple(X.shape)}, "
-                             f"expected [M, {self._n_params}]")
-        return self._residuals(X, k).cpu().numpy()
+        with span("finmath.backend.residuals") as s:
+            with span("finmath.backend.pack"):
+                X = torch.as_tensor(X, dtype=torch.float64).to(self.device)
+                if X.dim() != 2 or X.shape[1] != self._n_params:
+                    raise ValueError(
+                        f"parameter sets of shape {tuple(X.shape)}, "
+                        f"expected [M, {self._n_params}]")
+            s.set(sets=X.shape[0])
+            return self._residuals(X, k).cpu().numpy()
 
     def jacobian(self, x, k: int = 0) -> np.ndarray:
-        return self._residuals_and_jacobian(self.params(x), k)[1].cpu().numpy()
+        return self._jacobian(x, k)
 
     def residuals_and_jacobian(self, x, k: int = 0):
-        r0, J = self._residuals_and_jacobian(self.params(x), k)
-        return r0.cpu().numpy(), J.cpu().numpy()
+        return self._jacobian(x, k, row=True)
 
     def implied_vols(self, x, k: int = 0) -> np.ndarray:
         """Model quotes (lognormal implied vols), from the residual row."""

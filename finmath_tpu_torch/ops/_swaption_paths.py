@@ -22,6 +22,13 @@ a few libraries a model, not one a swaption shape), built by ``nvcc`` at
 first use, on the table a block stages into shared memory
 (``pack_table``), the scalars passed as launch arguments
 (``PricerLaunch``).
+
+A pricer's call is traced (``utils.profiling.span``): the entry points'
+``finmath.pricer.price`` (attributes ``kernel`` and ``paths``) holds
+``finmath.pricer.inputs`` (the inputs built, checked and packed on the
+host), and ``upload_and_launch`` the table's ``finmath.pricer.upload`` and
+the ``finmath.pricer.launch`` (the payoffs allocated and the launcher
+called).
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..utils.profiling import span
 from . import _cuda_build
 from ._products import MAX_LIBORS, check_tensor, pack_parameter_sets
 
@@ -218,6 +226,22 @@ def launch_injected(name: str, payoff: torch.Tensor, z: torch.Tensor,
     payoff.shape[0]]``."""
     return _launch(f"{name}_normals", payoff,
                    (z.data_ptr(), payoff.shape[0]), launch)
+
+
+def upload_and_launch(name: str, launch: PricerLaunch, device,
+                      num_paths: int, seed: int = 0,
+                      z: torch.Tensor = None) -> torch.Tensor:
+    """payoff / N of each path, ``[num_paths]`` float32 on the CUDA
+    ``device``: the table of ``launch`` moved there (one copy, for a table
+    on the CPU), then one launch of the kernel ``name``, drawing its
+    normals from ``seed`` (``z`` None) or on the normals ``z``."""
+    with span("finmath.pricer.upload"):
+        launch = launch._replace(table=launch.table.to(device))
+    with span("finmath.pricer.launch"):
+        out = torch.empty(num_paths, dtype=torch.float32, device=device)
+        if z is None:
+            return launch_prng(name, out, seed, launch)
+        return launch_injected(name, out, z, launch)
 
 
 def check_device(device: torch.device) -> None:

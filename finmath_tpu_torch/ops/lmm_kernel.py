@@ -59,6 +59,7 @@ import numpy as np
 import torch
 
 from ..utils.config import select_device
+from ..utils.profiling import span
 from . import _cuda_build
 from . import _swaption_paths as sp
 from ._products import (MAX_LIBORS, SWEEP_FLAGS, THREADS, Product,
@@ -387,15 +388,12 @@ def lmm_swaption_packed(volT, l0, deltas, scal, *, exercise: int,
 def _kernel_payoffs(seed, z, num_paths: int, volT, l0, deltas, scal, *,
                     exercise: int, periods: int, device) -> torch.Tensor:
     """One launch on the CUDA ``device``: the table packed where the inputs
-    lie and moved to ``device`` (one copy, for inputs on the CPU), then the
-    PRNG launcher with ``seed`` (``z`` None) or the injected one on ``z``."""
+    lie, then ``_swaption_paths.upload_and_launch`` with ``seed`` (``z``
+    None) or on ``z``."""
     launch = lmm_swaption_packed(volT, l0, deltas, scal, exercise=exercise,
                                 periods=periods)
-    launch = launch._replace(table=launch.table.to(device))
-    out = torch.empty(num_paths, dtype=torch.float32, device=device)
-    if z is None:
-        return sp.launch_prng("lmm_swaption_paths", out, seed, launch)
-    return sp.launch_injected("lmm_swaption_paths", out, z, launch)
+    return sp.upload_and_launch("lmm_swaption_paths", launch, device,
+                                num_paths, seed, z)
 
 
 def lmm_swaption_payoffs(seed: int, num_paths: int, volT, l0, deltas, scal,
@@ -446,19 +444,26 @@ def lmm_swaption_kernel(seed: int, num_paths: int, num_libors: int,
     ``select_device()``). ``vol_table`` ``[>= num_steps, n]`` holds
     ``sigma_i(t_s) * R[i, 0]``; ``num_steps`` should be the exercise step
     (simulating past it is wasted work). The inputs are packed on the host
-    and reach the card as one table."""
+    and reach the card as one table. Traced as ``finmath.pricer.price``
+    (``_swaption_paths``)."""
     device = torch.device(device) if device is not None else select_device()
-    args = lmm_swaption_inputs(vol_table, initial_forwards, deltas,
-                               num_steps, dt, strike, "cpu")
-    _check_libors(num_libors, args[1])
-    swap = dict(exercise=exercise, periods=periods)
-    if device.type == "cpu":
-        return sp.mean(lmm_swaption_payoffs(seed, num_paths, *args, **swap))
-    sp.check_device(device)
-    seed, num_paths = _check_seed(seed), sp.check_paths(num_paths)
-    _pricer(*args, exercise, periods)
-    return sp.mean(_kernel_payoffs(seed, None, num_paths, *args, **swap,
-                                   device=device))
+    with span("finmath.pricer.price", kernel="lmm_swaption_paths",
+              paths=num_paths):
+        with span("finmath.pricer.inputs"):
+            args = lmm_swaption_inputs(vol_table, initial_forwards, deltas,
+                                       num_steps, dt, strike, "cpu")
+            _check_libors(num_libors, args[1])
+            swap = dict(exercise=exercise, periods=periods)
+            if device.type != "cpu":
+                sp.check_device(device)
+                seed, num_paths = _check_seed(seed), sp.check_paths(num_paths)
+                _pricer(*args, exercise, periods)
+                launch = lmm_swaption_packed(*args, **swap)
+        if device.type == "cpu":
+            return sp.mean(lmm_swaption_payoffs(seed, num_paths, *args,
+                                                **swap))
+        return sp.mean(sp.upload_and_launch("lmm_swaption_paths", launch,
+                                            device, num_paths, seed))
 
 
 def lmm_swaption_kernel_with_normals(normals, num_libors: int, exercise: int,

@@ -11,9 +11,11 @@ the discounted payoffs payoff / N, non-finite pathwise values dropped, for
 ``B`` parameter sets that share one normal realization. (The Pallas kernel
 returns the per-path values and its caller masks and sums them; here that
 reduction happens in the kernel.) The caller divides by ``num_paths``. On a
-CUDA tensor it launches the kernel (and raises if the launch fails); on a
-CPU tensor it runs ``lmm_stochvol_swaptions_batch_reference``. ``LAUNCHES``
-counts kernel launches.
+CUDA tensor it launches the kernel (and raises if the launch fails), traced
+as the kernel backend's ``finmath.backend.launch`` (packing to the launch
+enqueued) and ``finmath.backend.reduce`` (the tile sums); on a CPU tensor
+it runs ``lmm_stochvol_swaptions_batch_reference``. ``LAUNCHES`` counts
+kernel launches.
 
 Inputs keep the engine's layout:
 
@@ -62,6 +64,7 @@ import numpy as np
 import torch
 
 from ..utils.config import select_device
+from ..utils.profiling import span
 from . import _cuda_build
 from . import _swaption_paths as sp
 from ._products import (MAX_LIBORS, SWEEP_FLAGS, THREADS, Product,
@@ -147,11 +150,13 @@ def lmm_stochvol_swaptions_batch(z, volT_b, scal_b, initial_forwards, deltas,
         raise ValueError(f"num_factors={F}, num_libors={n} outside the "
                          f"kernel's 1..{MAX_FACTORS} factors and "
                          f"{MAX_LIBORS} libors")
-    go, partials = prepare(
-        z, volT_b, scal_b, initial_forwards, deltas, num_libors=n,
-        num_factors=F, products=products, num_paths=num_paths)
-    go()
-    return partials.sum(dim=1)
+    with span("finmath.backend.launch"):
+        go, partials = prepare(
+            z, volT_b, scal_b, initial_forwards, deltas, num_libors=n,
+            num_factors=F, products=products, num_paths=num_paths)
+        go()
+    with span("finmath.backend.reduce"):
+        return partials.sum(dim=1)
 
 
 def prepare(z, volT_b, scal_b, initial_forwards, deltas, *, num_libors: int,
@@ -420,16 +425,12 @@ def lmm_stochvol_swaption_packed(volT, l0, deltas, scal, *, exercise: int,
 def _kernel_payoffs(seed, z, num_paths: int, volT, l0, deltas, scal, *,
                     exercise: int, periods: int, device) -> torch.Tensor:
     """One launch on the CUDA ``device``: the table packed where the inputs
-    lie and moved to ``device`` (one copy, for inputs on the CPU), then the
-    PRNG launcher with ``seed`` (``z`` None) or the injected one on ``z``."""
+    lie, then ``_swaption_paths.upload_and_launch`` with ``seed`` (``z``
+    None) or on ``z``."""
     launch = lmm_stochvol_swaption_packed(volT, l0, deltas, scal,
                                          exercise=exercise, periods=periods)
-    launch = launch._replace(table=launch.table.to(device))
-    out = torch.empty(num_paths, dtype=torch.float32, device=device)
-    if z is None:
-        return sp.launch_prng("lmm_stochvol_swaption_paths", out, seed,
-                              launch)
-    return sp.launch_injected("lmm_stochvol_swaption_paths", out, z, launch)
+    return sp.upload_and_launch("lmm_stochvol_swaption_paths", launch, device,
+                                num_paths, seed, z)
 
 
 def lmm_stochvol_swaption_payoffs(seed: int, num_paths: int, volT, l0,
@@ -483,21 +484,27 @@ def lmm_stochvol_swaption_kernel(seed: int, num_paths: int, num_libors: int,
     stoch-vol benchmark LMM, every path in one kernel launch: the float64
     mean as a 0-d tensor on ``device`` (default ``select_device()``).
     ``vol_table`` ``[>= num_steps, n]``, ``factor_matrix`` ``[n, F]``. The
-    inputs are packed on the host and reach the card as one table."""
+    inputs are packed on the host and reach the card as one table. Traced
+    as ``finmath.pricer.price`` (``_swaption_paths``)."""
     device = torch.device(device) if device is not None else select_device()
-    args = lmm_stochvol_swaption_inputs(
-        vol_table, factor_matrix, initial_forwards, deltas, num_steps, dt,
-        strike, blend, nu, rho, "cpu")
-    _check_shape(num_libors, num_factors, args[0], args[1])
-    swap = dict(exercise=exercise, periods=periods)
-    if device.type == "cpu":
-        return sp.mean(lmm_stochvol_swaption_payoffs(seed, num_paths, *args,
-                                                     **swap))
-    sp.check_device(device)
-    seed, num_paths = _check_seed(seed), sp.check_paths(num_paths)
-    _pricer(*args, exercise, periods)
-    return sp.mean(_kernel_payoffs(seed, None, num_paths, *args, **swap,
-                                   device=device))
+    with span("finmath.pricer.price", kernel="lmm_stochvol_swaption_paths",
+              paths=num_paths):
+        with span("finmath.pricer.inputs"):
+            args = lmm_stochvol_swaption_inputs(
+                vol_table, factor_matrix, initial_forwards, deltas,
+                num_steps, dt, strike, blend, nu, rho, "cpu")
+            _check_shape(num_libors, num_factors, args[0], args[1])
+            swap = dict(exercise=exercise, periods=periods)
+            if device.type != "cpu":
+                sp.check_device(device)
+                seed, num_paths = _check_seed(seed), sp.check_paths(num_paths)
+                _pricer(*args, exercise, periods)
+                launch = lmm_stochvol_swaption_packed(*args, **swap)
+        if device.type == "cpu":
+            return sp.mean(lmm_stochvol_swaption_payoffs(seed, num_paths,
+                                                         *args, **swap))
+        return sp.mean(sp.upload_and_launch(
+            "lmm_stochvol_swaption_paths", launch, device, num_paths, seed))
 
 
 def lmm_stochvol_swaption_kernel_with_normals(
