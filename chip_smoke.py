@@ -14,8 +14,9 @@ Phases, one line of output each (more for the kernel builds), in order:
    (``csrc/lmm_swaption_paths.cu``) that phases 15-17 launch, and every
    one (K, F, row chunk R) of the ATM-surface kernel
    (``csrc/lmm_atm_products.cu``) and of the stoch-vol kernel
-   (``csrc/lmm_stochvol_products.cu``) that phases 3-9 launch (those two
-   without FMA contraction); print each build's
+   (``csrc/lmm_stochvol_products.cu``) that phases 3-9 launch, and the
+   stoch-vol backend's Black inversion kernel (``csrc/black_residuals.cu``)
+   (those three without FMA contraction); print each build's
    seconds and ptxas' register/spill report;
 3. the ATM kernel against its plain PyTorch version on the card at the ATM
    shapes: 100,000 paths B=1 NORMAL, 100,003 paths (ragged tail), and the
@@ -47,15 +48,20 @@ Phases, one line of output each (more for the kernel builds), in order:
    (LIBORMarketModelCalibrationTest) at 81,920 paths on its Mersenne
    realization, every program warmed up, then
    ``calibrate_multistart(target_rms19=0.00198, kernel_backend=...)``
-   timed; it must go through the kernel (launches = backend residual +
-   Jacobian calls), give 15 finite deviations with |mean| < 1e-2 (the
+   timed; it must go through the kernel and the Black inversion kernel
+   (each: launches = backend residual + Jacobian calls), give 15 finite
+   deviations with |mean| < 1e-2 (the
    reference test's assert), an engine-oracle rms19 < 0.25%, and kernel
    residuals within 5e-5 of the engine's at the initial point; its
    ``stages`` dict splits the wall by stage, and the calls of each kind
    (kernel, reduced-path engine, oracle, analytic) are counted and timed;
 9. stoch-vol kernel time at B=1 and B=17, 81,920 paths, as in phase 5:
    the launch alone, the wrapper and the plain version (median of 5, CUDA
-   events);
+   events); then the Black inversion kernel (``ops/black_residuals.py``)
+   on the backend's own values at the calibrated parameters, B=1 and
+   B=17: against its plain version within 1e-12 absolute (the elements
+   equal bit for bit printed), the launch through its wrapper behind a
+   spin and the plain version timed as above;
 10. the path kernels' device generator: ``philox_normals`` bit for bit
     against the plain Philox on the card (1M normals); the Box-Muller
     radius and angle of all 2^24 values of a word's top 24 bits
@@ -142,7 +148,8 @@ Phases, one line of output each (more for the kernel builds), in order:
     evaluations) on the best realization, concurrently; the final ranking
     by the engine oracle on that realization (``set_increments``). It
     fails unless the kernel residuals are within 5e-5 of the engine's at
-    the initial point on realization 0, launches equal backend calls,
+    the initial point on realization 0, the products kernel's and the
+    Black inversion kernel's launches each equal backend calls,
     rms19 < 0.25% and |mean deviation| < 1e-2; it prints both oracles'
     rms19 per realization and restart, the wall of the chains and of the
     restarts (the Sobol generation outside it) and whether the published
@@ -350,7 +357,8 @@ Phases, one line of output each (more for the kernel builds), in order:
     fused price within 0.005 of the analytic value; 16's timed
     ``residuals_and_jacobian`` is exactly one ``lmm_stochvol_products``
     launch (B = 17, 81,920 Sobol paths), within 5e-5 of the engine's
-    residuals; each script's wall and key numbers printed;
+    residuals; each script's wall, kernel launches (the Black inversion
+    kernel's among them) and key numbers printed;
 6. with ``--profile`` only, last: device operations and busy time under
    ``torch.profiler`` for one ATM calibration, one engine Jacobian, one
    ATM kernel residual call, one stoch-vol kernel
@@ -365,12 +373,14 @@ Phases, one line of output each (more for the kernel builds), in order:
    ladder and local-vol solve, each against the same call's unprofiled
    wall.
 
-Then the whole script's seconds, one JSON line with the eight kernels'
+Then the whole script's seconds, one JSON line with the nine kernels'
 numbers (``bound_ms`` is the least time of the same work on an
 H100: the larger of the operations counted from the shapes over the
 published 67 TFLOP/s float32, integer operations included, and the bytes
 over 3.35 TB/s; that peak counts an FMA as two operations, so a kernel that
-issues none, as the slice D1 pricers do, can reach at most half of it)
+issues none, as the slice D1 pricers do, can reach at most half of it;
+the float64 Black inversion's operations over the published 34 TFLOP/s
+float64)
 and, last, the device line ``{"ok": true, "device": {...}}``. Any failure
 raises and exits non-zero before those lines; there is no CPU path.
 """
@@ -439,6 +449,7 @@ COPULA_PATHS, COMMODITY_PATHS, RISK_SCENARIOS = 1_000_000, 1_000_000, 1_000_000
 PDE_STRIKES, PDE_VOLS, PDE_MC_PATHS = 81, 32, 200_000
 # the published H100 SXM peaks the bound is taken against
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
+PEAK_F64_FLOPS = 34e12
 SPIN_CYCLES = 2_000_000       # about 1 ms of the card's clock
 
 
@@ -493,13 +504,13 @@ def _pricer_operations(num_factors, steps, exercise, periods, paths, *,
         * paths
 
 
-def _bound(args, out, operations):
-    """(bound_ms, bound_by): the larger of the operations over the float32
-    peak and the bytes (each input tensor read once, the output written
-    once) over the memory rate."""
+def _bound(args, out, operations, peak_flops=PEAK_F32_FLOPS):
+    """(bound_ms, bound_by): the larger of the operations over the
+    ``peak_flops`` (float32 unless given) and the bytes (each input tensor
+    read once, the output written once) over the memory rate."""
     nbytes = sum(t.numel() * t.element_size() for t in args) + \
         out.numel() * out.element_size()
-    by_ops = operations / PEAK_F32_FLOPS
+    by_ops = operations / peak_flops
     by_bytes = nbytes / PEAK_BYTES_PER_S
     return (max(by_ops, by_bytes) * 1e3,
             "operations" if by_ops >= by_bytes else "bytes")
@@ -511,6 +522,18 @@ def _bound(args, out, operations):
 #: launch, not a draw), and two Box-Muller pairs at about 37 float
 #: operations a normal with the accurate logf, sqrtf, sinf and cosf (148)
 DRAW_OPERATIONS = 80 + 148
+
+
+def _black_residuals_operations(elements, num_iter):
+    """Float64 operations of one Black inversion launch as
+    ``csrc/black_residuals.cu`` does them, each add, multiply, compare and
+    select counted once, a division at about 10 (the IEEE sequence), a
+    libdevice ``erfc`` at about 60, ``exp`` and ``log`` at about 25 and
+    ``sqrt`` at about 10: per element and Newton step the total vol and
+    d1, d2 (16), the two ``erfc`` and the twin's value (126), vega (29),
+    the damped step (12) and the clamps (7), 190 in all; per element the
+    seed, the time value and the weighting (about 65)."""
+    return elements * (190 * num_iter + 65)
 
 
 def _mc_path_operations(paths, steps, asian):
@@ -1566,7 +1589,7 @@ def _slice_e(torch, smi):
     return bermudan_value
 
 
-def _matched_row(torch, smi, lmm_stochvol_kernel):
+def _matched_row(torch, smi, lmm_stochvol_kernel, black_residuals):
     """Phase 22: ``bench.py:641 bench_stochvol_matched`` through the port's
     public API at 81,920 Sobol paths on the stoch-vol products kernel."""
     from scipy.optimize import least_squares
@@ -1639,7 +1662,7 @@ def _matched_row(torch, smi, lmm_stochvol_kernel):
         e1, e2 = rms19_kernel(fun(r1.x)), rms19_kernel(fun(r2.x))
         return (r1.x, e1) if e1 <= e2 else (r2.x, e2)
 
-    lmm_stochvol_kernel.LAUNCHES = 0
+    lmm_stochvol_kernel.LAUNCHES = black_residuals.LAUNCHES = 0
     t_all = time.perf_counter()
     with ThreadPoolExecutor(max_workers=MATCHED_K) as pool:
         chains = list(pool.map(chain, range(MATCHED_K)))
@@ -1668,6 +1691,7 @@ def _matched_row(torch, smi, lmm_stochvol_kernel):
     restarts_s = time.perf_counter() - t0
     wall = chains_s + restarts_s
     launches = lmm_stochvol_kernel.LAUNCHES
+    iv_launches = black_residuals.LAUNCHES
     backend_calls = residual_calls.calls + jacobian_calls.calls
     dev = setup.deviations(best_x)
     mean_dev = float(np.mean(dev))
@@ -1691,6 +1715,7 @@ def _matched_row(torch, smi, lmm_stochvol_kernel):
               "per_restart_rms19_kernel": [e for _, e in restarts],
               "per_restart_rms19_engine": per_restart_engine,
               "kernel_launches": launches,
+              "inversion_launches": iv_launches,
               "backend_residual_calls": residual_calls.calls,
               "backend_jacobian_calls": jacobian_calls.calls,
               "published_0.198%_reached": best_rms <= 0.00198,
@@ -1699,6 +1724,8 @@ def _matched_row(torch, smi, lmm_stochvol_kernel):
         "kernel launched": launches > 0,
         "launches == backend residual + jacobian calls":
             launches == backend_calls,
+        "inversion launches == backend residual + jacobian calls":
+            iv_launches == backend_calls,
         "realizations on cuda": on_cuda,
         "kernel residuals within 5e-5 of the engine's at p0": gap < 5e-5,
         "15 finite deviations": bool(np.all(np.isfinite(dev))
@@ -5445,12 +5472,14 @@ def _examples_f4(torch, smi) -> None:
     import traceback
 
     from finmath_tpu_torch.ops import _swaption_paths as sp
-    from finmath_tpu_torch.ops import kernels, lmm_kernel, lmm_stochvol_kernel
+    from finmath_tpu_torch.ops import (black_residuals, kernels, lmm_kernel,
+                                       lmm_stochvol_kernel)
 
     def reset():
         kernels.LAUNCHES.update(dict.fromkeys(kernels.LAUNCHES, 0))
         sp.LAUNCHES.update(dict.fromkeys(sp.LAUNCHES, 0))
         lmm_kernel.LAUNCHES = lmm_stochvol_kernel.LAUNCHES = 0
+        black_residuals.LAUNCHES = 0
 
     def counts() -> dict:
         got = {k: v for k, v in {**kernels.LAUNCHES, **sp.LAUNCHES}.items()
@@ -5459,6 +5488,8 @@ def _examples_f4(torch, smi) -> None:
             got["lmm_atm_products"] = lmm_kernel.LAUNCHES
         if lmm_stochvol_kernel.LAUNCHES:
             got["lmm_stochvol_products"] = lmm_stochvol_kernel.LAUNCHES
+        if black_residuals.LAUNCHES:
+            got["black_residuals"] = black_residuals.LAUNCHES
         return got
 
     t_phase = time.perf_counter()
@@ -5546,8 +5577,10 @@ def main(argv=None) -> int:
     from finmath_tpu_torch.models.lmm.benchmark_calibration import (
         CURATED_BASINS)
     from finmath_tpu_torch.native import host_rng
+    from finmath_tpu_torch.models.lmm.model import BLACK_NEWTON_STEPS
     from finmath_tpu_torch.ops import (_cuda_build, _products,
-                                       _swaption_paths, kernels, lmm_kernel,
+                                       _swaption_paths, black_residuals,
+                                       kernels, lmm_kernel,
                                        lmm_stochvol_kernel)
 
     # -- 2: build every source and instantiation, one nvcc each, together --
@@ -5557,7 +5590,7 @@ def main(argv=None) -> int:
         module.load_kernel(*variant)
         return time.perf_counter() - t0
 
-    jobs = [(kernels, ())] + [
+    jobs = [(kernels, ()), (black_residuals, ())] + [
         (module, (v,)) for module, variants in _sweep_variants(
             _products, lmm_kernel, lmm_stochvol_kernel,
             _swaption_paths).items()
@@ -5832,12 +5865,14 @@ def main(argv=None) -> int:
         sv_timers[name] = _Timed(torch, getattr(obj, attr))
         setattr(obj, attr, sv_timers[name])
     lmm_kernel.LAUNCHES = lmm_stochvol_kernel.LAUNCHES = 0
+    black_residuals.LAUNCHES = 0
     t0 = time.perf_counter()
     sv_result = sv.calibrate_multistart(target_rms19=SV_TARGET_RMS19,
                                         kernel_backend=sv_kb)
     torch.cuda.synchronize()
     sv_wall = time.perf_counter() - t0
     sv_launches = lmm_stochvol_kernel.LAUNCHES
+    iv_launches = black_residuals.LAUNCHES
     for obj, attr in sv_stages.values():
         delattr(obj, attr)
     sv_res_calls = sv_timers["kernel residuals (81,920 paths)"]
@@ -5858,6 +5893,7 @@ def main(argv=None) -> int:
           f"wall_s={sv_wall:.4f} evaluations={sv_result.iterations} "
           f"rms19={rms19:.6e} rms15={sv_result.rms_error:.6e} "
           f"mean_dev={sv_mean_dev:.6e} kernel_launches={sv_launches} "
+          f"inversion_launches={iv_launches} "
           f"backend_residual_calls={sv_res_calls.calls} "
           f"backend_jacobian_calls={sv_jac_calls.calls} "
           f"kernel_vs_engine_residuals_p0={sv_gap:.3e} "
@@ -5878,6 +5914,8 @@ def main(argv=None) -> int:
         "kernel launched": sv_launches > 0,
         "launches == backend residual + jacobian calls":
             sv_launches == backend_calls,
+        "inversion launches == backend residual + jacobian calls":
+            iv_launches == backend_calls,
         "realization and kernel inputs on cuda": sv_on_cuda,
         "15 finite deviations": bool(
             np.all(np.isfinite(sv_dev)) and sv_dev.shape == (15,)),
@@ -5922,6 +5960,49 @@ def main(argv=None) -> int:
           f"plain_ms={sv_fd_plain_ms:.4f} bound_ms={sv_fd_bound_ms:.4f} "
           f"({sv_fd_bound_by})", flush=True)
 
+    # the Black inversion kernel on the backend's own values at both shapes
+    iv_rows = (sv_kb._fwd0, sv_kb._strike, sv_kb._texp, sv_kb._ann0,
+               sv_kb._target, sv_kb._weight)
+    iv_max_abs_err, iv_timing = 0.0, {}
+    for B, (a, kw) in ((1, (sv_args, sv_kwargs)),
+                       (B_fd, (sv_fd_args, sv_fd_kwargs))):
+        values = sv_kb._values(a, kw)
+
+        def kernel(values=values):
+            return black_residuals.black_residuals(values, *iv_rows,
+                                                   BLACK_NEWTON_STEPS)
+
+        def plain(values=values):
+            return black_residuals.black_residuals_reference(
+                values, *iv_rows, BLACK_NEWTON_STEPS)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        bitwise = int(torch.eq(got, want).sum())
+        ok = bool(torch.isfinite(got).all()) and err <= 1e-12
+        iv_max_abs_err = max(iv_max_abs_err, err)
+        bound = _bound((values, *iv_rows), got,
+                       _black_residuals_operations(got.numel(),
+                                                   BLACK_NEWTON_STEPS),
+                       PEAK_F64_FLOPS)
+        iv_timing[B] = (_launch_ms(torch, kernel), _time_ms(torch, plain),
+                        *bound)
+        print(f"phase 9 Black inversion kernel vs plain: B={B} "
+              f"elements={got.numel()} max_abs_err={err:.3e} "
+              f"bitwise_equal={bitwise}/{got.numel()} within 1e-12: {ok}",
+              flush=True)
+        if not ok:
+            raise SystemExit(f"chip_smoke: phase 9: the Black inversion "
+                             f"kernel disagrees with its plain version at "
+                             f"B={B}")
+    print(f"phase 9 Black inversion timing (median of 5, CUDA events; "
+          f"{smi}): " + "; ".join(
+              f"B={B} kernel_ms={k:.4f} plain_ms={pl:.4f} "
+              f"bound_ms={bd:.6f} ({by})"
+              for B, (k, pl, bd, by) in iv_timing.items()), flush=True)
+    iv_ms, iv_plain_ms, iv_bound_ms, iv_bound_by = iv_timing[1]
+
     # -- 10-14: slice C, the vector engine and Monte-Carlo Black-Scholes ----
     mc_rows = _slice_c(torch, smi)
 
@@ -5932,7 +6013,7 @@ def main(argv=None) -> int:
     bermudan_value = _slice_e(torch, smi)
 
     # -- 22-24: the matched-quality row, f32/f64 parity, engine options ----
-    _matched_row(torch, smi, lmm_stochvol_kernel)
+    _matched_row(torch, smi, lmm_stochvol_kernel, black_residuals)
     _parity(torch, smi)
     _engine_options(torch, smi, bermudan_value)
 
@@ -5989,6 +6070,19 @@ def main(argv=None) -> int:
         "plain_ms": sv_plain_ms,
         "bound_ms": sv_bound_ms,
         "bound_by": sv_bound_by,
+        "library_ms": None,
+    }, {
+        "name": "black_residuals",
+        "route": "cuda",
+        "source": "finmath_tpu_torch/csrc/black_residuals.cu",
+        "replaces": "no Pallas kernel: finmath_tpu/models/lmm/model.py:96 "
+                    "black_implied_vol_jnp, fused by XLA",
+        "launches": iv_launches,
+        "max_abs_err": iv_max_abs_err,
+        "ms": iv_ms,
+        "plain_ms": iv_plain_ms,
+        "bound_ms": iv_bound_ms,
+        "bound_by": iv_bound_by,
         "library_ms": None,
     }] + mc_rows + pricer_rows}))
     print(json.dumps({"ok": True, "device": {

@@ -31,7 +31,8 @@ the Longstaff-Schwartz, tape-AAD and lazy-engine slice):
   price that ``torch.autograd`` differentiates;
 * ``ops.lmm_kernel`` and ``ops.lmm_stochvol_kernel`` — the ATM-surface
   and stoch-vol path-sweep kernels (CUDA C++ in ``csrc/``) and their plain
-  PyTorch versions;
+  PyTorch versions; ``ops.black_residuals``, the stoch-vol backend's Black
+  implied-vol Newton and weighting as one CUDA kernel;
 * ``convert`` — parameter vectors and Brownian realizations carried over
   from the JAX package as NumPy arrays;
 * ``parallel`` — the Monte-Carlo path axis split over torch.distributed

@@ -15,8 +15,13 @@ Each kernel is the CUDA kernel on a CUDA device and its plain version on
 the CPU.
 
 * ``residuals(x)`` — one launch at B = 1; the float64 reduction (and, for
-  the ATM backend, the numeraire adjustment df(T_e) / E[1/N(T_e)]) and the
-  implied-vol inversion follow on the engine's device.
+  the ATM backend, the numeraire adjustment df(T_e) / E[1/N(T_e)]) follows
+  on the engine's device, then the implied-vol inversion and weighting:
+  for the stoch-vol backend one launch of
+  ``ops.black_residuals.black_residuals`` (the Black Newton and the
+  weighting in one CUDA kernel; on the CPU its plain version, the
+  engine's ``black_implied_vol``), for the ATM backend the engine's
+  ``bachelier_implied_vol``.
 * ``jacobian(x)`` — central finite differences under common random
   numbers: ONE launch over 2 * n_params + 1 parameter sets sharing one
   realization.
@@ -27,8 +32,10 @@ Each call is traced (``utils.profiling.span``) as
 ``finmath.backend.pack`` (the parameters to the device, the FD sets, the
 loading tables and scalars), ``finmath.backend.launch`` and
 ``finmath.backend.reduce`` (the stoch-vol kernel's tile sums, the division
-by the paths, the weights and the FD differences) and
-``finmath.backend.implied_vol``; the fetch to the host is the call's own.
+by the paths, the ATM backend's weights and the FD differences) and
+``finmath.backend.implied_vol`` (the inversion; for the stoch-vol backend
+with its weights, attribute ``kernel``: True where the CUDA kernel ran,
+False for the plain version); the fetch to the host is the call's own.
 
 The backends price the engine's own paths: they read the engine's
 device-resident increments directly (``[S, F', paths]``, already scaled by
@@ -48,11 +55,12 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ...ops.black_residuals import black_residuals
 from ...ops.lmm_kernel import lmm_atm_swaptions_batch
 from ...ops.lmm_stochvol_kernel import lmm_stochvol_swaptions_batch
 from ...utils.profiling import span
-from .model import (LMMValuationEngine, bachelier_implied_vol,
-                    black_implied_vol)
+from .model import (BLACK_NEWTON_STEPS, LMMValuationEngine,
+                    bachelier_implied_vol)
 
 FD_STEP = 5e-4      # absolute central-difference step of every parameter
 
@@ -64,7 +72,8 @@ class _KernelBackend:
     from ONE batched residual evaluation, and the traced calls. A backend
     defines ``kernel_arguments(params_b, *realization)``, ``_values(args,
     kwargs)`` (the kernel's call to the products' values ``[B, P]``) and
-    ``_implied_vol``."""
+    ``_weighted_residuals(values)`` (the quotes' inversion and
+    weighting)."""
 
     _name = "kernel backend"
 
@@ -98,9 +107,11 @@ class _KernelBackend:
             for p in engine.products)
         self._num_steps = max(e for e, _, _ in self._products)
         t = engine._t
-        self._fwd0, self._ann0 = t["fwd0"], t["ann0"]
-        self._strike, self._texp = t["strike"], t["texp"]
-        self._target, self._weight = t["target"], t["weight"]
+        # per-product rows [P], contiguous (the engine's are columns of
+        # one table) as the stoch-vol backend's inversion kernel reads them
+        (self._fwd0, self._ann0, self._strike, self._texp, self._target,
+         self._weight) = (t[k].contiguous() for k in (
+             "fwd0", "ann0", "strike", "texp", "target", "weight"))
         self._l0 = t["L0"].contiguous()
         self._deltas = t["deltas32"].contiguous()
 
@@ -133,12 +144,7 @@ class _KernelBackend:
         ``params_b`` on the engine's device."""
         with span("finmath.backend.pack"):
             args, kwargs = self.kernel_arguments(params_b, *realization)
-        values = self._values(args, kwargs)
-        with span("finmath.backend.implied_vol"):
-            iv = self._implied_vol(values, self._fwd0, self._strike,
-                                   self._texp, self._ann0)
-        with span("finmath.backend.reduce"):
-            return self._weight * (iv - self._target)
+        return self._weighted_residuals(self._values(args, kwargs))
 
     def _row(self, x, *realization) -> np.ndarray:
         """The residual row at ``x``, on the host: one call, one launch."""
@@ -169,7 +175,6 @@ class ATMKernelCalibration(_KernelBackend):
     weights, numeraire adjustment and implied-vol inversion)."""
 
     _name = "ATM kernel backend"
-    _implied_vol = staticmethod(bachelier_implied_vol)
 
     def __init__(self, engine: LMMValuationEngine):
         cov = engine.model.covariance
@@ -238,6 +243,13 @@ class ATMKernelCalibration(_KernelBackend):
         inv_p = (sums[:, P:] / paths)[:, self._ev_of]              # [B, P]
         return raw * torch.where(inv_p > 0.0, self._df_exercise / inv_p, 0.0)
 
+    def _weighted_residuals(self, values: torch.Tensor) -> torch.Tensor:
+        with span("finmath.backend.implied_vol"):
+            iv = bachelier_implied_vol(values, self._fwd0, self._strike,
+                                       self._texp, self._ann0)
+        with span("finmath.backend.reduce"):
+            return self._weight * (iv - self._target)
+
     # ------------------------------------------------------------------
     def residuals(self, x) -> np.ndarray:
         return self._row(x)
@@ -267,9 +279,11 @@ class StochVolKernelCalibration(_KernelBackend):
     registers more, each ``[>= S, F + 1, paths]`` sqrt(dt)-scaled increments
     in the engine's injected format, and every entry point takes ``k=``.
     Nothing on the backend changes between calls, so calls on different
-    realizations may run from several threads."""
+    realizations may run from several threads.
 
-    _implied_vol = staticmethod(black_implied_vol)
+    The quotes' Black inversion and their weighting are one call of
+    ``ops.black_residuals.black_residuals``: one CUDA launch on a card,
+    the engine's ``black_implied_vol`` on the CPU."""
 
     def __init__(self, engine: LMMValuationEngine,
                  realizations: Optional[Sequence] = None):
@@ -367,6 +381,12 @@ class StochVolKernelCalibration(_KernelBackend):
         sums = lmm_stochvol_swaptions_batch(*args, **kwargs)       # [B, P]
         with span("finmath.backend.reduce"):
             return sums / self.num_paths
+
+    def _weighted_residuals(self, values: torch.Tensor) -> torch.Tensor:
+        with span("finmath.backend.implied_vol", kernel=values.is_cuda):
+            return black_residuals(values, self._fwd0, self._strike,
+                                   self._texp, self._ann0, self._target,
+                                   self._weight, BLACK_NEWTON_STEPS)
 
     # ------------------------------------------------------------------
     def residuals(self, x, k: int = 0) -> np.ndarray:

@@ -57,6 +57,9 @@ from ..curves import DiscountCurve, ForwardCurve, par_swap_rate
 from ..time_discretization import TimeDiscretization
 
 _SQRT_2PI = math.sqrt(2.0 * math.pi)
+#: damped Newton steps of ``black_implied_vol``, a fixed count (no early
+#: exit); the stoch-vol kernel backend's CUDA inversion takes the same
+BLACK_NEWTON_STEPS = 60
 
 
 def _ncdf(x):
@@ -161,7 +164,7 @@ class _BlackImpliedVol(torch.autograd.Function):
 
 
 def black_implied_vol(value, forward, strike, maturity, annuity,
-                      num_iter: int = 60):
+                      num_iter: int = BLACK_NEWTON_STEPS):
     """Differentiable Black (lognormal) implied volatility, elementwise
     (float64 tensors that broadcast together).
 

@@ -10,8 +10,9 @@ the per-set calls (1,024 paths, 2 factors); ``set_increments`` gives a
 fresh engine's values bit for bit; the card's delta ladder within rtol
 1e-4 of the CPU's on the same increments (absolute floor 1e-4 of the
 largest bucket: the two devices round the float32 sweep differently);
-the stoch-vol kernel's launch counter loses no launch when eight threads
-share one backend (a shortened switch interval)."""
+the stoch-vol kernel's and the Black inversion kernel's launch counters
+lose no launch when eight threads share one backend (a shortened switch
+interval)."""
 
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -30,7 +31,8 @@ from finmath_tpu_torch.models.lmm.model import (  # noqa: E402
     LMMValuationEngine)
 from finmath_tpu_torch.models.qmc import (  # noqa: E402
     sobol_brownian_increments)
-from finmath_tpu_torch.ops import lmm_stochvol_kernel  # noqa: E402
+from finmath_tpu_torch.ops import (black_residuals,  # noqa: E402
+                                   lmm_stochvol_kernel)
 
 
 def _needs_card():
@@ -109,12 +111,13 @@ def test_launch_counter_from_threads_on_card():
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
-        lmm_stochvol_kernel.LAUNCHES = 0
+        lmm_stochvol_kernel.LAUNCHES = black_residuals.LAUNCHES = 0
         with ThreadPoolExecutor(max_workers=8) as pool:
             futures = [pool.submit(kb.residuals, x) for _ in range(200)]
             results = [f.result(timeout=120) for f in futures]
     finally:
         sys.setswitchinterval(interval)
     assert lmm_stochvol_kernel.LAUNCHES == 200
+    assert black_residuals.LAUNCHES == 200
     for r in results:
         np.testing.assert_array_equal(r, results[0])
