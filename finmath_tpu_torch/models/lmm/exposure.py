@@ -51,6 +51,24 @@ float64, as in the JAX module. The regressions are
 equations); the expectations and quantiles are float64 over the path
 axis. Each public call reads its result back in one transfer.
 
+The netting-set engine writes each date's collected values into ``[dates,
+...]`` buffers as the simulation reaches it (the underlyings' values in
+float64, their par rates, the regressions' feature, in the path dtype), so
+a profile holds them once: at 1,048,576 paths and 40 optionality
+underlyings over 39 dates they are 13 GB, and 6.5 GB in float32 paths (13
+GB in float64). ``reseed(seed)`` redraws the netting-set engine's paths
+on the device from a new seed, bit for bit a new engine's, and keeps
+every per-date table.
+
+Spans (``utils.profiling.span``): ``finmath.xva.profile`` is the root of
+one ``profile`` of either engine (attributes ``trades``, ``swaptions``,
+``bermudans``, ``dates``, ``paths`` and ``regressions``, the fits it
+made); inside it ``finmath.xva.simulate`` (the engine's step loop, with
+one ``finmath.xva.collect`` a date, then the discount factors),
+``finmath.xva.regress`` (the swaptions' close-out values),
+``finmath.xva.margin`` (the CSA's scan, with a CSA) and
+``finmath.xva.reduce`` (the means, the sort and the quantiles).
+
 Under a ``parallel.PathMesh`` (``mesh=`` on the netting-set engines, as in
 the JAX module) each rank simulates its block of the paths: the
 expectations are float64 path sums all-reduced and divided by the global
@@ -72,6 +90,7 @@ import torch
 from ...ops.conditional_expectation import regression_fit, regression_predict
 from ...ops.random_variable import ACC_DTYPE
 from ...parallel.mesh import gather_paths, path_mean, path_means, replicated
+from ...utils.profiling import span
 from .model import (
     LIBORMarketModelTorch,
     LMMValuationEngine,
@@ -728,6 +747,15 @@ class NettingSetExposureEngine:
         self._u_strikes = f64(self._u_strikes_np)
         self._df_obs = f64(self._df_obs_np)
         self._qs = f64(self.quantiles)
+        #: regressions the last ``profile`` fitted
+        self.regressions = 0
+
+    def reseed(self, seed: int) -> None:
+        """Price every later call on fresh paths: the engine's increments
+        redrawn on the device from ``seed`` (``LMMValuationEngine.reseed``:
+        bit for bit those of an engine built with that seed), every
+        per-date table kept."""
+        self.engine.reseed(seed)
 
     # ------------------------------------------------------------------
     def _collect(self, e, ev, L, N):
@@ -755,38 +783,69 @@ class NettingSetExposureEngine:
         srate = float_u / torch.clamp_min(ann_u, 1e-12)
         return v_net, s_plus, v_und, srate, inv_n
 
+    def _simulate_into(self, x: torch.Tensor):
+        """One simulation: the netted value, the standalone positive-part
+        sum and 1/N ``[E, paths]`` float64 (stacked after it, as the JAX
+        module's), and with optionality the underlyings' values ``[E, K,
+        paths]`` float64 and par rates in the path dtype (the regressions'
+        feature, which they read in that dtype), written date by date
+        into buffers (a stacked list of these would hold them twice). A
+        path whose outputs at a date are not all finite reads 0 in each
+        of them there; an underlying's test is a date's one sum of ``v -
+        v`` (0 where all are finite, NaN otherwise), so a date costs a few
+        launches more than a swap-only set's."""
+        eng = self.engine
+        E_n = len(self.observation_indices)
+        K = len(self.swaptions) + len(self.bermudans)
+        paths, dev = eng._local_paths, self.device
+        if K:
+            und = torch.empty((E_n, K, paths), dtype=ACC_DTYPE, device=dev)
+            rates = torch.empty((E_n, K, paths), dtype=eng.dtype, device=dev)
+            und_finite = torch.empty((E_n, paths), dtype=torch.bool,
+                                     device=dev)
+
+        def collect(e, ev, L, N):
+            with span("finmath.xva.collect"):
+                out = self._collect(e, ev, L, N)
+                if K:
+                    v_u, s_u = out[2], out[3]
+                    und_finite[ev] = ((v_u - v_u) + (s_u - s_u)).sum(
+                        dim=0) == 0.0
+                    und[ev].copy_(v_u)
+                    rates[ev].copy_(s_u)
+                return out[0], out[1], out[-1]
+
+        v_t, s_plus, inv_n = _stack(eng._simulate_collect(x, collect))
+        finite = (torch.isfinite(v_t) & torch.isfinite(inv_n)
+                  & torch.isfinite(s_plus))
+        if K:
+            finite = finite & und_finite
+        broken = ~finite
+        bufs = [v_t, s_plus, inv_n] + ([und, rates] if K else [])
+        for buf in bufs:
+            buf.masked_fill_(broken if buf.dim() == 2 else broken[:, None],
+                             0.0)
+        return bufs
+
     def _profile_rows(self, x: torch.Tensor) -> torch.Tensor:
         """``[4 (+2 with a CSA) + Q, E]`` float64: EE, ENE, forward value,
         standalone EE (, gross EE, gross ENE), then the PFE rows."""
         eng = self.engine
         model = self.model
         E_n = len(self.observation_indices)
-        K = len(self.swaptions) + len(self.bermudans)
         K_eur = len(self.swaptions)
-        collected = _stack(eng._simulate_collect(x, self._collect))
-        if K:
-            v_t, s_plus, v_und, srate, inv_n = collected
-        else:
-            v_t, s_plus, inv_n = collected
-        finite = (torch.isfinite(v_t) & torch.isfinite(inv_n)
-                  & torch.isfinite(s_plus))
-        if K:
-            finite = finite & torch.all(
-                torch.isfinite(v_und) & torch.isfinite(srate), dim=1)
-            v_und = torch.where(finite[:, None, :], v_und, 0.0)
-            srate = torch.where(finite[:, None, :], srate, 0.0)
-        v_t = torch.where(finite, v_t, 0.0)
-        s_plus = torch.where(finite, s_plus, 0.0)
-        inv_n = torch.where(finite, inv_n, 0.0)
-        if model.measure != "spot":
-            inv_n = inv_n * eng._p0_terminal
         mesh = self.mesh
-        adj = _numeraire_adjustment(model, path_mean(inv_n, mesh),
-                                    self._df_obs)
-        disc = inv_n * adj[:, None]
-        v_disc = v_t * disc                               # today's money
-        s_plus_disc = s_plus * disc
-        v_undisc = v_t                                    # t-money (PFE)
+        regressions = 0
+        with span("finmath.xva.simulate"):
+            collected = self._simulate_into(x)
+            v_t, s_plus, inv_n = collected[:3]
+            if len(collected) > 3:
+                v_und, srate = collected[3:]
+            if model.measure != "spot":
+                inv_n = inv_n * eng._p0_terminal
+            adj = _numeraire_adjustment(model, path_mean(inv_n, mesh),
+                                        self._df_obs)
+            disc = inv_n * adj[:, None]
 
         def add(c_disc):
             nonlocal v_disc, s_plus_disc, v_undisc
@@ -794,146 +853,169 @@ class NettingSetExposureEngine:
             s_plus_disc = s_plus_disc + torch.clamp_min(c_disc, 0.0)
             v_undisc = v_undisc + torch.where(disc > 0.0, c_disc / disc, 0.0)
 
-        def basis_of(ev, k, degree):
-            feature = srate[ev, k].to(eng.dtype)
-            return torch.stack([feature ** d for d in range(degree + 1)])
+        def bases_of(k, degree, dates):
+            """``[dates, degree + 1, paths]``: the monomials of underlying
+            k's par rate (the path dtype) at the first ``dates`` dates; a
+            date's row is that date's regression basis."""
+            feature = srate[:dates, k]
+            return torch.stack([feature ** d for d in range(degree + 1)],
+                               dim=1)
+
+        def fit(basis, y):
+            """The regression's coefficients (the normal equations summed
+            over the ranks under a mesh), counted."""
+            nonlocal regressions
+            regressions += 1
+            return regression_fit(basis, y, mesh=mesh)
 
         def fitted(basis, y):
-            """The regressed conditional expectation, float64 (the normal
-            equations summed over the ranks under a mesh)."""
-            return regression_predict(
-                basis, regression_fit(basis, y, mesh=mesh)).to(ACC_DTYPE)
+            """The regressed conditional expectation, float64."""
+            return regression_predict(basis, fit(basis, y)).to(ACC_DTYPE)
 
-        for k, tr in enumerate(self.swaptions):
-            # discounted close-out value of swaption k at each observation:
-            # the regressed conditional expectation before expiry, the
-            # intrinsic value at expiry, then the exercised swap (physical)
-            # or nothing (cash)
-            evx = int(self._ev_x_np[k])
-            h_disc = torch.clamp_min(v_und[evx, k], 0.0) * disc[evx]
-            exercised = v_und[evx, k] > 0.0
-            rows = []
-            for ev in range(E_n):
-                if ev < evx:
-                    basis = basis_of(ev, k, tr.basis_degree)
-                    rows.append(torch.clamp_min(fitted(basis, h_disc), 0.0))
-                elif ev == evx:
-                    rows.append(h_disc)
-                elif tr.physical:
-                    rows.append(torch.where(exercised,
-                                            v_und[ev, k] * disc[ev], 0.0))
-                else:
-                    rows.append(torch.zeros_like(h_disc))
-            add(tr.notional * torch.stack(rows))          # [E, paths]
-        for kb, tr in enumerate(self.bermudans):
-            # Longstaff-Schwartz backward induction fits the exercise
-            # policy over the exercise dates; every path then carries its
-            # stopping ordinal tau, and the close-out value at each date is
-            # (physical) the live underlying swap on paths with tau <= ev,
-            # plus the regressed continuation value on the alive paths
-            u0 = K_eur + kb
-            xs = [self.observation_indices.index(x)
-                  for x in tr.exercise_indices]           # obs ordinals
-            M = len(xs)
-            z = [v_und[xs[m], u0] * disc[xs[m]] for m in range(M)]
-            # all-paths regressions (the BermudanSwaptionPricer
-            # convention): dec[m] = exercise at m if alive; y_from[m] = the
-            # policy's discounted stopped payoff from exercise date m on
-            dec, cont, y_from = [None] * M, [None] * M, [None] * M
-            dec[M - 1] = z[M - 1] > 0.0
-            cont[M - 1] = torch.zeros_like(z[M - 1])
-            y_from[M - 1] = torch.clamp_min(z[M - 1], 0.0)
-            for m in reversed(range(M - 1)):
-                cont[m] = fitted(basis_of(xs[m], u0, tr.basis_degree),
-                                 y_from[m + 1])
-                dec[m] = (z[m] > 0.0) & (z[m] > cont[m])
-                y_from[m] = torch.where(dec[m], z[m], y_from[m + 1])
-            # stopping ordinal per path (E_n = never exercised); the first
-            # exercise wins, matching y_from
-            tau = torch.full_like(z[0], E_n, dtype=torch.int32)
-            for m in reversed(range(M)):
-                tau = torch.where(dec[m], xs[m], tau)
-            rows = []
-            for ev in range(E_n):
-                # exercised leg: the underlying's remaining periods live on
-                # exercised paths (physical), or only at the settlement
-                # instant (cash)
-                live = v_und[ev, u0] * disc[ev]
+        with span("finmath.xva.regress"):
+            # observation ordinals as a column, against a path's stopping
+            # ordinal
+            ev_rows = torch.arange(E_n, dtype=torch.int32,
+                                   device=disc.device)[:, None]
+            v_disc = v_t * disc                               # today's money
+            s_plus_disc = s_plus * disc
+            v_undisc = v_t                                    # t-money (PFE)
+
+            for k, tr in enumerate(self.swaptions):
+                # discounted close-out value of swaption k at each observation:
+                # the regressed conditional expectation before expiry, the
+                # intrinsic value at expiry, then the exercised swap (physical)
+                # or nothing (cash)
+                evx = int(self._ev_x_np[k])
+                h_disc = torch.clamp_min(v_und[evx, k], 0.0) * disc[evx]
+                exercised = v_und[evx, k] > 0.0
+                bases = bases_of(k, tr.basis_degree, evx)
+                rows = [torch.clamp_min(fitted(bases[ev], h_disc), 0.0)
+                        for ev in range(evx)] + [h_disc]
                 if tr.physical:
-                    ex_val = torch.where(tau <= ev, live, 0.0)
+                    after = torch.where(exercised,
+                                        v_und[evx + 1:, k] * disc[evx + 1:],
+                                        0.0)
                 else:
-                    ex_val = torch.where(tau == ev, live, 0.0)
-                # alive leg: the regressed continuation value, floored (a
-                # long option's close-out value is nonnegative)
-                next_m = next((m for m in range(M) if xs[m] >= ev), None)
-                if next_m is None:
-                    alive_val = torch.zeros_like(live)
-                elif xs[next_m] == ev:
-                    alive_val = torch.clamp_min(cont[next_m], 0.0)
-                elif next_m == 0:
-                    # before the first exercise date every path is alive
-                    alive_val = torch.clamp_min(
-                        fitted(basis_of(ev, u0, tr.basis_degree), y_from[0]),
-                        0.0)
-                else:
-                    # between exercise dates: the normal equations of the
-                    # alive paths only (an exercised path's stopped payoff
-                    # is no longer a sample of the option's future value)
-                    alive = tau > ev
-                    basis = basis_of(ev, u0, tr.basis_degree)
-                    w = alive.to(basis.dtype)
-                    pred = regression_predict(basis, regression_fit(
-                        basis * w, torch.where(alive, y_from[next_m], 0.0),
-                        mesh=mesh))
-                    alive_val = torch.clamp_min(pred.to(ACC_DTYPE), 0.0)
-                rows.append(ex_val + torch.where(tau > ev, alive_val, 0.0))
-            add(tr.notional * torch.stack(rows))          # [E, paths]
+                    after = torch.zeros_like(disc[evx + 1:])
+                add(tr.notional * torch.cat([torch.stack(rows), after]))
+            for kb, tr in enumerate(self.bermudans):
+                # Longstaff-Schwartz backward induction fits the exercise
+                # policy over the exercise dates; every path then carries its
+                # stopping ordinal tau, and the close-out value at each date is
+                # (physical) the live underlying swap on paths with tau <= ev,
+                # plus the regressed continuation value on the alive paths
+                u0 = K_eur + kb
+                xs = [self.observation_indices.index(x)
+                      for x in tr.exercise_indices]           # obs ordinals
+                M = len(xs)
+                bases = bases_of(u0, tr.basis_degree, xs[-1] + 1)
+                z = [v_und[xs[m], u0] * disc[xs[m]] for m in range(M)]
+                # all-paths regressions (the BermudanSwaptionPricer
+                # convention): dec[m] = exercise at m if alive; y_from[m] = the
+                # policy's discounted stopped payoff from exercise date m on
+                dec, cont, y_from = [None] * M, [None] * M, [None] * M
+                dec[M - 1] = z[M - 1] > 0.0
+                cont[M - 1] = torch.zeros_like(z[M - 1])
+                y_from[M - 1] = torch.clamp_min(z[M - 1], 0.0)
+                for m in reversed(range(M - 1)):
+                    cont[m] = fitted(bases[xs[m]], y_from[m + 1])
+                    dec[m] = (z[m] > 0.0) & (z[m] > cont[m])
+                    y_from[m] = torch.where(dec[m], z[m], y_from[m + 1])
+                # stopping ordinal per path (E_n = never exercised); the first
+                # exercise wins, matching y_from
+                tau = torch.full_like(z[0], E_n, dtype=torch.int32)
+                for m in reversed(range(M)):
+                    tau = torch.where(dec[m], xs[m], tau)
+                # exercised leg, all dates at once: the underlying's
+                # remaining periods live on exercised paths (physical), or
+                # only at the settlement instant (cash)
+                live = v_und[:, u0] * disc                    # [E, paths]
+                stopped = (tau <= ev_rows) if tr.physical else (tau == ev_rows)
+                ex_val = torch.where(stopped, live, 0.0)
+                # alive leg, a date at a time to the last exercise date: the
+                # regressed continuation value, floored (a long option's
+                # close-out value is nonnegative); nothing after it
+                alive_vals = []
+                for ev in range(xs[-1] + 1):
+                    next_m = next(m for m in range(M) if xs[m] >= ev)
+                    if xs[next_m] == ev:
+                        alive_vals.append(torch.clamp_min(cont[next_m], 0.0))
+                    elif next_m == 0:
+                        # before the first exercise date every path is alive
+                        alive_vals.append(torch.clamp_min(
+                            fitted(bases[ev], y_from[0]), 0.0))
+                    else:
+                        # between exercise dates: the normal equations of the
+                        # alive paths only (an exercised path's stopped payoff
+                        # is no longer a sample of the option's future value)
+                        alive = tau > ev
+                        w = alive.to(bases.dtype)
+                        pred = regression_predict(bases[ev], fit(
+                            bases[ev] * w,
+                            torch.where(alive, y_from[next_m], 0.0)))
+                        alive_vals.append(
+                            torch.clamp_min(pred.to(ACC_DTYPE), 0.0))
+                alive_val = torch.cat([torch.stack(alive_vals),
+                                       torch.zeros_like(live[xs[-1] + 1:])])
+                add(tr.notional * (ex_val + torch.where(tau > ev_rows,
+                                                        alive_val, 0.0)))
         extra_rows = []
         if self.csa is not None:
-            # pathwise variation margin on the observation grid in time-t
-            # money: the requirement from the LAGGED netted value (margin
-            # period of risk), the MTA applied date by date along the grid
-            c = self.csa
-            lag = int(c.margin_lag)
-            if lag > 0:
-                v_lag = torch.cat([torch.zeros_like(v_undisc[:lag]),
-                                   v_undisc[:-lag]], dim=0)
-            else:
-                v_lag = v_undisc
-            req = (torch.clamp_min(v_lag - c.threshold, 0.0)
-                   - torch.clamp_min(-v_lag - c.threshold_own, 0.0))
-            if c.mta > 0.0:
-                bal, held = torch.zeros_like(req[0]), []
-                for target in req:
-                    bal = torch.where(torch.abs(target - bal) >= c.mta,
-                                      target, bal)
-                    held.append(bal)
-                coll = torch.stack(held)
-            else:
-                coll = req
-            expo_u = v_undisc - coll - c.independent_amount
-            e_disc = expo_u * disc
-            extra_rows = [torch.clamp_min(v_disc, 0.0),
-                          torch.clamp_max(v_disc, 0.0)]
-            pfe_src = expo_u
+            with span("finmath.xva.margin"):
+                # pathwise variation margin on the observation grid in time-t
+                # money: the requirement from the LAGGED netted value (margin
+                # period of risk), the MTA applied date by date along the grid
+                c = self.csa
+                lag = int(c.margin_lag)
+                if lag > 0:
+                    v_lag = torch.cat([torch.zeros_like(v_undisc[:lag]),
+                                       v_undisc[:-lag]], dim=0)
+                else:
+                    v_lag = v_undisc
+                req = (torch.clamp_min(v_lag - c.threshold, 0.0)
+                       - torch.clamp_min(-v_lag - c.threshold_own, 0.0))
+                if c.mta > 0.0:
+                    bal, held = torch.zeros_like(req[0]), []
+                    for target in req:
+                        bal = torch.where(torch.abs(target - bal) >= c.mta,
+                                          target, bal)
+                        held.append(bal)
+                    coll = torch.stack(held)
+                else:
+                    coll = req
+                expo_u = v_undisc - coll - c.independent_amount
+                e_disc = expo_u * disc
+                extra_rows = [torch.clamp_min(v_disc, 0.0),
+                              torch.clamp_max(v_disc, 0.0)]
+                pfe_src = expo_u
         else:
             e_disc = v_disc
             pfe_src = v_undisc
-        # EE, ENE, forward value, standalone EE (, gross EE and ENE): one
-        # all-reduce under a mesh
-        means = path_means([torch.clamp_min(e_disc, 0.0),
-                            torch.clamp_max(e_disc, 0.0), v_disc,
-                            s_plus_disc] + extra_rows, mesh)
-        pfe = _linear_quantiles(gather_paths(pfe_src, mesh),
-                                self._qs)  # [Q, E], t-money
-        return torch.cat([torch.stack(means), pfe], dim=0)
+        with span("finmath.xva.reduce"):
+            # EE, ENE, forward value, standalone EE (, gross EE and ENE): one
+            # all-reduce under a mesh
+            means = path_means([torch.clamp_min(e_disc, 0.0),
+                                torch.clamp_max(e_disc, 0.0), v_disc,
+                                s_plus_disc] + extra_rows, mesh)
+            pfe = _linear_quantiles(gather_paths(pfe_src, mesh),
+                                    self._qs)  # [Q, E], t-money
+            rows = torch.cat([torch.stack(means), pfe], dim=0)
+        self.regressions = regressions
+        return rows
 
     # ------------------------------------------------------------------
     def profile(self, params) -> ExposureProfile:
         """Full dated exposure profile at covariance parameters ``params``:
-        one simulation, one transfer to the host."""
-        with torch.no_grad():
+        one simulation, one transfer to the host, inside the span
+        ``finmath.xva.profile`` (module docstring)."""
+        with span("finmath.xva.profile", trades=len(self.trades),
+                  swaptions=len(self.swaptions),
+                  bermudans=len(self.bermudans),
+                  dates=len(self.observation_indices),
+                  paths=self.engine.num_paths) as sp, torch.no_grad():
             arr = self._profile_rows(self.engine._params(params)).cpu().numpy()
+            sp.set(regressions=self.regressions)
         q0 = 6 if self.csa is not None else 4
         return ExposureProfile(
             times=self._obs_times.copy(),
@@ -1298,6 +1380,8 @@ class SwaptionExposureEngine:
                                        device=self.device)
         self._qs = torch.as_tensor(self.quantiles, dtype=ACC_DTYPE,
                                    device=self.device)
+        #: regressions the last ``profile`` fitted
+        self.regressions = 0
 
     # ------------------------------------------------------------------
     def _collect(self, e, ev, L, N):
@@ -1313,7 +1397,10 @@ class SwaptionExposureEngine:
     def _profile_rows(self, x: torch.Tensor) -> torch.Tensor:
         """``[3 + Q, E]`` float64: EE, ENE, forward value, PFE rows."""
         eng = self.engine
-        v_t, inv_n, srate = _stack(eng._simulate_collect(x, self._collect))
+        with span("finmath.xva.simulate"):
+            v_t, inv_n, srate = _stack(eng._simulate_collect(
+                x, self._collect))
+        self.regressions = self._ev_x
         finite = (torch.isfinite(v_t) & torch.isfinite(inv_n)
                   & torch.isfinite(srate))
         v_t = torch.where(finite, v_t, 0.0)
@@ -1362,9 +1449,13 @@ class SwaptionExposureEngine:
     # ------------------------------------------------------------------
     def profile(self, params) -> ExposureProfile:
         """Full dated exposure profile: one simulation (all regressions and
-        reductions on the device), one transfer to the host."""
-        with torch.no_grad():
+        reductions on the device), one transfer to the host, inside the
+        span ``finmath.xva.profile``."""
+        with span("finmath.xva.profile", trades=1, swaptions=1, bermudans=0,
+                  dates=len(self.observation_indices),
+                  paths=self.engine.num_paths) as sp, torch.no_grad():
             arr = self._profile_rows(self.engine._params(params)).cpu().numpy()
+            sp.set(regressions=self.regressions)
         return ExposureProfile(
             times=self._obs_times.copy(),
             ee=arr[0],

@@ -53,6 +53,7 @@ from torch.func import jacfwd, vmap
 
 from ...parallel.mesh import (check_mesh, mesh_device, rank_seed,
                               replicated, sum_over_ranks)
+from ..brownian_motion import key_for_seed, normal_increments
 from ..curves import DiscountCurve, ForwardCurve, par_swap_rate
 from ..time_discretization import TimeDiscretization
 
@@ -485,18 +486,44 @@ class LMMValuationEngine:
             self.increments = src[:shape[0], :, self._block].to(
                 device=dev, dtype=dtype, copy=True).contiguous()
         else:
-            seed = (self.seed if self.mesh is None
-                    else rank_seed(self.seed, self.mesh.rank))
-            gen = torch.Generator(device=dev).manual_seed(seed)
-            local = shape[:2] + (self._local_paths,)
-            if self.antithetic:
-                half = local[:2] + (self._local_paths // 2,)
-                z = torch.randn(half, generator=gen, dtype=f32, device=dev)
-                z = torch.cat([z, -z], dim=2)
-            else:
-                z = torch.randn(local, generator=gen, dtype=f32, device=dev)
-            self.increments = (z.to(dtype)
-                               * self._p["dts"][:shape[0], None, None].sqrt())
+            self.increments = self._draw(self.seed)
+
+    # ------------------------------------------------------------------
+    def _draw(self, seed: int) -> torch.Tensor:
+        """The engine's own realization for ``seed``: this rank's block of
+        float32 standard normals from the port's Brownian module
+        (``brownian_motion.normal_increments`` on ``key_for_seed``), in the
+        path dtype, scaled by sqrt(dt)."""
+        shape = (self.steps_needed, self.num_factors + int(self.stoch_vol),
+                 self._local_paths)
+        if self.mesh is not None:
+            seed = rank_seed(seed, self.mesh.rank)
+        gen = key_for_seed(seed, self.device)
+        unit = torch.ones(shape[0], dtype=torch.float32, device=self.device)
+        if self.antithetic:
+            z = normal_increments(gen, shape[0], shape[1], shape[2] // 2,
+                                  unit)
+            z = torch.cat([z, -z], dim=2)
+        else:
+            z = normal_increments(gen, *shape, unit)
+        return (z.to(self.dtype)
+                * self._p["dts"][:shape[0], None, None].sqrt())
+
+    def reseed(self, seed: int) -> None:
+        """Draw a fresh realization from ``seed`` on the device, in place of
+        the engine's: every later evaluation prices the paths of a new
+        engine built with that seed, bit for bit, and every table the
+        construction built is kept. Under a mesh each rank draws its block
+        from ``rank_seed(seed, rank)``. Only for an engine that draws its
+        own increments (an injected one swaps them with
+        ``set_increments``)."""
+        if self.injected:
+            raise ValueError(
+                "engine was built with injected increments; use "
+                "set_increments to swap its realization")
+        self.seed = int(seed)
+        self.increments = None              # the old block goes first
+        self.increments = self._draw(self.seed)
 
     # ------------------------------------------------------------------
     def set_increments(self, inc) -> None:

@@ -23,6 +23,19 @@ paths and one injected realization (seeded NumPy, sqrt(dt)-scaled):
   values before expiry: EE, ENE, forward value within 1e-6 of the
   profile's largest value (measured 1.5e-9), the PFE within 32 float32
   ulps of its largest (measured 1.5 ulps).
+Against the JAX package on the stoch-vol benchmark model
+(``build_benchmark_calibration``: 40 libors, 5 factors, blended local and
+stochastic vol, the JAX factors given the port's signs) at 4,096 paths,
+15 dates and one injected realization of the five factors and the vol's
+own driver: a seven-trade netting set (four swaps, two European and one
+Bermudan payer swaption) with and without a CSA with a minimum transfer
+amount, every mean row within 1e-6 of its largest value (measured 5.5e-8)
+and the PFE within 32 float32 ulps of its largest (measured 2 ulps). The
+block is drawn from ``SV_INC_SEED``: on ``INC_SEED``'s, one path's far
+forwards reach the +-1e3 clamp by date 10, the JAX package's compensated
+float32 bond curve (``bond_ratio_cumprod_hi``) overflows there to NaN and
+its mask drops the path, while the port's float64 curve keeps it finite
+(and agrees with ``portbench/reference/xva.py`` in float64 to 2e-11).
 The JAX package's own cases run on the port's own stream with the seeds
 of ``tests/test_xva_extensions.py`` (torch's generator) at its bounds; its
 mesh case becomes the port's ``NotImplementedError`` until the sharding
@@ -240,6 +253,85 @@ def test_swaption_engine_matches_jax(setup, params, strike, jax_runs):
             <= 1e-6 * scale
     for q in ref.pfe:
         assert np.max(np.abs(prof.pfe[q] - ref.pfe[q])) <= _ulps32(ref.pfe[q])
+
+
+SV_PATHS, SV_OBS, SV_INC_SEED = 4_096, tuple(range(1, 16)), 2024
+SV_CSA = dict(threshold=0.0, threshold_own=0.0, mta=0.01,
+              independent_amount=0.0, margin_lag=1)
+
+
+def _sv_trades(m):
+    """Four swaps (one forward-starting), a long and a short European
+    payer swaption and a Bermudan with three exercise dates, from the
+    module ``m`` of either package."""
+    return [m.SwapTrade(1, 16, 0.025, True, 1.0),
+            m.SwapTrade(1, 9, 0.018, False, 0.7),
+            m.SwapTrade(1, 12, 0.021, False, 1.3),
+            m.SwapTrade(5, 14, 0.026, True, 0.9),
+            m.SwaptionTrade(6, 8, 0.024, 1.5),
+            m.SwaptionTrade(4, 6, 0.02, -0.8),
+            m.BermudanSwaptionTrade((4, 6, 8), 14, 0.023, 1.2)]
+
+
+@pytest.fixture(scope="module")
+def jax_stochvol():
+    """The JAX netting-set profiles on the stoch-vol benchmark model,
+    without and with the CSA, on one injected block ``[15, 6, paths]``;
+    the JAX factor reduction carries the port's column signs (a patch of
+    the loaded module while its programs trace)."""
+    import jax.numpy as jnp
+    from finmath_tpu.models.lmm import covariance as jcov
+    from finmath_tpu.models.lmm import exposure as jx
+    from finmath_tpu.models.lmm.benchmark_calibration import (
+        build_benchmark_calibration as jax_build)
+    from finmath_tpu_torch.models.lmm.covariance import FACTOR_SIGNS
+    from finmath_tpu_torch.models.lmm.benchmark_calibration import (
+        CURATED_BASINS)
+
+    reduce = jcov.factor_reduce
+
+    def port_signs(corr, num_factors):
+        R = reduce(corr, num_factors)
+        signs = jnp.asarray(FACTOR_SIGNS[:num_factors])
+        return R * jnp.where(R[..., :1, :] * signs < 0, -1.0, 1.0)
+
+    x = np.asarray(CURATED_BASINS[0])
+    rng = np.random.default_rng(SV_INC_SEED)
+    inc = (np.sqrt(0.5) * rng.standard_normal((len(SV_OBS), 6, SV_PATHS))
+           ).astype(np.float32)
+    model = jax_build(num_paths=256, num_factors=5).model
+    out = dict(x=x, inc=inc)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jcov, "factor_reduce", port_signs)
+        for name, csa in (("no_csa", None), ("csa", jx.CSA(**SV_CSA))):
+            out[name] = jx.NettingSetExposureEngine(
+                model, _sv_trades(jx), num_paths=SV_PATHS, num_factors=5,
+                increments=inc, observation_indices=SV_OBS,
+                csa=csa).profile(x)
+    return out
+
+
+@pytest.mark.parametrize("csa", [None, SV_CSA], ids=["no_csa", "csa"])
+def test_stochvol_netting_set_matches_jax(jax_stochvol, csa):
+    from finmath_tpu_torch.models.lmm import build_benchmark_calibration
+
+    model = build_benchmark_calibration(num_paths=256, device=CPU).model
+    prof = NettingSetExposureEngine(
+        model, _sv_trades(tx), num_paths=SV_PATHS, num_factors=5,
+        increments=jax_stochvol["inc"], observation_indices=SV_OBS,
+        csa=CSA(**csa) if csa else None,
+        device=CPU).profile(jax_stochvol["x"])
+    ref = jax_stochvol["csa" if csa else "no_csa"]
+    rows = ["ee", "ene", "forward_value", "ee_standalone"]
+    rows += ["ee_gross", "ene_gross"] if csa else []
+    for row in rows:
+        want = np.asarray(getattr(ref, row))
+        assert want.shape == (len(SV_OBS),)
+        assert np.max(np.abs(getattr(prof, row) - want)) \
+            <= 1e-6 * np.max(np.abs(want)), row
+    for q, want in ref.pfe.items():
+        assert np.max(np.abs(prof.pfe[q] - np.asarray(want))) \
+            <= _ulps32(want), q
 
 
 # ---------------------------------------------------------------------------
