@@ -175,7 +175,7 @@ Phases, one line of output each (more for the kernel builds), in order:
     100,000 paths, 80 buckets, the largest within 2e-3 of a float64
     central difference on the same increments), its wall (min of 3 after
     a warm-up) and peak device memory; each phase prints its seconds;
-25. ``bench.py:1474 bench_exposure`` at full width (no kernel): the ATM
+25. ``bench.py:1474 bench_exposure`` at full width: the ATM
     setup (80 libors, 1 factor) at 50,000 paths and its initial
     parameters; the 19-date EE/ENE/PFE profile of the 10Y par payer swap
     over periods [4, 20) at quantiles (0.95, 0.99): the cold call and the
@@ -183,7 +183,16 @@ Phases, one line of output each (more for the kernel builds), in order:
     the martingale error under 1e-3; then the 20-trade netting set drawn
     from ``numpy.random.default_rng(7)`` as the bench draws it: its walls,
     peak netted and standalone EE, the netting benefit, the martingale
-    error under 2e-3;
+    error under 2e-3. Every profile collects each date in one launch of
+    the collector kernel (``csrc/exposure_collect.cu``): the netting set's
+    six profiles launch it once a date each (``LAUNCHES``, zeroed just
+    before them), and on one simulation of its float32 paths (a tail
+    block: 50,000 is not a multiple of 128) each date's launch against
+    the plain version on the same forwards: the same broken paths, 1/N
+    bit for bit, every output within 1e-4 (the worst case of 39-term
+    float32 annuities summed in another order at these notionals), the
+    device times of both over the dates and the bound from the bytes;
+    phase 27 checks the mixed set's underlyings the same way;
 26. ``bench.py:1558 bench_cva_deltas`` on phase 25's swap engine: the
     80-bucket dCVA/dL0 ladder at a 1.2% hazard from one reverse pass (cold
     call, min of 3 warm walls, peak device memory), all finite, every
@@ -373,14 +382,14 @@ Phases, one line of output each (more for the kernel builds), in order:
    ladder and local-vol solve, each against the same call's unprofiled
    wall.
 
-Then the whole script's seconds, one JSON line with the nine kernels'
+Then the whole script's seconds, one JSON line with the ten kernels'
 numbers (``bound_ms`` is the least time of the same work on an
 H100: the larger of the operations counted from the shapes over the
 published 67 TFLOP/s float32, integer operations included, and the bytes
 over 3.35 TB/s; that peak counts an FMA as two operations, so a kernel that
 issues none, as the slice D1 pricers do, can reach at most half of it;
 the float64 Black inversion's operations over the published 34 TFLOP/s
-float64)
+float64; the collector's bytes alone)
 and, last, the device line ``{"ok": true, "device": {...}}``. Any failure
 raises and exits non-zero before those lines; there is no CPU path.
 """
@@ -2008,15 +2017,78 @@ def _engine_options(torch, smi, bermudan_value):
 
 
 
-def _exposure(torch, smi) -> dict:
+#: the collector kernel's gate against its plain version: the worst case
+#: of a 39-term float32 annuity (at most 20 in the ATM setup's periods)
+#: summed in another order, 2 m u |ann| ~ 1e-4 relative, times the
+#: strikes and notionals of phases 25 and 27 (at most 0.03 and 2, 20
+#: trades), and the par rates' share of it
+COLLECT_MAX_ABS_ERR = 1e-4
+
+
+def _collect_check(torch, engine, x):
+    """The collector kernel against its plain version on one simulation of
+    a netting-set engine's paths, date by date on the same forwards:
+    ``(max_abs_err, kernel_ms, plain_ms, bound_ms)``, the largest gap of
+    any output on the paths both keep, and each date's device time (CUDA
+    events, median of 5) and least time (the bytes a launch reads and
+    writes over the memory rate) summed over the dates. Raises where the
+    two break different paths or 1/N differs."""
+    from finmath_tpu_torch.ops import exposure_collect as xc
+
+    plan = engine._collect_plan
+    paths = engine.engine._local_paths
+    blocks = []
+    with torch.no_grad():
+        engine.engine._simulate_collect(
+            x, lambda e, ev, L, N: blocks.append((L.clone(), N.clone())))
+    got = xc.collect_buffers(plan, paths, "cuda")
+    ref = xc.collect_buffers(plan, paths, "cuda")
+    K = plan.underlyings
+    err = kernel_ms = plain_ms = nbytes = 0.0
+    with torch.no_grad():
+        for ev, (L, N) in enumerate(blocks):
+            kernel_ms += _launch_ms(
+                torch, lambda L=L, N=N, ev=ev: xc.exposure_collect(
+                    L, N, plan, ev, got))
+            plain_ms += _launch_ms(
+                torch, lambda L=L, N=N, ev=ev: xc.write_rows(
+                    ref, ev, xc.exposure_collect_reference(L, N, plan, ev)))
+            keep = []
+            for out in (got, ref):
+                ok = (torch.isfinite(out.net[ev]) & torch.isfinite(out.inv[ev])
+                      & torch.isfinite(out.plus[ev]))
+                keep.append(ok & out.und_finite[ev] if K else ok)
+            if not torch.equal(keep[0], keep[1]):
+                raise SystemExit(f"chip_smoke: the collector kernel breaks "
+                                 f"other paths than its plain version at "
+                                 f"date {plan.dates[ev]}")
+            ok = keep[1]
+            if not torch.equal(got.inv[ev][ok], ref.inv[ev][ok]):
+                raise SystemExit(f"chip_smoke: the collector kernel's 1/N "
+                                 f"differs at date {plan.dates[ev]}")
+            for name in ("net", "plus", "und", "rates"):
+                a, b = getattr(got, name), getattr(ref, name)
+                if a is not None:
+                    gap = (a[ev].double() - b[ev].double())[..., ok].abs()
+                    err = max(err, float(gap.max()))
+            nbytes += (L.numel() * L.element_size()
+                       + (N.numel() * N.element_size() if plan.spot else 0)
+                       + 24 * paths)
+            if K:
+                nbytes += K * paths * (8 + got.rates.element_size()) + paths
+    return err, kernel_ms, plain_ms, nbytes / PEAK_BYTES_PER_S * 1e3
+
+
+def _exposure(torch, smi):
     """Phases 25-27: ``bench.py:1474 bench_exposure`` and
     ``bench.py:1558 bench_cva_deltas`` at full width, then the XVA
     extensions (a mixed netting set with and without a CSA, FVA, dynamic
     IM and MVA, the swaption engine). Returns the calls phase 6 profiles,
-    by name."""
+    by name, and the collector kernel's row of the final JSON line."""
     from finmath_tpu_torch.models.curves import par_swap_rate
     from finmath_tpu_torch.models.lmm import build_atm_calibration
     from finmath_tpu_torch.models.lmm import exposure as xv
+    from finmath_tpu_torch.ops import exposure_collect as xc
 
     # -- 25: the 19-date profile of a 10Y par payer swap, a 20-trade set --
     t_phase = time.perf_counter()
@@ -2042,7 +2114,11 @@ def _exposure(torch, smi) -> dict:
                                    notional=float(rng.uniform(0.5, 2.0))))
     nset = xv.NettingSetExposureEngine(model, trades, num_paths=EXPOSURE_PATHS,
                                        num_factors=1, device="cuda")
+    xc.LAUNCHES = 0
     n_cold_s, n_wall_s, nprof = _walls(torch, lambda: nset.profile(p0), 5)
+    collect_launches = xc.LAUNCHES
+    c_err, c_ms, c_plain_ms, c_bound_ms = _collect_check(
+        torch, nset, nset.engine._params(p0))
     n_mart = float(np.max(np.abs(nprof.forward_value
                                  - nset.analytic_forward_values())))
     out = {
@@ -2058,7 +2134,11 @@ def _exposure(torch, smi) -> dict:
             "peak_netted_ee": float(np.max(nprof.ee)),
             "peak_standalone_ee": float(np.max(nprof.ee_standalone)),
             "peak_netting_benefit": float(np.max(nprof.netting_benefit)),
-            "martingale_max_abs_err": n_mart}}
+            "martingale_max_abs_err": n_mart},
+        "collector_kernel": {
+            "launches_six_profiles": collect_launches,
+            "max_abs_err": c_err, "kernel_ms_profile": c_ms,
+            "plain_ms_profile": c_plain_ms, "bound_ms_profile": c_bound_ms}}
     print(f"phase 25 bench_exposure ({smi}): " + json.dumps(out), flush=True)
     checks = {
         "19 dates, all finite": bool(
@@ -2069,6 +2149,10 @@ def _exposure(torch, smi) -> dict:
             np.all(np.isfinite(nprof.ee))
             and np.all(nprof.netting_benefit >= -1e-12)),
         "netting set martingale < 2e-3": n_mart < 2e-3,
+        "collector kernel: one launch a date of each netting-set profile":
+            collect_launches == 6 * len(nprof.times),
+        f"collector kernel within {COLLECT_MAX_ABS_ERR} of its plain "
+        f"version": c_err <= COLLECT_MAX_ABS_ERR,
     }
     failed = [name for name, ok in checks.items() if not ok]
     if failed:
@@ -2150,6 +2234,7 @@ def _exposure(torch, smi) -> dict:
                                      num_paths=EXPOSURE_PATHS, num_factors=1,
                                      device="cuda")
     s_cold_s, s_wall_s, sprof = _walls(torch, lambda: swpt.profile(p0), 3)
+    u_err = _collect_check(torch, plain, plain.engine._params(p0))[0]
     up_to_x = sprof.forward_value[:swpt._ev_x + 1]
     flat = float(np.max(np.abs(up_to_x - up_to_x[-1])))
     out = {
@@ -2173,7 +2258,8 @@ def _exposure(torch, smi) -> dict:
                             "cold_ms": s_cold_s * 1e3,
                             "wall_ms": s_wall_s * 1e3,
                             "value": float(up_to_x[-1]),
-                            "forward_value_flat_to_expiry": flat}}
+                            "forward_value_flat_to_expiry": flat},
+        "collector_kernel_mixed_set_max_abs_err": u_err}
     print(f"phase 27 XVA extensions ({smi}): " + json.dumps(out), flush=True)
     # the rectangle rules of tests/test_xva_extensions.py, by hand
     t = cprof.times
@@ -2197,18 +2283,35 @@ def _exposure(torch, smi) -> dict:
             np.all(im.expected_im >= 0.0) and im.peak_im() > 0.0
             and np.isclose(mva, mva_hand, rtol=1e-12, atol=0.0)),
         "swaption forward value flat to expiry (1e-10)": flat < 1e-10,
+        f"collector kernel within {COLLECT_MAX_ABS_ERR} of its plain "
+        f"version on the mixed set's underlyings":
+            u_err <= COLLECT_MAX_ABS_ERR,
     }
     failed = [name for name, ok in checks.items() if not ok]
     if failed:
         raise SystemExit(f"chip_smoke: phase 27 failed: {failed}")
     print(f"phase 27 seconds: {time.perf_counter() - t_phase:.1f}",
           flush=True)
-    return {"phase 25 swap profile (50,000 paths)": lambda: eng.profile(p0),
-            "phase 25 20-trade profile": lambda: nset.profile(p0),
-            "phase 26 cva_forward_deltas": lambda: eng.cva_forward_deltas(
-                p0, hazard_rate=0.012),
-            "phase 27 mixed-set profile": lambda: plain.profile(p0),
-            "phase 27 im_profile": lambda: nset.im_profile(p0)}
+    calls = {"phase 25 swap profile (50,000 paths)": lambda: eng.profile(p0),
+             "phase 25 20-trade profile": lambda: nset.profile(p0),
+             "phase 26 cva_forward_deltas": lambda: eng.cva_forward_deltas(
+                 p0, hazard_rate=0.012),
+             "phase 27 mixed-set profile": lambda: plain.profile(p0),
+             "phase 27 im_profile": lambda: nset.im_profile(p0)}
+    return calls, {
+        "name": "exposure_collect",
+        "route": "cuda",
+        "source": "finmath_tpu_torch/csrc/exposure_collect.cu",
+        "replaces": "no Pallas kernel: finmath_tpu/models/lmm/exposure.py:659 "
+                    "the per-date collector, fused by XLA",
+        "launches": collect_launches,
+        "max_abs_err": max(c_err, u_err),
+        "ms": c_ms,
+        "plain_ms": c_plain_ms,
+        "bound_ms": c_bound_ms,
+        "bound_by": "bytes",
+        "library_ms": None,
+    }
 
 
 def _smile(torch, smi) -> dict:
@@ -5472,14 +5575,15 @@ def _examples_f4(torch, smi) -> None:
     import traceback
 
     from finmath_tpu_torch.ops import _swaption_paths as sp
-    from finmath_tpu_torch.ops import (black_residuals, kernels, lmm_kernel,
+    from finmath_tpu_torch.ops import (black_residuals, exposure_collect,
+                                       kernels, lmm_kernel,
                                        lmm_stochvol_kernel)
 
     def reset():
         kernels.LAUNCHES.update(dict.fromkeys(kernels.LAUNCHES, 0))
         sp.LAUNCHES.update(dict.fromkeys(sp.LAUNCHES, 0))
         lmm_kernel.LAUNCHES = lmm_stochvol_kernel.LAUNCHES = 0
-        black_residuals.LAUNCHES = 0
+        black_residuals.LAUNCHES = exposure_collect.LAUNCHES = 0
 
     def counts() -> dict:
         got = {k: v for k, v in {**kernels.LAUNCHES, **sp.LAUNCHES}.items()
@@ -5490,6 +5594,8 @@ def _examples_f4(torch, smi) -> None:
             got["lmm_stochvol_products"] = lmm_stochvol_kernel.LAUNCHES
         if black_residuals.LAUNCHES:
             got["black_residuals"] = black_residuals.LAUNCHES
+        if exposure_collect.LAUNCHES:
+            got["exposure_collect"] = exposure_collect.LAUNCHES
         return got
 
     t_phase = time.perf_counter()
@@ -6017,9 +6123,10 @@ def main(argv=None) -> int:
     _parity(torch, smi)
     _engine_options(torch, smi, bermudan_value)
 
-    # -- 25-30: the exposure and XVA layer, the smile layer, the hybrid
-    # asset-LMM and the Hull-White slice (no kernel) ------------------------
-    later = {**_exposure(torch, smi), **_smile(torch, smi),
+    # -- 25-30: the exposure and XVA layer (the collector kernel), the
+    # smile layer, the hybrid asset-LMM and the Hull-White slice ------------
+    exposure_calls, collect_row = _exposure(torch, smi)
+    later = {**exposure_calls, **_smile(torch, smi),
              **_hybrid(torch, smi), **_hull_white(torch, smi)}
 
     # -- 31-33: slice E2, credit with wrong-way risk, cross-currency and
@@ -6084,7 +6191,7 @@ def main(argv=None) -> int:
         "bound_ms": iv_bound_ms,
         "bound_by": iv_bound_by,
         "library_ms": None,
-    }] + mc_rows + pricer_rows}))
+    }, collect_row] + mc_rows + pricer_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

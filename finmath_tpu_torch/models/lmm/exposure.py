@@ -46,7 +46,10 @@ is a float64 ``cumprod`` in the collect dtype (the engine's
 ``_event_contrib``; the JAX package's compensated float32 scan is a TPU
 workaround), and the annuities are one ``[trades, n - e] @ [n - e,
 paths]`` product in the path dtype (float32 by default, TF32 off), cast to
-float64, as in the JAX module. The regressions are
+float64, as in the JAX module. A profile's collection at each date is
+``ops.exposure_collect``: on the card one launch of its kernel a date
+(the curve, every trade's value and the buffer writes), on the CPU that
+composition. The regressions are
 ``ops.conditional_expectation.regression_fit`` (float64 normal
 equations); the expectations and quantiles are float64 over the path
 axis. Each public call reads its result back in one transfer.
@@ -64,7 +67,8 @@ Spans (``utils.profiling.span``): ``finmath.xva.profile`` is the root of
 one ``profile`` of either engine (attributes ``trades``, ``swaptions``,
 ``bermudans``, ``dates``, ``paths`` and ``regressions``, the fits it
 made); inside it ``finmath.xva.simulate`` (the engine's step loop, with
-one ``finmath.xva.collect`` a date, then the discount factors),
+one ``finmath.xva.collect`` a date, attribute ``kernel``: whether the
+date took the collector kernel, then the discount factors),
 ``finmath.xva.regress`` (the swaptions' close-out values),
 ``finmath.xva.margin`` (the CSA's scan, with a CSA) and
 ``finmath.xva.reduce`` (the means, the sort and the quantiles).
@@ -88,6 +92,15 @@ import numpy as np
 import torch
 
 from ...ops.conditional_expectation import regression_fit, regression_predict
+from ...ops.exposure_collect import (
+    CollectPlan,
+    collect_buffers,
+    exposure_collect,
+    exposure_collect_reference,
+    pack_rows,
+    swap_values,
+    zero_broken,
+)
 from ...ops.random_variable import ACC_DTYPE
 from ...parallel.mesh import gather_paths, path_mean, path_means, replicated
 from ...utils.profiling import span
@@ -549,16 +562,6 @@ def _bond_curve(engine: LMMValuationEngine, e: int, L: torch.Tensor,
     return torch.cat([torch.ones_like(cp[:1]), cp]), dead
 
 
-def _swap_values(cp, table, strikes, path_dtype):
-    """(``[T, paths]`` remaining-swap values, ``[T, paths]`` annuities),
-    float64, from the bond curve: the annuity is one product in the path
-    dtype, cast to float64."""
-    ann = (table["mask"] @ cp[1:].to(path_dtype)).to(ACC_DTYPE)
-    p_start = cp[table["start"]].to(ACC_DTYPE)
-    p_end = cp[table["end"]].to(ACC_DTYPE)
-    return p_start - p_end - strikes[:, None] * ann, ann
-
-
 def _inv_numeraire(model, cp, N):
     """1/N(T_e) per path, float64: the spot account ``N`` or, under the
     terminal measure, 1/P(T_e, T_n) from the bond curve."""
@@ -708,19 +711,20 @@ class NettingSetExposureEngine:
         # [max(e, first exercise), last) at every observation), each one
         # batch of one annuity product per date
         deltas = model.deltas
+        swap_specs = [(tr.first_index, tr.last_index, tr.strike)
+                      for tr in self.swaps]
+        und_specs = ([(tr.exercise_index, tr.last_index, tr.strike)
+                      for tr in self.swaptions]
+                     + [(tr.exercise_indices[0], tr.last_index, tr.strike)
+                        for tr in self.bermudans])
         (self._pay_mask_np, self._start_m1_np, self._is_fwd_np,
          sw_alive, self._end_m1_np, self._strikes_np) = _swap_geometry(
-            [(tr.first_index, tr.last_index, tr.strike)
-             for tr in self.swaps], obs, deltas, n)
+            swap_specs, obs, deltas, n)
         self._coef_np = sw_alive * np.asarray(
             [(1.0 if tr.payer else -1.0) * tr.notional
              for tr in self.swaps])[None, :]
-        (u_pay_mask, u_start_m1, u_is_fwd, self._u_alive_np, u_end_m1,
-         self._u_strikes_np) = _swap_geometry(
-            [(tr.exercise_index, tr.last_index, tr.strike)
-             for tr in self.swaptions]
-            + [(tr.exercise_indices[0], tr.last_index, tr.strike)
-               for tr in self.bermudans], obs, deltas, n)
+        (u_pay_mask, u_start_m1, u_is_fwd, u_alive, u_end_m1,
+         u_strikes) = _swap_geometry(und_specs, obs, deltas, n)
         self._ev_x_np = np.asarray(
             [obs.index(tr.exercise_index) for tr in self.swaptions],
             dtype=np.int64)
@@ -739,13 +743,26 @@ class NettingSetExposureEngine:
         self._swap_tables = _relative_tables(
             obs, self._pay_mask_np, self._start_m1_np, self._is_fwd_np,
             self._end_m1_np, pdt, dev)
-        self._und_tables = _relative_tables(
-            obs, u_pay_mask, u_start_m1, u_is_fwd, u_end_m1, pdt, dev)
         self._coef = f64(self._coef_np)
         self._strikes = f64(self._strikes_np)
-        self._u_alive = f64(self._u_alive_np)
-        self._u_strikes = f64(self._u_strikes_np)
         self._df_obs = f64(self._df_obs_np)
+        # the profile's collector (ops/exposure_collect.py): the dense
+        # tables of its plain version, the kernel's packed table
+        rows, reals, counts = pack_rows(obs, swap_specs, self._coef_np,
+                                        und_specs, dev)
+        K = len(und_specs)
+        self._collect_plan = CollectPlan(
+            dates=tuple(obs), deltas=self.engine._t["deltas64"],
+            swap_tables=self._swap_tables, swap_strikes=self._strikes,
+            swap_coefs=self._coef,
+            und_tables=(_relative_tables(obs, u_pay_mask, u_start_m1,
+                                         u_is_fwd, u_end_m1, pdt, dev)
+                        if K else None),
+            und_strikes=f64(u_strikes) if K else None,
+            und_alive=f64(u_alive) if K else None,
+            rows=rows, reals=reals, counts=counts, path_dtype=pdt,
+            collect_dtype=self.engine.collect_dtype,
+            spot=model.measure == "spot")
         self._qs = f64(self.quantiles)
         #: regressions the last ``profile`` fitted
         self.regressions = 0
@@ -762,70 +779,33 @@ class NettingSetExposureEngine:
         """Pathwise (netted swap V(t) in units of time t, standalone swap
         positive-part sum, swaption-underlying values, underlying par
         rates, 1/N(t)) at the observation with ordinal ``ev`` (tenor index
-        ``e``)."""
-        eng = self.engine
-        cp, _ = _bond_curve(eng, e, L, N)
-        inv_n = _inv_numeraire(self.model, cp, N)
-        raw, _ = _swap_values(cp, self._swap_tables[ev], self._strikes,
-                              eng.dtype)
-        v_trade = self._coef[ev][:, None] * raw
-        v_net = torch.sum(v_trade, dim=0)                          # [paths]
-        s_plus = torch.sum(torch.clamp_min(v_trade, 0.0), dim=0)   # [paths]
-        if not (self.swaptions or self.bermudans):
-            return v_net, s_plus, inv_n
-        # the underlyings: remaining swap value and par rate (the
-        # regression feature), unit notional, alive-masked
-        raw_u, ann_u = _swap_values(cp, self._und_tables[ev],
-                                    self._u_strikes, eng.dtype)
-        alive = self._u_alive[ev][:, None]
-        v_und = alive * raw_u                                      # [K, paths]
-        float_u = v_und + self._u_strikes[:, None] * ann_u * alive
-        srate = float_u / torch.clamp_min(ann_u, 1e-12)
-        return v_net, s_plus, v_und, srate, inv_n
+        ``e``): the plain version of the collector
+        (``ops.exposure_collect.exposure_collect_reference``)."""
+        return exposure_collect_reference(L, N, self._collect_plan, ev)
 
     def _simulate_into(self, x: torch.Tensor):
         """One simulation: the netted value, the standalone positive-part
-        sum and 1/N ``[E, paths]`` float64 (stacked after it, as the JAX
-        module's), and with optionality the underlyings' values ``[E, K,
-        paths]`` float64 and par rates in the path dtype (the regressions'
-        feature, which they read in that dtype), written date by date
-        into buffers (a stacked list of these would hold them twice). A
-        path whose outputs at a date are not all finite reads 0 in each
-        of them there; an underlying's test is a date's one sum of ``v -
-        v`` (0 where all are finite, NaN otherwise), so a date costs a few
-        launches more than a swap-only set's."""
+        sum and 1/N ``[E, paths]`` float64, and with optionality the
+        underlyings' values ``[E, K, paths]`` float64 and par rates in the
+        path dtype (the regressions' feature, which they read in that
+        dtype), written date by date into buffers (a stacked list of these
+        would hold them twice). A path whose outputs at a date are not all
+        finite reads 0 in each of them there
+        (``ops.exposure_collect.zero_broken``)."""
         eng = self.engine
-        E_n = len(self.observation_indices)
-        K = len(self.swaptions) + len(self.bermudans)
-        paths, dev = eng._local_paths, self.device
-        if K:
-            und = torch.empty((E_n, K, paths), dtype=ACC_DTYPE, device=dev)
-            rates = torch.empty((E_n, K, paths), dtype=eng.dtype, device=dev)
-            und_finite = torch.empty((E_n, paths), dtype=torch.bool,
-                                     device=dev)
+        out = collect_buffers(self._collect_plan, eng._local_paths,
+                              self.device)
 
         def collect(e, ev, L, N):
-            with span("finmath.xva.collect"):
-                out = self._collect(e, ev, L, N)
-                if K:
-                    v_u, s_u = out[2], out[3]
-                    und_finite[ev] = ((v_u - v_u) + (s_u - s_u)).sum(
-                        dim=0) == 0.0
-                    und[ev].copy_(v_u)
-                    rates[ev].copy_(s_u)
-                return out[0], out[1], out[-1]
+            # one launch of the collector kernel on the card, the plain
+            # version on the CPU
+            with span("finmath.xva.collect", kernel=L.is_cuda):
+                exposure_collect(L, N, self._collect_plan, ev, out)
 
-        v_t, s_plus, inv_n = _stack(eng._simulate_collect(x, collect))
-        finite = (torch.isfinite(v_t) & torch.isfinite(inv_n)
-                  & torch.isfinite(s_plus))
-        if K:
-            finite = finite & und_finite
-        broken = ~finite
-        bufs = [v_t, s_plus, inv_n] + ([und, rates] if K else [])
-        for buf in bufs:
-            buf.masked_fill_(broken if buf.dim() == 2 else broken[:, None],
-                             0.0)
-        return bufs
+        eng._simulate_collect(x, collect)
+        zero_broken(out)
+        return [out.net, out.plus, out.inv] + (
+            [out.und, out.rates] if out.und is not None else [])
 
     def _profile_rows(self, x: torch.Tensor) -> torch.Tensor:
         """``[4 (+2 with a CSA) + Q, E]`` float64: EE, ENE, forward value,
@@ -1087,8 +1067,8 @@ class NettingSetExposureEngine:
             # finite on dead paths
             inv_n = 1.0 / torch.where(
                 dead, 1.0, (N if spot else cp[-1]).to(ACC_DTYPE))
-            raw, _ = _swap_values(cp, self._swap_tables[ev], self._strikes,
-                                  eng.dtype)
+            raw, _ = swap_values(cp, self._swap_tables[ev], self._strikes,
+                                 eng.dtype)
             v_net = torch.sum(self._coef[ev][:, None] * raw, dim=0)
             return (torch.where(dead, 0.0, v_net),
                     torch.where(dead, 0.0, inv_n))
@@ -1180,8 +1160,8 @@ class NettingSetExposureEngine:
 
         def collect(e, ev, L, N):
             cp, _ = _bond_curve(eng, e, L, N)
-            raw, _ = _swap_values(cp, self._swap_tables[ev], self._strikes,
-                                  eng.dtype)
+            raw, _ = swap_values(cp, self._swap_tables[ev], self._strikes,
+                                 eng.dtype)
             v_net = torch.sum(self._coef[ev][:, None] * raw, dim=0)
             return v_net, L[0].to(ACC_DTYPE), _inv_numeraire(model, cp, N)
 
@@ -1388,8 +1368,8 @@ class SwaptionExposureEngine:
         """(V_swap(t) in units of time t, 1/N(t), par rate of the remaining
         underlying) at the observation with ordinal ``ev``."""
         cp, _ = _bond_curve(self.engine, e, L, N)
-        raw, ann = _swap_values(cp, self._tables[ev], self._strikes,
-                                self.engine.dtype)
+        raw, ann = swap_values(cp, self._tables[ev], self._strikes,
+                               self.engine.dtype)
         v_t, ann = raw[0], ann[0]                                  # [paths]
         srate = (v_t + self.strike * ann) / torch.clamp_min(ann, 1e-12)
         return v_t, _inv_numeraire(self.model, cp, N), srate
